@@ -64,7 +64,8 @@ def test_bake_equals_jax(bakes):
             np.testing.assert_array_equal(b[perm], a, err_msg=key)
         elif key == "geo.mxu_center":      # a mean: summation order differs
             np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=key)
-        elif key in ("emitters.etri_idx", "emitters.etri_cdf"):
+        elif key in ("emitters.etri_idx", "emitters.etri_cdf") \
+                or key.startswith("edges."):
             continue                       # below, through the permutation
         else:
             assert a.dtype == b.dtype, key
@@ -75,6 +76,43 @@ def test_bake_equals_jax(bakes):
         assert ej[e].keys() == et[e].keys()
         for tri, p in ej[e].items():
             assert abs(et[e][tri] - p) < 1e-6
+
+
+def _canonical_edges(a, tri_map=None):
+    """Edge rows in an order-free form: faces ordered by soup triangle id
+    (tri_map takes device ids to soup ids), endpoints ordered
+    lexicographically (e follows p0 → p1), rows sorted by endpoints."""
+    e = {k: np.array(a[f"edges.{k}"]) for k in bridge.EDGE_KEYS}
+    for k in ("tri1", "tri2"):
+        if tri_map is not None:
+            e[k] = np.where(e[k] >= 0, tri_map[np.maximum(e[k], 0)], -1)
+    swap = (e["tri2"] >= 0) & (e["tri2"] < e["tri1"])
+    for x, y in (("n1", "n2"), ("t1", "t2"), ("tri1", "tri2")):
+        s = swap.reshape(-1, *([1] * (e[x].ndim - 1)))
+        e[x], e[y] = np.where(s, e[y], e[x]), np.where(s, e[x], e[y])
+    rev = np.array([tuple(q) > tuple(p) for p, q in zip(e["p0"], e["p1"])],
+                   bool).reshape(-1, 1) if len(e["p0"]) else \
+        np.zeros((0, 1), bool)
+    e["p0"], e["p1"] = (np.where(rev, e["p1"], e["p0"]),
+                        np.where(rev, e["p0"], e["p1"]))
+    e["e"] = np.where(rev, -e["e"], e["e"])
+    order = np.lexsort(np.concatenate([e["p0"], e["p1"]], 1).T[::-1])
+    return {k: v[order] for k, v in e.items()}
+
+
+def test_edge_table_equals_jax(bakes):
+    """The port classifies the soup-order triangles and JAX the BVH-order
+    ones, so rows come out in another order and an edge's two faces may be
+    listed the other way round; after a canonical form of each table
+    (faces by soup triangle id through bvh.tri_order) every value is
+    computed by the same numpy code on the same triangles."""
+    ja, perm, ta, _ = bakes
+    ej = _canonical_edges(ja, tri_map=perm)
+    et = _canonical_edges(ta)
+    assert len(et["p0"]) == len(ej["p0"]) > 0
+    for k in bridge.EDGE_KEYS:
+        assert ej[k].dtype == et[k].dtype, k
+        np.testing.assert_array_equal(et[k], ej[k], err_msg=k)
 
 
 def test_bridge_round_trip(bakes):
@@ -90,6 +128,8 @@ def test_bridge_round_trip(bakes):
                                       err_msg=key)
     assert data.geo.tri_feat.shape == (data.geo.num_tris, 24)
     assert data.geo.tri_feat.dtype == torch.float32
+    assert data.geo.cone_tris.shape == (data.geo.num_tris, 9)
+    assert data.edges.pack.shape == (data.edges.count, 24)
     built = build_scene(tmake_box_scene(res=16, spp=4), device="cpu")
     assert len(built.spectral_per_sensor) == len(per_sensor) == 1
     assert built.device == torch.device("cpu")

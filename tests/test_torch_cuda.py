@@ -1,5 +1,5 @@
-"""K1/K2 and the classical render on a CUDA card against the plain torch
-twins. Marked `gpu`: each test skips without a card. This file imports no
+"""K1/K2/K3 and the classical and wave renders on a CUDA card against the
+plain torch versions. Marked `gpu`: each test skips without a card. This file imports no
 jax, so it also runs on GPU hosts without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from wave_tracer_tpu_torch.accel import cone_kernels as ck
 from wave_tracer_tpu_torch.accel import ray_kernels as rk
+from wave_tracer_tpu_torch.integrator.traversal import segment_boundaries
 from wave_tracer_tpu_torch.render import render_scene
 from wave_tracer_tpu_torch.scene import build_scene
 from wave_tracer_tpu_torch.scene.procedural import make_box_scene
@@ -72,3 +74,55 @@ def test_render_cuda_matches_cpu(cuda):
     assert (np.abs(img_c - img_h) <= 1e-3 * scale).all(-1).mean() >= 0.98
     assert st_c["device_counters"]["rays_cast"] \
         == st_h["device_counters"]["rays_cast"]
+
+
+@pytest.mark.gpu
+def test_cone_kernel_matches_plain(cuda):
+    """K3 against _minz_ref on seeded random cones, at N a multiple of the
+    256-lane block and not, with and without the triangle-range split;
+    test_mxu_cone.py's bars."""
+    r = np.random.default_rng(7)
+    for T, N in ((700, 256), (3000, 4100), (12, 20000)):
+        p0 = r.uniform(-4, 4, (T, 3)).astype(np.float32)
+        e = r.uniform(-1, 1, (2, T, 3)).astype(np.float32)
+        ro = r.uniform(-5, 5, (N, 3)).astype(np.float32)
+        rd = r.normal(size=(N, 3)).astype(np.float32)
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        xh = np.cross(rd, r.normal(size=(N, 3))).astype(np.float32)
+        xh /= np.linalg.norm(xh, axis=-1, keepdims=True)
+        t = [torch.from_numpy(x).to(cuda) for x in (p0, e[0], e[1], ro, rd,
+                                                     xh)]
+        lane = [torch.from_numpy(r.uniform(lo, hi, N).astype(np.float32))
+                .to(cuda) for lo, hi in ((0.6, 1.0), (0.01, 0.3),
+                                         (0.01, 0.2))]
+        zmax = torch.full((N,), 30.0, device=cuda)
+        ex = torch.from_numpy(r.integers(-1, T, N).astype(np.int32)).to(cuda)
+        lam = torch.full((N,), 0.05, device=cuda)
+        args = (ck.cone_tris(*t[:3]), *t[3:], *lane, zmax, ex,
+                segment_boundaries(lam), 1e-7)
+        before = ck.LAUNCHES["cone_minz"]
+        zc, cnt = ck.cone_minz(*args)
+        zr, cr = ck._minz_ref(*args)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["cone_minz"] == before + 1
+        finite = torch.isfinite(zr)
+        assert finite.any().item()
+        assert (torch.isfinite(zc) == finite).float().mean().item() > 0.999
+        both = finite & torch.isfinite(zc)
+        torch.testing.assert_close(zc[both], zr[both], rtol=2e-4, atol=2e-4)
+        ok = (cnt - cr).abs() <= torch.clamp(0.02 * cr, min=2)
+        assert ok.float().mean().item() > 0.97
+
+
+@pytest.mark.gpu
+def test_wave_render_cuda_matches_cpu(cuda):
+    scene = make_box_scene(res=16, spp=2)
+    scene.integrator.fsd = True
+    scene.integrator.max_depth = 5
+    built = build_scene(scene, device=cuda)
+    img_c, st_c = render_scene(built, device="cuda")
+    img_h, st_h = render_scene(built, device="cpu")
+    assert st_c["mode"] == st_h["mode"] == "wave-compact"
+    np.testing.assert_allclose(img_c.mean((0, 1)), img_h.mean((0, 1)),
+                               rtol=0.02)
+    assert np.corrcoef(img_c.ravel(), img_h.ravel())[0, 1] >= 0.999

@@ -98,13 +98,13 @@ def test_pool_size_does_not_change_the_image(renders):
 def test_unported_configurations_raise(renders):
     built = renders["own_built"]
     assert Renderer(built).device == "cuda"
-    built.scene.integrator.fsd = True
+    built.scene.integrator.type = "plt_bdpt"
     try:
         with pytest.raises(NotImplementedError):
             render_scene(built, device="cpu")
         built.scene.integrator.ray_trace_only = True   # classical again
-        img, _ = render_scene(built, spp=1, device="cpu", pool_lanes=256)
-        assert np.isfinite(img).all()
+        img, st = render_scene(built, spp=1, device="cpu", pool_lanes=256)
+        assert np.isfinite(img).all() and st["mode"] == "ray-compact"
     finally:
-        built.scene.integrator.fsd = False
+        built.scene.integrator.type = "plt_path"
         built.scene.integrator.ray_trace_only = False

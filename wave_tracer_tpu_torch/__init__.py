@@ -11,10 +11,13 @@ Layers:
   * device tables (torch tensors): scene.bridge.scene_data_from_numpy is
     the single door from a dict of numpy arrays to SceneData
   * device math (plain torch): sampling, math, polarization, bsdf.device,
-    emitter.table, scene.spectral, sensor, integrator
-  * hand-written CUDA kernels: csrc/ray_kernels.cu (closest hit and any
-    hit), wrapped by accel.ray_kernels; on CPU tensors the wrappers run
-    their plain torch twins
+    emitter.table, scene.spectral, sensor, ops, wave, accel.edges,
+    integrator (the classical and the wave bounce, the lane pool)
+  * hand-written CUDA kernels, built by accel.nvcc_build:
+    csrc/ray_kernels.cu (closest hit and any hit), wrapped by
+    accel.ray_kernels, and csrc/cone_kernels.cu (the cone-triangle
+    boundary sweep), wrapped by accel.cone_kernels; on CPU tensors the
+    wrappers run their plain torch versions
 
 Entry point: ``render.render_scene(scene.build_scene(scene), device=...)``.
 """

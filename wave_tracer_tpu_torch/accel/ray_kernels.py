@@ -32,15 +32,11 @@ Triangle features are compact rows (T, 24) f32:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from wave_tracer_tpu_torch.accel import nvcc_build
 
 BIG = 3.4e38               # f32(3.4e38): "no hit" distance
 _BIG_F32 = float(np.float32(BIG))
@@ -52,14 +48,6 @@ NF = 24                    # floats per triangle row
 TILE_REF = 512             # triangle tile of the torch twins
 
 LAUNCHES = {"closest": 0, "anyhit": 0}
-
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "ray_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-BUILD_INFO = {}            # seconds, ptxas report, library path
 
 
 def tri_features(p0, e1, e2, center):
@@ -88,40 +76,20 @@ def tri_features(p0, e1, e2, center):
 # build + bind
 # ---------------------------------------------------------------------------
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.isfile(cand):
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return cand
+_lib = None
 
 
 def build():
-    """Compile csrc/ray_kernels.cu (if its hash changed) and load it."""
+    """Compile csrc/ray_kernels.cu (if its hash changed) and bind it."""
     global _lib
     if _lib is not None:
         return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libray_kernels_{tag[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                          ptxas=proc.stderr.strip())
-    lib = ctypes.CDLL(str(so))
+    lib = nvcc_build.build("ray_kernels")["ray_kernels"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("wt_closest_hit", "wt_any_hit"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
         fn.restype = ci
-    BUILD_INFO["library"] = str(so)
     _lib = lib
     return lib
 

@@ -4,18 +4,19 @@ Port of wave_tracer_tpu/accel/trace.py for the all-pairs backend. The
 triangles stay in the order they were baked in (the port's own bake keeps
 soup order; a table bridged from the JAX package keeps its BVH order).
 No BVH is built: scenes up to MXU_MAX_TRIS triangles go through the
-all-pairs kernels K1/K2 (accel/ray_kernels.py); a larger scene on a CUDA
-tensor raises, since the BVH backend is not ported yet.
+all-pairs kernels K1/K2 (accel/ray_kernels.py) and the cone sweep K3
+(accel/cone_kernels.py); a larger scene on a CUDA tensor raises, since
+the BVH backend is not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from wave_tracer_tpu_torch.accel import ray_kernels
+from wave_tracer_tpu_torch.accel import cone_kernels, ray_kernels
 
 MXU_MAX_TRIS = 1 << 17
 
@@ -32,6 +33,11 @@ class GeoArrays:
     tri_attr: torch.Tensor  # (T, 32)
     mxu_center: torch.Tensor  # (3,) translation of the kernel features
     tri_feat: torch.Tensor  # (T, 24) K1/K2 rows (ray_kernels.tri_features)
+    # (T, 9) K3 rows [A | B | C] (cone_kernels.cone_tris), derived
+    cone_tris: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        self.cone_tris = cone_kernels.cone_tris(self.p0, self.e1, self.e2)
 
     @property
     def num_tris(self):
@@ -95,6 +101,31 @@ def occluded(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
                            device=ro.device)
     return ray_kernels.occluded_rays(geo, ro, rd, tmin, tmax, exclude_tri,
                                      exclude_tri2, exclude_tri3)
+
+
+def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
+                       zmin: float = 1e-7, exclude_tri=None):
+    """Earliest exact cone–triangle entry ≥ each schedule boundary.
+
+    bounds (N, B) with B ≤ 16; env the lanes' EnvState. Returns (zc (N, B)
+    per-boundary minima, inf where no encounter lies ahead; cnt (N,) i32
+    exact encounter count)."""
+    _check_size(geo, ro)
+    N, B = bounds.shape
+    dev = ro.device
+    if geo.num_tris == 0:
+        return (torch.full((N, B), float("inf"), device=dev),
+                torch.zeros((N,), dtype=torch.int32, device=dev))
+    if exclude_tri is None:
+        exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    if B < cone_kernels.NB:
+        bounds = torch.cat([bounds, bounds.new_full(
+            (N, cone_kernels.NB - B), cone_kernels.BIG)], dim=1)
+    zc, cnt = cone_kernels.cone_minz(
+        geo.cone_tris, ro.contiguous(), rd.contiguous(),
+        env.x.contiguous(), env.e, env.x0, env.ta, zmax,
+        exclude_tri.to(torch.int32), bounds, zmin)
+    return zc[:, :B], cnt
 
 
 def ray_tests_per_lane(geo: GeoArrays) -> float:

@@ -41,6 +41,7 @@ class EmitterTable:
     area_total: torch.Tensor  # (E,)
     etri_idx: torch.Tensor    # (TT,) i32 triangle index in GeoArrays
     etri_cdf: torch.Tensor    # (TT,) inclusive CDF normalized per emitter
+    scene_radius: torch.Tensor  # () scene bounding radius
 
     @property
     def count(self):
@@ -48,7 +49,7 @@ class EmitterTable:
 
 
 def bake_emitters(emitters, spec_ids, tri_emitter_id: np.ndarray,
-                  tri_areas: np.ndarray) -> dict:
+                  tri_areas: np.ndarray, scene_radius: float) -> dict:
     """Host bake → dict of numpy arrays; tri_* in device triangle order.
     Sets `area` on each area emitter (its power depends on it)."""
     from wave_tracer_tpu_torch.emitter import model
@@ -105,7 +106,8 @@ def bake_emitters(emitters, spec_ids, tri_emitter_id: np.ndarray,
     pack[:, C_TRI_COUNT] = tc
     pack[:, 16] = pse
     return dict(pack=pack, etype=etype, spec_id=spec, power=power,
-                area_total=atot, etri_idx=etri_idx, etri_cdf=etri_cdf)
+                area_total=atot, etri_idx=etri_idx, etri_cdf=etri_cdf,
+                scene_radius=np.asarray(scene_radius, np.float32))
 
 
 def _sample_area_point(et: EmitterTable, geo, row, u3):

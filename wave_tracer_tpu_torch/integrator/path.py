@@ -40,6 +40,14 @@ N_TRI_HIST = 8
 N_STATS = STAT_TRI_HIST0 + N_TRI_HIST
 
 
+def tri_hist_bin(count):
+    """Log2 bin index of a tris-per-cone count (0 for none)."""
+    c = count.clamp_min(0)
+    b = 1 + torch.ceil(torch.log2(c.to(torch.float32).clamp_min(1.0))
+                       ).to(torch.int64)
+    return torch.where(c == 0, 0, b).clamp_max(N_TRI_HIST - 1)
+
+
 def _power_heuristic(a, b):
     a2 = a * a
     return a2 / (a2 + b * b).clamp_min(1e-30)

@@ -1,10 +1,11 @@
-"""Compacted persistent-wavefront classical renderer.
+"""Compacted persistent-wavefront classical/wave renderer.
 
-Port of wave_tracer_tpu/integrator/path_compact.py (classical bounce). A
-fixed pool of lanes is kept saturated: a lane that dies splats its
-radiance into the film and restarts as the next (pixel, sample) id of the
-launch's id range. The pool loop is a host `while` over device tensors —
-splat the dead lanes, refill them, bounce the pool, then poll `alive`.
+Port of wave_tracer_tpu/integrator/path_compact.py. A fixed pool of lanes
+is kept saturated: a lane that dies splats its radiance into the film and
+restarts as the next (pixel, sample) id of the launch's id range. The
+pool loop is a host `while` over device tensors — splat the dead lanes,
+refill them, bounce the pool (classical, or the wave bounce of
+integrator/plt_path.py), then poll `alive`.
 
 RNG streams are keyed by (pixel, sample, depth, use), never by the lane
 slot, so the pool size does not change which paths are traced: images
@@ -13,15 +14,32 @@ from different pool sizes agree to splat-order rounding.
 
 from __future__ import annotations
 
+from dataclasses import fields, is_dataclass
+
 import torch
 
 from wave_tracer_tpu_torch.integrator.path import (N_STATS, _perp_axis,
                                                    classical_bounce)
+from wave_tracer_tpu_torch.integrator.plt_path import wave_bounce
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
+from wave_tracer_tpu_torch.wave import envelope as env_mod
+from wave_tracer_tpu_torch.wave import fsd as fsd_mod
+
+# aperture slots (edges) per lane of the wave bounce, as the JAX pool's
+FSD_SLOTS = 8
 
 
-def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor):
+def _put(dst, slots, val):
+    """dst[slots] = val for a tensor or a dataclass of tensors."""
+    if is_dataclass(dst):
+        for f in fields(dst):
+            getattr(dst, f.name)[slots] = getattr(val, f.name)
+    else:
+        dst[slots] = val
+
+
+def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave):
     """Pool machinery: fresh-lane sourcing, develop-to-channels and the
     one-step body, over (data, base_key, id_end)."""
     W, H = sensor.width, sensor.height
@@ -45,7 +63,7 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor):
         p_k = sp.joint_spectral_density(k)
         w_spectral = 1.0 / p_k.clamp_min(1e-30)
         pxy = torch.stack([pix % W, pix // W], dim=-1)
-        ro, rd, _ = sensor.generate_rays(pxy, jitter)
+        ro, rd, pixel_tan_alpha = sensor.generate_rays(pxy, jitter)
         M0 = torch.eye(4, dtype=torch.float32, device=dev).expand(
             n, 4, 4) * sensor.importance()
         sens = sensor.response.sensitivities(k, tables.spectra, None)
@@ -59,6 +77,15 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor):
                                        device=dev),
                   prev_specular=torch.ones((n,), dtype=torch.bool,
                                            device=dev))
+        if wave:
+            # the wave bounce's beam state: elliptic envelope + deferred
+            # FSD carry
+            ps.update(
+                env=env_mod.initial(rd, 0.0, 0.5 * pixel_tan_alpha),
+                fsd_ap=fsd_mod.empty_aperture(n, FSD_SLOTS, dev),
+                fsd_valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+                sampled_fsd=torch.zeros((n,), dtype=torch.bool, device=dev),
+                prev_vert=ro.clone(), M_prev=M0.clone())
         meta = dict(idx=keys["idx"], strm=keys["strm"], k=k,
                     w_spectral=w_spectral, sens=sens,
                     splat_pos=pxy.to(torch.float32) + jitter,
@@ -98,7 +125,7 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor):
             if slots.numel():
                 f_ps, f_meta = fresh(data, base_key, new_id[slots])
                 for key_, val in f_ps.items():
-                    ps[key_][slots] = val
+                    _put(ps[key_], slots, val)
                 for key_, val in f_meta.items():
                     meta[key_][slots] = val
                 pending = pending | take
@@ -106,9 +133,17 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor):
         # 3. one bounce for the whole pool
         dkeys = rng.depth_key_v(
             {"idx": meta["idx"], "strm": meta["strm"]}, meta["depth"])
-        ps = classical_bounce(data, ps, dkeys, meta["k"], meta["depth"],
-                              eps=eps, mis=mis, rr_depth=rr_depth,
-                              rr_floor=rr_floor, with_stats=True)
+        if wave:
+            ps = wave_bounce(data, data.edges, ps, dkeys, meta["k"],
+                             meta["depth"], eps=eps, mis=mis, fsd=True,
+                             K=FSD_SLOTS,
+                             rr_depth=rr_depth, rr_floor=rr_floor,
+                             with_stats=True)
+        else:
+            ps = classical_bounce(data, ps, dkeys, meta["k"],
+                                  meta["depth"], eps=eps, mis=mis,
+                                  rr_depth=rr_depth, rr_floor=rr_floor,
+                                  with_stats=True)
         meta["depth"] = torch.where(ps["active"], meta["depth"] + 1,
                                     meta["depth"])
         # depth cap = the batched renderer's max_depth
@@ -125,12 +160,14 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor):
 
 
 def render_pool(data, film, base_key, id_bounds, lanes, *, sensor,
-                max_depth, eps, mis, rr_depth=3, rr_floor=0.5):
+                max_depth, eps, mis, rr_depth=3, rr_floor=0.5, wave=False):
     """Run the pool over ids [id_bounds[0], id_bounds[1]) with `lanes`
     lanes. Ids enumerate (pixel, sample) pairs as id = sid·npixels + pixel.
-    Returns (film, stats (N_STATS,) f32); the film is updated in place."""
+    wave=True runs the wave-optical bounce (hybrid cone traversal +
+    deferred coherent FSD with FSD_SLOTS aperture slots). Returns (film,
+    stats (N_STATS,) f32); the film is updated in place."""
     _, _, init_state, body, final_splat = _pool_parts(
-        sensor, max_depth, eps, mis, rr_depth, rr_floor)
+        sensor, max_depth, eps, mis, rr_depth, rr_floor, wave)
     id_start, id_end = int(id_bounds[0]), int(id_bounds[1])
     c = init_state(data, film, base_key, id_start, lanes,
                    film.value.device)

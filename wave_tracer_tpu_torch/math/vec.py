@@ -1,7 +1,7 @@
 """Batched 3D vector helpers over trailing-axis-(3,) torch tensors.
 
-Port of wave_tracer_tpu/math/vec.py (the helpers the classical bounce
-uses). A "vec3" is a tensor of shape (..., 3).
+Port of wave_tracer_tpu/math/vec.py (the helpers the classical and wave
+bounces use). A "vec3" is a tensor of shape (..., 3).
 """
 
 from __future__ import annotations
@@ -34,3 +34,17 @@ def normalize(a, eps: float = 0.0):
     inv = torch.where(pos, 1.0 / torch.sqrt(torch.where(
         pos, n2, torch.ones_like(n2))), torch.zeros_like(n2))
     return a * inv[..., None]
+
+
+def length(a):
+    return torch.sqrt(length2(a))
+
+
+def safe_length(a, eps: float = 1e-30):
+    """|a| with a tiny positive floor under the sqrt."""
+    return torch.sqrt(length2(a).clamp_min(eps))
+
+
+def safe_sqrt(x, eps: float = 1e-30):
+    """sqrt with an epsilon floor."""
+    return torch.sqrt(x.clamp_min(eps))

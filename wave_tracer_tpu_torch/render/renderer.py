@@ -1,10 +1,10 @@
 """Render orchestration: the persistent compacted wavefront into a film.
 
-Port of wave_tracer_tpu/render/renderer.py for the backward classical path
-(`Renderer._render_backward_compact` with the classical bounce): the
-integrator `plt_path` with free-space diffraction off (`fsd=False`) or in
-ray-trace-only mode. Scenes that ask for the wave bounce (FSD), plt_bdpt
-or a virtual-plane sensor raise NotImplementedError.
+Port of wave_tracer_tpu/render/renderer.py for backward rendering through
+the compacted pool (`Renderer._render_backward_compact`): the integrator
+`plt_path` with free-space diffraction on (the wave bounce, when the
+scene has wedge edges) or off (the classical bounce), or in ray-trace-only
+mode. plt_bdpt and virtual-plane sensors raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,11 +24,18 @@ from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
 # small torch launches whatever its width (most of them the int64 Sobol
 # hashing), so wider pools amortize them (box,
 # 256² × 16 spp on one H100: 0.49-0.57M paths/s at 2^16 lanes, 1.60-1.66M
-# at 2^18), while at 82k triangles K1/K2 dominate and 2^16 ≈ 2^18; on the
-# CPU the JAX package's own pool size. A pool never exceeds the number of
-# paths: the kernels would trace the idle lanes too.
+# at 2^18), while at 82k triangles K1/K2 dominate and 2^16 ≈ 2^18. The
+# wave box headline (256² × 8 spp) runs 2.1-2.7× faster at 2^18 than at
+# 2^16; its 82k-triangle case runs 1.5× faster at 2^16, where fewer dead
+# tail lanes go through K2/K3, and the headline decides. On the CPU the
+# JAX package's own pool size. A pool never exceeds the number of paths:
+# the kernels would trace the idle lanes too.
 POOL_LANES_CUDA = 1 << 18
 POOL_LANES_CPU = 1 << 13
+# the JAX renderer's ceiling on the edge count for FSD. Above 2048 edges
+# the JAX integrators take the clustered edge sweep, which the port lacks:
+# accel/edges.py raises there
+MAX_FSD_EDGES = 1 << 20
 
 _COUNTER_NAMES = {
     "rays_cast": path_mod.STAT_RAYS, "shadow_rays": path_mod.STAT_SHADOW,
@@ -68,10 +75,11 @@ class Renderer:
         trace_only = sensor.ray_trace_only or cfg.ray_trace_only
         if cfg.type != "plt_path" and not trace_only:
             raise NotImplementedError(f"{cfg.type} is not ported yet")
-        if cfg.fsd and not trace_only:
-            raise NotImplementedError(
-                "the wave bounce (plt_path with fsd=True) is not ported "
-                "yet; set integrator.fsd = False")
+        # as the JAX renderer decides: FSD needs wedge edges; a scene
+        # without any renders classically
+        n_edges = built.data.edges.count
+        wave = (cfg.fsd and not trace_only
+                and 0 < n_edges <= MAX_FSD_EDGES)
         spp = spp or sensor.samples
         data = dataclasses.replace(
             built.data, spectral=built.spectral_per_sensor[sensor_index])
@@ -87,16 +95,19 @@ class Renderer:
         film, stats = render_pool(
             data, film, rng.make_base_key(self.seed), (0, paths),
             lanes, sensor=sensor, max_depth=cfg.max_depth, eps=eps,
-            mis=cfg.mis)
+            mis=cfg.mis, wave=wave)
         img = film_mod.develop(film).cpu().numpy()   # waits for the device
         dt = time.perf_counter() - t0
         vec = stats.cpu().numpy()
         return img, dict(
             seconds=dt, paths=paths, paths_per_sec=paths / max(dt, 1e-9),
-            mode="ray-compact", spp_done=spp, interrupted=False,
+            mode="wave-compact" if wave else "ray-compact", spp_done=spp,
+            interrupted=False,
             pool_lanes=lanes,
-            device_counters={name: float(vec[i])
-                             for name, i in _COUNTER_NAMES.items()})
+            device_counters=dict(
+                {name: float(vec[i]) for name, i in _COUNTER_NAMES.items()},
+                tris_per_cone_hist=[float(x) for x in vec[
+                    path_mod.STAT_TRI_HIST0:path_mod.N_STATS]]))
 
 
 def render_scene(built, sensor_index: int = 0, spp: int | None = None,

@@ -2,12 +2,13 @@
 
 `scene_data_from_numpy` uploads one flat dict of numpy arrays, keyed by the
 dotted field paths of the JAX package's SceneData pytree ("geo.p0",
-"tables.materials.pack", "emitters.etri_cdf", "spectral.e_w", ...), to a
-SceneData of torch tensors on `device`. The port's own `build_scene` bakes
-such a dict; a SceneData baked by the JAX package, flattened with
-np.asarray on its leaves, loads the same way. Keys the port does not read
-(BVH nodes, Pallas feature layouts, edge tables) are ignored: the ray
-kernel rows are rebuilt here from p0/e1/e2/mxu_center.
+"tables.materials.pack", "emitters.etri_cdf", "spectral.e_w",
+"edges.tri1", ...), to a SceneData of torch tensors on `device`. The
+port's own `build_scene` bakes such a dict; a SceneData baked by the JAX
+package, flattened with np.asarray on its leaves, loads the same way.
+Keys the port does not read (BVH nodes, Pallas feature layouts, edge and
+triangle clusters) are ignored: the kernel rows are rebuilt here from
+p0/e1/e2/mxu_center.
 
 Rows the port cannot render (materials other than diffuse/null, opacity
 masks, normal maps, composite materials, bitmap/checker textures, spot or
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from wave_tracer_tpu_torch.accel import ray_kernels
+from wave_tracer_tpu_torch.accel.edges import EDGE_KEYS, EdgeTable
 from wave_tracer_tpu_torch.accel.trace import GeoArrays
 from wave_tracer_tpu_torch.bsdf import table as mtab
 from wave_tracer_tpu_torch.bsdf.device import Tables
@@ -36,7 +38,7 @@ MATERIAL_KEYS = ("pack", "comp_child")
 TEXTURE_KEYS = ("pack",)
 SPECTRA_KEYS = ("vals", "log_kmin", "log_kmax")
 EMITTER_KEYS = ("pack", "etype", "spec_id", "power", "area_total",
-                "etri_idx", "etri_cdf")
+                "etri_idx", "etri_cdf", "scene_radius")
 SPECTRAL_KEYS = ("e_w", "e_cdf", "x", "f", "cdf", "total", "line_k",
                  "line_w", "n_lines")
 
@@ -45,7 +47,8 @@ KEYS = tuple([f"geo.{k}" for k in GEO_KEYS]
              + [f"tables.textures.{k}" for k in TEXTURE_KEYS]
              + [f"tables.spectra.{k}" for k in SPECTRA_KEYS]
              + [f"emitters.{k}" for k in EMITTER_KEYS]
-             + [f"spectral.{k}" for k in SPECTRAL_KEYS])
+             + [f"spectral.{k}" for k in SPECTRAL_KEYS]
+             + [f"edges.{k}" for k in EDGE_KEYS])
 
 
 @dataclass
@@ -55,6 +58,7 @@ class SceneData:
     tables: Tables
     emitters: etab.EmitterTable
     spectral: SpectralSampler      # for the primary sensor
+    edges: EdgeTable               # classified wedge edges (FSD)
 
 
 def _check_ported(a):
@@ -111,11 +115,14 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
         spec_id=t("emitters.spec_id", i32), power=t("emitters.power", f32),
         area_total=t("emitters.area_total", f32),
         etri_idx=t("emitters.etri_idx", i32),
-        etri_cdf=t("emitters.etri_cdf", f32))
+        etri_cdf=t("emitters.etri_cdf", f32),
+        scene_radius=t("emitters.scene_radius", f32))
     spectral = spectral_from_numpy(
         {k: a[f"spectral.{k}"] for k in SPECTRAL_KEYS}, device)
+    edges = EdgeTable(**{k: t(f"edges.{k}", i32 if k in ("tri1", "tri2")
+                                else f32) for k in EDGE_KEYS})
     return SceneData(geo=geo, tables=tables, emitters=emitters,
-                     spectral=spectral)
+                     spectral=spectral, edges=edges)
 
 
 def spectral_from_numpy(arrays: dict, device) -> SpectralSampler:

@@ -3,8 +3,8 @@
 Port of wave_tracer_tpu/scene/build.py for the ported subset. Collects
 every spectrum, texture and material reachable from the host scene,
 assigns table rows, merges all shapes into one triangle soup (kept in soup
-order: the all-pairs kernels need no BVH), and bakes the emitter and
-spectral-sampling tables into a dict keyed like the JAX SceneData
+order: the all-pairs kernels need no BVH), classifies its wedge edges for
+free-space diffraction, and bakes the emitter and spectral-sampling tables into a dict keyed like the JAX SceneData
 (scene/bridge.py), which `scene_data_from_numpy` uploads.
 """
 
@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from wave_tracer_tpu_torch.accel import edges as edges_mod
 from wave_tracer_tpu_torch.accel import trace as trace_mod
 from wave_tracer_tpu_torch.bsdf import model as bmodel
 from wave_tracer_tpu_torch.bsdf.table import bake_materials
@@ -123,7 +124,9 @@ def bake_scene_arrays(scene: Scene):
     put("tables.textures", bake_textures(textures, sp_ids))
     put("tables.materials", bake_materials(materials, tex_ids))
     put("emitters", bake_emitters(scene.emitters, sp_ids, emitter_id,
-                                  soup.areas()))
+                                  soup.areas(),
+                                  scene_radius=scene.world_radius()))
+    put("edges", edges_mod.classify_edges(soup.positions, soup.geo_n))
     per_sensor = [build_spectral_sampler(
         scene.emitters, s.response.sensitivity_spectrum())
         for s in scene.sensors]

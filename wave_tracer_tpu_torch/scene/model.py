@@ -27,7 +27,7 @@ class IntegratorConfig:
     type: str = "plt_path"        # plt_path (plt_bdpt is not ported yet)
     max_depth: int = 16
     mis: bool = True
-    fsd: bool = True              # free-space diffraction (not ported yet)
+    fsd: bool = True              # free-space diffraction (the wave bounce)
     ray_trace_only: bool = False  # classical ray-trace mode
 
 
