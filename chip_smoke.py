@@ -22,7 +22,10 @@ Phases (each raises on failure; nothing is caught):
      occlusion agrees on >= 99.9%; times from CUDA events after a warm-up.
      K2 also at the width of the wave bounce's batched FSD-leg call,
      (2K+1)·262,144 = 4,456,448 segments, on both scenes, against its
-     plain version run in ray chunks of 262,144, with the same bar
+     plain version run in ray chunks of 262,144, with the same bar; and,
+     after phase 10 (phase 3b), at that width with a need mask of the
+     share the scale render showed and with an empty one: needed rows
+     agree with the plain version on >= 99.9%, unneeded rows are False
   4. render_scene: box, plt_path, fsd=False, 256x256, 16 spp, max_depth 8
      (the benchmark's classical configuration); launch counters are zeroed
      just before and read just after, and must both have grown
@@ -34,10 +37,13 @@ Phases (each raises on failure; nothing is caught):
      wave pool's width (262,144 seeded random cones inside the scene's
      bounds: ta 0.01-0.2, e 0.6-1.0, x0 0.01-0.3, boundaries of visible
      wavelengths, zmax = the scene radius, a third with an excluded id) on
-     the box and on the box + icosphere; the plain version runs in lane
-     chunks of 16,384. Bars: finite masks agree on > 99.9% of entries,
-     minima within rtol/atol 2e-4, counts within max(2, 2%) on > 97% of
-     lanes; times from CUDA events after a warm-up
+     the box and on the box + icosphere, and 262,144 narrow render-like
+     cones on the box + icosphere (camera beams, and FSD restart beams
+     from surface points at visible wavelengths); the plain version runs
+     in lane chunks of 16,384, on all lanes of the random cones and on
+     the first 16,384 narrow ones. Bar: minima and counts bit-equal (the
+     kernel's culls skip only pairs the body rejects); times from CUDA
+     events after a warm-up
   8. the wave main path: box, plt_path, fsd=True, 256x256, 8 spp,
      max_depth 8 (the benchmark's timed headline); counters zeroed just
      before and read just after: K1, K2 and K3 must all have launched, the
@@ -46,13 +52,22 @@ Phases (each raises on failure; nothing is caught):
   9. the wave box at 32x32, 4 spp, max_depth 5 on the card and on the CPU:
      channel means within 2%, Pearson correlation >= 0.999, >= 90% of
      pixels within 1e-2·max(|ref|, mean|ref|), device counters within 2%
- 10. wave box + icosphere at 256x256, 4 spp, max_depth 8
+ 10. wave box + icosphere at 256x256, 4 spp, max_depth 8; then once more
+     with CUDA events around every K2 and K3 call, printing each call
+     kind's time per launch, the needed-row share of each K2 call kind
+     (FSD legs, NEE), K3's culled-pair shares (counted by a launch of its
+     counting build on the same inputs, outside the events) and each
+     kind's bound
  11. prints the kernels' JSON line (each kernel's launches on the wave
      main path, and per path under "launches_by_path") and, last, the
      result JSON line
+
+Each paths/s reading (phases 4, 6, 8, 10) is the median of three
+renders, the one whose launches are counted first; all three are printed.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +77,9 @@ import torch
 
 POOL = 1 << 18              # the renderer's CUDA lane pool
 REF_CHUNK = 16384           # lanes per chunk of K3's plain version
+# renders per paths/s reading, the median reported: on a shared host one
+# render of a host-bound cell moves 10-40% between readings
+RATE_RENDERS = 3
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): fp32 outside the tensor
 # cores and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -73,6 +91,25 @@ PEAK_BYTES = 3.35e12
 # csrc/cone_kernels.cu (57 local transform, 18 vertex tests, 3 × 75 edge
 # quadratics, 42 axis hit, 45 conic point; 17 divisions, 4 square roots)
 FLOP_PER_PAIR = {"closest": 35, "anyhit": 35, "cone_minz": 387}
+# K3's test of a cone against a bounding sphere, a tile's or a triangle's
+# (csrc/cone_kernels.cu::sphere_may_enter): the local transform of the
+# centre (19), the scaled radius and the magnitude (3), the radius bound
+# (4), the margin (7) and the shifted bounds of its four compares (6)
+FLOP_CULL = 39
+# K2's test of a segment against a tile's padded box
+# (csrc/ray_kernels.cu::seg_may_hit): the pad (3), |d| (6), its quotient
+# (1), the widened range (2), three reciprocals and six slab distances of
+# three operations each
+FLOP_SLAB = 33
+# K2's and K3's bounds count what each lane's own data needs, by one rule:
+# the lane's test of every tile; each triangle of the tiles that test
+# keeps (the plain twins `_tile_box_may_hit` and `_sphere_cull`, on the
+# same inputs) at its pair test (K2: the hit test, K3: the sphere test);
+# and, for K3, each pair that its pair culls let into the body (the
+# counting build's count) at the body. An occluded ray needs one pair
+# after its tile tests (a hit ends its loop), so it counts one. K1 has no
+# cull and counts every pair.
+TWIN_LANES = 65536          # lanes per chunk of the twins' counts
 
 
 def fail(msg):
@@ -99,12 +136,56 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def bound(pairs, flop_per_pair, nbytes):
+def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the operations over the fp32
     peak and the bytes over the memory rate."""
-    t_ops = pairs * flop_per_pair / PEAK_FP32 * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tile_sizes(ntiles, T, tile, device):
+    sizes = torch.full((ntiles,), float(tile), device=device)
+    sizes[-1] = T - tile * (ntiles - 1)
+    return sizes
+
+
+def anyhit_need(rk, table, args, occ, need=None):
+    """(operations, pairs) K2's data needs (the bounds' rule) for its
+    arguments `args` and result `occ`, over the rows of `need` (all if
+    None)."""
+    center, ro, rd, tmin, tmax = args[1:6]
+    if need is not None:
+        ro, rd, tmin, tmax, occ = (x[need] for x in (ro, rd, tmin, tmax, occ))
+    boxes = table.boxes
+    sizes = tile_sizes(boxes.shape[0], table.feat.shape[0], rk.TILE,
+                       ro.device)
+    pairs = 0.0
+    for s in range(0, ro.shape[0], TWIN_LANES):
+        c = slice(s, s + TWIN_LANES)
+        kept = rk._tile_box_may_hit(boxes, center, ro[c], rd[c], tmin[c],
+                                    tmax[c]).float() @ sizes
+        pairs += torch.where(occ[c], 1.0, kept).double().sum().item()
+    n_tests = ro.shape[0] * boxes.shape[0]
+    return n_tests * FLOP_SLAB + pairs * FLOP_PER_PAIR["anyhit"], pairs
+
+
+def cone_need(ck, table, args, entered):
+    """(operations, pairs kept by the tile test) K3's data needs (the
+    bounds' rule) for its arguments `args`, with `entered` pairs let into
+    the body (the counting build's count)."""
+    ro, rd, xh, e, x0, ta, zmax = args[1:8]
+    N, tiles = ro.shape[0], table.tiles
+    sizes = tile_sizes(tiles.shape[0], table.ids.shape[0], ck.TILE,
+                       ro.device)
+    kept = 0.0
+    for s in range(0, N, TWIN_LANES // 4):
+        c = slice(s, s + TWIN_LANES // 4)
+        kept += (ck._sphere_cull(tiles, ro[c], rd[c], xh[c], e[c], x0[c],
+                                 ta[c], zmax[c], args[-1]).float()
+                 @ sizes).double().sum().item()
+    return ((N * tiles.shape[0] + kept) * FLOP_CULL
+            + entered * FLOP_PER_PAIR["cone_minz"], kept)
 
 
 def box_scene(res, spp, depth, icosphere=False, fsd=False):
@@ -114,6 +195,19 @@ def box_scene(res, spp, depth, icosphere=False, fsd=False):
     scene.integrator.fsd = fsd
     scene.integrator.max_depth = depth
     return scene
+
+
+def rate_line(built, st):
+    """The paths/s of the render whose stats are `st` and of
+    RATE_RENDERS - 1 more renders of `built`, as printed: the median,
+    then every reading."""
+    from wave_tracer_tpu_torch.render import render_scene
+    r = [st["paths_per_sec"]] + [
+        render_scene(built, device="cuda")[1]["paths_per_sec"]
+        for _ in range(RATE_RENDERS - 1)]
+    return (f"{float(np.median(r)):.1f} paths/s (median of {len(r)} "
+            f"renders: {', '.join(f'{x:.1f}' for x in r)}; the first "
+            f"{st['seconds']:.3f} s")
 
 
 def check_render(img, stats, shape, tag):
@@ -175,7 +269,9 @@ def check_ray_kernels(rk, geo, N, seed):
     tmax_s = torch.from_numpy(r.uniform(0.05, 4.0, N).astype(np.float32)
                               ).to(dev)
     sargs = (geo.tri_feat, geo.mxu_center, ro_t, rd_t, tmin, tmax_s, ex)
-    ok_k = rk.any_hit(*sargs)
+    table = geo.ray_table
+    ok_k = rk.any_hit(*sargs, table=table)
+    ops2, kept = anyhit_need(rk, table, sargs, ok_k)
     ok_r = rk._anyhit_ref(*sargs)
     frac_occ = (ok_k == ok_r).float().mean().item()
     check(frac_occ >= 0.999, f"K2: occlusion agrees on {frac_occ:.5f}")
@@ -183,19 +279,21 @@ def check_ray_kernels(rk, geo, N, seed):
 
     ms_k1 = cuda_ms(lambda: rk.closest_hit(*args, ex), 5)
     ms_t1 = cuda_ms(lambda: rk._closest_ref(*args, ex), 1)
-    ms_k2 = cuda_ms(lambda: rk.any_hit(*sargs), 5)
+    ms_k2 = cuda_ms(lambda: rk.any_hit(*sargs, table=table), 5)
     ms_t2 = cuda_ms(lambda: rk._anyhit_ref(*sargs), 1)
     print(f"phase 3: N={N} T={T}: K1 ids agree {frac_id:.6f}, max |dt| "
           f"{err_t.max().item():.3e}, hits {both.float().mean().item():.3f}; "
           f"K2 agree {frac_occ:.6f}, occluded "
-          f"{ok_r.float().mean().item():.3f}", flush=True)
-    print(f"phase 3: N={N} T={T}: K1 {ms_k1:.3f} ms (plain {ms_t1:.3f} ms),"
-          f" K2 {ms_k2:.3f} ms (plain {ms_t2:.3f} ms)", flush=True)
+          f"{ok_r.float().mean().item():.3f}, pairs its data needs "
+          f"{kept / (N * T):.6f}", flush=True)
     # bytes: the triangle rows, per ray ro/rd/tmin/tmax/3 exclusions in
     # and one 8-byte word (K1) or byte (K2) out
     tri_bytes = T * rk.NF * 4
-    k1 = bound(N * T, FLOP_PER_PAIR["closest"], tri_bytes + N * (44 + 8))
-    k2 = bound(N * T, FLOP_PER_PAIR["anyhit"], tri_bytes + N * (44 + 1))
+    k1 = bound(N * T * FLOP_PER_PAIR["closest"], tri_bytes + N * (44 + 8))
+    k2 = bound(ops2, tri_bytes + N * (44 + 1))
+    print(f"phase 3: N={N} T={T}: K1 {ms_k1:.3f} ms (plain {ms_t1:.3f} ms, "
+          f"bound {k1[0]:.3f} ms), K2 {ms_k2:.3f} ms (plain {ms_t2:.3f} ms,"
+          f" bound {k2[0]:.3f} ms)", flush=True)
     return dict(
         closest=dict(max_abs_err=err_t.max().item(), ms=ms_k1,
                      plain_ms=ms_t1, bound=k1),
@@ -203,52 +301,150 @@ def check_ray_kernels(rk, geo, N, seed):
                     ms=ms_k2, plain_ms=ms_t2, bound=k2))
 
 
-def check_anyhit_legs(rk, geo, N, seed):
-    """K2 vs its plain version at the width of the wave bounce's batched
-    FSD-leg call: N seeded random segments through geo, a third with three
-    excluded ids. The plain version runs in ray chunks of POOL (its
-    (N, 5·512) temporaries would not fit at full width)."""
+def leg_args(geo, N, seed):
+    """N seeded random segments through geo, a third with three excluded
+    ids: K2's arguments at the width of the batched FSD-leg call."""
     T = geo.num_tris
     r = np.random.default_rng(seed)
     ro, rd = random_rays(geo, N, r)
     dev = geo.p0.device
     ex = np.where((r.random(N) < 1 / 3)[:, None],
                   r.integers(0, T, (N, 3)), -1).astype(np.int32)
-    args = (geo.tri_feat, geo.mxu_center, torch.from_numpy(ro).to(dev),
+    return (geo.tri_feat, geo.mxu_center, torch.from_numpy(ro).to(dev),
             torch.from_numpy(rd).to(dev), torch.full((N,), 1e-4, device=dev),
             torch.from_numpy(r.uniform(0.05, 4.0, N).astype(np.float32)
                              ).to(dev),
             torch.from_numpy(ex).to(dev))
-    ok_k = rk.any_hit(*args)
+
+
+def anyhit_ref_chunked(rk, args, need=None):
+    """K2's plain version in ray chunks of POOL (its (N, 5·512)
+    temporaries would not fit at full width)."""
+    N = args[2].shape[0]
+    return torch.cat([rk._anyhit_ref(*args[:2], *(
+        x[s:s + POOL] for x in args[2:]),
+        None if need is None else need[s:s + POOL])
+        for s in range(0, N, POOL)])
+
+
+def check_anyhit_legs(rk, geo, N, seed):
+    """K2 vs its plain version at the width of the wave bounce's batched
+    FSD-leg call, every row needed."""
+    T = geo.num_tris
+    args = leg_args(geo, N, seed)
+    ok_k = rk.any_hit(*args, table=geo.ray_table)
+    ops, kept = anyhit_need(rk, geo.ray_table, args, ok_k)
     # the plain version at these chunk shapes is warm from check_ray_kernels
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    ok_r = torch.cat([rk._anyhit_ref(*args[:2], *(
-        x[s:s + POOL] for x in args[2:])) for s in range(0, N, POOL)])
+    ok_r = anyhit_ref_chunked(rk, args)
     b.record()
     torch.cuda.synchronize()
     ms_plain = a.elapsed_time(b)
     frac_occ = (ok_k == ok_r).float().mean().item()
     check(frac_occ >= 0.999, f"K2 N={N} T={T}: occlusion agrees on "
           f"{frac_occ:.5f}")
-    ms = cuda_ms(lambda: rk.any_hit(*args), 3)
+    ms = cuda_ms(lambda: rk.any_hit(*args, table=geo.ray_table), 3)
+    b = bound(ops, T * rk.NF * 4 + N * (44 + 1))
     print(f"phase 3: N={N} T={T}: K2 agree {frac_occ:.6f}, occluded "
-          f"{ok_r.float().mean().item():.3f}; K2 {ms:.3f} ms (plain "
-          f"{ms_plain:.3f} ms, ray chunks of {POOL})", flush=True)
+          f"{ok_r.float().mean().item():.3f}, pairs its data needs "
+          f"{kept / (N * T):.6f}; K2 {ms:.3f} ms (plain {ms_plain:.3f} "
+          f"ms, ray chunks of {POOL}), bound {b[0]:.3f} ms", flush=True)
     return dict(max_abs_err=float((ok_k != ok_r).float().max().item()),
-                ms=ms, plain_ms=ms_plain,
-                bound=bound(N * T, FLOP_PER_PAIR["anyhit"],
-                            T * rk.NF * 4 + N * (44 + 1)))
+                ms=ms, plain_ms=ms_plain, bound=b)
 
 
-def minz_ref_chunked(ck, args):
-    """K3's plain version in lane chunks (its (N, 512) temporaries would
-    not fit at full width)."""
+def check_anyhit_need(rk, geo, N, seed, share):
+    """K2 at the leg-call width with a seeded need mask of `share` and
+    with an empty one: needed rows against the plain version, unneeded
+    rows False. Returns (ms masked, ms empty, needed rows)."""
+    T = geo.num_tris
+    args = leg_args(geo, N, seed)
+    dev = geo.p0.device
+    need = torch.from_numpy(np.random.default_rng(seed + 1).random(N)
+                            < share).to(dev)
+    empty = torch.zeros_like(need)
+    ok_k = rk.any_hit(*args, need, table=geo.ray_table)
+    ok_r = anyhit_ref_chunked(rk, args, need)
+    check(not ok_k[~need].any().item(), "K2 need mask: an unneeded row "
+          "is occluded")
+    frac = (ok_k[need] == ok_r[need]).float().mean().item()
+    check(frac >= 0.999, f"K2 need mask: needed rows agree on {frac:.5f}")
+    check(not rk.any_hit(*args, empty, table=geo.ray_table).any().item(),
+          "K2 empty need mask: a row is occluded")
+    ms = cuda_ms(lambda: rk.any_hit(*args, need, table=geo.ray_table), 3)
+    ms0 = cuda_ms(lambda: rk.any_hit(*args, empty, table=geo.ray_table), 3)
+    n_need = int(need.sum().item())
+    print(f"phase 3b: N={N} T={T}: K2 with a need mask of {n_need} rows "
+          f"({n_need / N:.4f}): needed rows agree {frac:.6f}, unneeded "
+          f"rows all False; {ms:.3f} ms; empty mask {ms0:.3f} ms",
+          flush=True)
+    return ms, ms0, n_need
+
+
+def minz_ref_chunked(ck, args, lanes=None):
+    """K3's plain version in lane chunks of REF_CHUNK (its (N, 512)
+    temporaries would not fit at full width), over the first `lanes`
+    lanes (all if None)."""
     tri, lane, zmin = args[0], args[1:-1], args[-1]
-    outs = [ck._minz_ref(tri, *(a[s:s + REF_CHUNK] for a in lane), zmin)
-            for s in range(0, lane[0].shape[0], REF_CHUNK)]
+    n = lane[0].shape[0] if lanes is None else lanes
+    outs = [ck._minz_ref(tri, *(a[s:min(s + REF_CHUNK, n)] for a in lane),
+                         zmin) for s in range(0, n, REF_CHUNK)]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def cone_vs_plain(ck, geo, args, tag, lanes=None):
+    """K3 against its plain version (over the first `lanes` lanes):
+    minima and counts bit-equal. Returns (kernel ms, plain ms, cull stats
+    of one launch, mean count, share of finite minima)."""
+    N = args[1].shape[0]
+    n = N if lanes is None else lanes
+    zc, cnt = ck.cone_minz(*args, table=geo.cone_table)
+    cull = cone_cull(ck, args, geo.cone_table, (zc, cnt))
+    ck._minz_ref(args[0], *(a[:256] for a in args[1:-1]), args[-1])
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    zr, cr = minz_ref_chunked(ck, args, lanes)
+    b.record()
+    torch.cuda.synchronize()
+    ms_plain = a.elapsed_time(b)
+    finite = torch.isfinite(zr)
+    check(finite.any().item(), f"K3 {tag}: no encounters at all")
+    same_z = torch.equal(zc[:n], zr)
+    same_c = torch.equal(cnt[:n], cr)
+    if not (same_z and same_c):
+        both = finite & torch.isfinite(zc[:n])
+        fail(f"K3 {tag}: not bit-equal to the plain version (finite masks "
+             f"differ on {(torch.isfinite(zc[:n]) != finite).sum().item()} "
+             f"entries, max |dz| {(zc[:n][both] - zr[both]).abs().max()}, "
+             f"counts differ on {(cnt[:n] != cr).sum().item()} lanes)")
+    ms = cuda_ms(lambda: ck.cone_minz(*args, table=geo.cone_table), 3)
+    return ms, ms_plain, cull, cr.float().mean().item(), \
+        finite.float().mean().item()
+
+
+def cone_cull(ck, args, table, out):
+    """One launch of K3's counting build → its four cull counters (pairs
+    tested after the tile cull, pairs that entered the body, warp-
+    iterations, those with a candidate). Its result must equal `out`, the
+    main build's."""
+    stats = torch.zeros((4,), dtype=torch.int64, device=args[1].device)
+    zc, cnt = ck.cone_minz(*args, table=table, stats=stats)
+    check(torch.equal(zc, out[0]) and torch.equal(cnt, out[1]),
+          "K3: the counting build disagrees with the main build")
+    return stats
+
+
+def cull_line(cull, N, T, kept):
+    """K3's cull shares: from its counting build's counters `cull` and
+    the pairs its lanes' own tile tests keep (`kept`, from the twin)."""
+    tested, entered, witer, witer_in = (int(x) for x in cull.tolist())
+    return (f"pairs culled {1 - entered / (N * T):.6f} (by the tile test "
+            f"{1 - tested / (N * T):.6f} per warp, {1 - kept / (N * T):.6f}"
+            f" per lane), warp-iterations entering the body "
+            f"{witer_in / max(witer, 1):.6f}")
 
 
 def check_cone_kernel(ck, geo, scene_radius, N, seed):
@@ -271,38 +467,137 @@ def check_cone_kernel(ck, geo, scene_radius, N, seed):
             t(r.uniform(0.01, 0.3, N)), t(r.uniform(0.01, 0.2, N)),
             torch.full((N,), float(scene_radius), device=dev),
             t(exclude, torch.int32), segment_boundaries(lam), 1e-7)
-    zc, cnt = ck.cone_minz(*args)
-    ck._minz_ref(args[0], *(a[:256] for a in args[1:-1]), args[-1])
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    zr, cr = minz_ref_chunked(ck, args)
-    b.record()
-    torch.cuda.synchronize()
-    ms_plain = a.elapsed_time(b)
-    finite = torch.isfinite(zr)
-    check(finite.any().item(), f"K3 T={T}: no encounters at all")
-    frac_fin = (torch.isfinite(zc) == finite).float().mean().item()
-    check(frac_fin > 0.999, f"K3 T={T}: finite masks agree on {frac_fin}")
-    both = finite & torch.isfinite(zc)
-    err = (zc[both] - zr[both]).abs()
-    check(bool((err <= 2e-4 + 2e-4 * zr[both].abs()).all()),
-          f"K3 T={T}: minima disagree (max abs {err.max().item()})")
-    frac_cnt = ((cnt - cr).abs() <= torch.clamp(0.02 * cr, min=2)
-                ).float().mean().item()
-    check(frac_cnt > 0.97, f"K3 T={T}: counts agree on {frac_cnt}")
-    ms = cuda_ms(lambda: ck.cone_minz(*args), 3)
-    print(f"phase 7: N={N} T={T}: K3 finite masks agree {frac_fin:.6f}, "
-          f"max |dz| {err.max().item():.3e}, counts agree {frac_cnt:.6f}, "
-          f"mean count {cr.float().mean().item():.2f}, finite minima "
-          f"{finite.float().mean().item():.3f}", flush=True)
+    ms, ms_plain, cull, mean_cnt, fin = cone_vs_plain(ck, geo, args,
+                                                      f"T={T}")
+    ops, kept = cone_need(ck, geo.cone_table, args, int(cull[1]))
+    b = bound(ops, cone_bytes(N, T))
+    print(f"phase 7: N={N} T={T} random cones: K3 bit-equal to its plain "
+          f"version, mean count {mean_cnt:.2f}, finite minima {fin:.3f}; "
+          f"{cull_line(cull, N, T, kept)}", flush=True)
     print(f"phase 7: N={N} T={T}: K3 {ms:.3f} ms (plain {ms_plain:.3f} ms, "
-          f"lane chunks of {REF_CHUNK})", flush=True)
-    # bytes: triangle rows (36 B), per lane 16 floats + exclusion + 16
-    # boundaries in, 16 minima + count out
-    nbytes = T * 36 + N * (64 + 4 + 64 + 64 + 4)
-    return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=ms_plain,
-                bound=bound(N * T, FLOP_PER_PAIR["cone_minz"], nbytes))
+          f"lane chunks of {REF_CHUNK}), bound {b[0]:.3f} ms ({b[1]})",
+          flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=ms_plain, bound=b)
+
+
+def cone_bytes(N, T):
+    """Triangle rows (36 B), per lane 16 floats + exclusion + 16
+    boundaries in, 16 minima + count out."""
+    return T * 36 + N * (64 + 4 + 64 + 64 + 4)
+
+
+def check_cone_narrow(ck, built, N, seed):
+    """K3 on N narrow render-like cones on built's scene: a third camera
+    beams (the sensor's eye, x0 = 0, ta = half a pixel's tan), the rest
+    FSD restart beams (sourcing.restart_envelope at 380-720 nm of a
+    1e-4..1e-2 footprint) from points on random triangles, half of them
+    the box's; zmax as the bounce sets it (hit distance · 1.02 + x0, or 8
+    scene radii), each lane excluding the triangle it starts on. The
+    plain version runs on the first REF_CHUNK lanes."""
+    import math
+    from wave_tracer_tpu_torch.integrator.traversal import segment_boundaries
+    from wave_tracer_tpu_torch.wave import envelope as env_mod
+    from wave_tracer_tpu_torch.wave import sourcing
+    geo = built.data.geo
+    radius = built.scene.world_radius()
+    T = geo.num_tris
+    dev = geo.p0.device
+    r = np.random.default_rng(seed)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(x)).to(dev, dtype)
+
+    cam = r.random(N) < 1 / 3
+    pick = np.where(r.random(N) < 0.5, r.integers(0, 12, N),
+                    r.integers(0, T, N))
+    tg = geo.tri_geom.cpu().numpy()
+    u = r.random((N, 2))
+    u = np.where(u.sum(1, keepdims=True) > 1, 1 - u, u)
+    ro = tg[pick, 0:3] + u[:, :1] * tg[pick, 3:6] + u[:, 1:] * tg[pick, 6:9]
+    rd = r.normal(size=(N, 3))
+    ro[cam] = [0.0, 1.0, 3.2]
+    rd[cam, 2] = -np.abs(rd[cam, 2]) - 1.0
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ro_t, rd_t = t(ro.astype(np.float32)), t(rd.astype(np.float32))
+    lam = t(r.uniform(380e-9, 720e-9, N))
+    env = env_mod.select(
+        t(cam, torch.bool),
+        env_mod.initial(rd_t, 0.0, 0.5 * math.tan(math.radians(30)) / 128),
+        sourcing.restart_envelope(rd_t, t(10 ** r.uniform(-4, -2, N)),
+                                  2 * math.pi / lam))
+    zmax = t(np.where(r.random(N) < 0.5, r.uniform(0.05, 4.0, N) * 1.02,
+                      8 * radius)) + env.x0
+    exclude = t(np.where(cam, -1, pick), torch.int32)
+    args = (geo.cone_tris, ro_t, rd_t, env.x.contiguous(), env.e, env.x0,
+            env.ta, zmax, exclude, segment_boundaries(lam), 1e-7)
+    ms, ms_plain, cull, mean_cnt, fin = cone_vs_plain(
+        ck, geo, args, f"T={T} narrow cones", lanes=REF_CHUNK)
+    entered = int(cull[1].item())
+    ops, kept = cone_need(ck, geo.cone_table, args, entered)
+    b = bound(ops, cone_bytes(N, T))
+    print(f"phase 7: N={N} T={T} narrow render-like cones: K3 bit-equal to "
+          f"its plain version on the first {REF_CHUNK} lanes, mean count "
+          f"{mean_cnt:.2f}, finite minima {fin:.3f}; "
+          f"{cull_line(cull, N, T, kept)}; K3 {ms:.3f} ms (plain "
+          f"{ms_plain:.3f} ms on {REF_CHUNK} lanes), bound {b[0]:.3f} ms "
+          f"({b[1]})", flush=True)
+    return dict(ms=ms, plain_ms_subset=ms_plain, bound_ms=b[0],
+                bound_by=b[1], pairs_culled=1 - entered / (N * T))
+
+
+def timed_render(rk, ck, built):
+    """One render of `built` with CUDA events around every K2 and K3 call
+    (wrapping the module functions the accel layer calls), each followed,
+    outside its events, by the count of what its data needs (the bounds'
+    rule; for K3 with a launch of its counting build on the same inputs).
+    Returns ({kind: [(ms, rows, needed rows, operations needed)]}, K3's
+    cull counters and its tile-kept pairs, summed over the render); kinds:
+    anyhit_legs (the batched FSD-leg call), anyhit_nee, cone_minz."""
+    from wave_tracer_tpu_torch.render import render_scene
+    rec = []
+    any_hit, cone_minz = rk.any_hit, ck.cone_minz
+    dev = built.data.geo.p0.device
+    cull = torch.zeros((4,), dtype=torch.int64, device=dev)
+    kept3 = []
+
+    def timed(kind_of, fn):
+        def wrapper(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            if fn is any_hit:
+                need = args[7] if len(args) > 7 else kw.get("need")
+                n = args[2].shape[0]
+                ops, _ = anyhit_need(rk, kw["table"], args, out, need)
+                n_need = n if need is None else int(need.sum())
+            else:
+                n = n_need = args[1].shape[0]
+                stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+                zc, cnt = fn(*args, **kw, stats=stats)
+                check(torch.equal(zc, out[0]) and torch.equal(cnt, out[1]),
+                      "K3: the counting build disagrees with the main build")
+                cull.add_(stats)
+                ops, kept = cone_need(ck, kw["table"], args, int(stats[1]))
+                kept3.append(kept)
+            rec.append((kind_of(n), a, b, n, n_need, ops))
+            return out
+        return wrapper
+
+    rk.any_hit = timed(
+        lambda n: "anyhit_legs" if n > POOL else "anyhit_nee", any_hit)
+    ck.cone_minz = timed(lambda n: "cone_minz", cone_minz)
+    try:
+        render_scene(built, device="cuda")
+    finally:
+        rk.any_hit, ck.cone_minz = any_hit, cone_minz
+    torch.cuda.synchronize()
+    calls = {}
+    for kind, a, b, n, n_need, ops in rec:
+        calls.setdefault(kind, []).append((a.elapsed_time(b), n, n_need,
+                                           ops))
+    return calls, cull, sum(kept3)
 
 
 def compare_images(img, ref, st, st_ref, tag, *, mean_rtol, px_tol, px_frac,
@@ -363,7 +658,13 @@ def main():
     for name, info in nvcc_build.BUILD_INFO.items():
         print(f"  {name}: nvcc {info.get('seconds', 0.0):.2f} s", flush=True)
         for line in info.get("ptxas", "").splitlines():
-            if "registers" in line:
+            entry = re.search(
+                r"entry function '[^']*?([a-z][a-z_]*_kernel)(?:ILb(\d)E|E)",
+                line)
+            if entry:
+                flag = f"<{entry.group(2)}>" if entry.group(2) else ""
+                print(f"    ptxas: {entry.group(1)}{flag}", flush=True)
+            elif "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip(), flush=True)
 
     # ---- phase 3: K1/K2 at the shapes of the renders
@@ -402,7 +703,7 @@ def main():
     check(st["mode"] == "ray-compact", f"phase 4: mode {st['mode']}")
     check(st["pool_lanes"] == lanes4, f"phase 4 pool {st['pool_lanes']}")
     print(f"phase 4: classical box 256x256 16 spp depth 8: "
-          f"{st['paths_per_sec']:.1f} paths/s ({st['seconds']:.3f} s, "
+          f"{rate_line(built, st)}, "
           f"pool {st['pool_lanes']}), launches {classical_launches}",
           flush=True)
 
@@ -428,8 +729,7 @@ def main():
     check_render(img6, st6, (256, 256, 3), "phase 6")
     check(st6["pool_lanes"] == lanes6, f"phase 6 pool {st6['pool_lanes']}")
     print(f"phase 6: classical box + icosphere ({big.data.geo.num_tris} "
-          f"tris) 256x256 4 spp depth 8: {st6['paths_per_sec']:.1f} paths/s "
-          f"({st6['seconds']:.3f} s)", flush=True)
+          f"tris) 256x256 4 spp depth 8: {rate_line(big, st6)})", flush=True)
 
     # ---- phase 7: K3 at the wave pool's width
     wbox = build_scene(box_scene(256, 8, 8, fsd=True), device="cuda")
@@ -439,7 +739,7 @@ def main():
                                POOL, 4321)
     k3 = check_cone_kernel(ck, wbig.data.geo, wbig.scene.world_radius(),
                            POOL, 4322)
-    k3["max_abs_err"] = max(k3["max_abs_err"], k3_box["max_abs_err"])
+    k3_narrow = check_cone_narrow(ck, wbig, POOL, 4323)
 
     # ---- phase 8: the wave main path
     render_scene(wbox, spp=1, device="cuda")           # warm-up
@@ -453,7 +753,7 @@ def main():
     check(st8["pool_lanes"] == POOL, f"phase 8 pool {st8['pool_lanes']}")
     dc = st8["device_counters"]
     print(f"phase 8: wave box 256x256 8 spp depth 8: "
-          f"{st8['paths_per_sec']:.1f} paths/s ({st8['seconds']:.3f} s, "
+          f"{rate_line(wbox, st8)}, "
           f"pool {st8['pool_lanes']}), launches {wave_launches}, fsd "
           f"{dc['fsd_interactions']:.0f}, diffusive "
           f"{dc['diffusive_traversals']:.0f}, edge hits "
@@ -482,11 +782,42 @@ def main():
           f"phase 10 launched {after} after {before}")
     check_wave_render(img10, st10, (256, 256, 3), "phase 10")
     print(f"phase 10: wave box + icosphere ({wbig.data.geo.num_tris} tris) "
-          f"256x256 4 spp depth 8: {st10['paths_per_sec']:.1f} paths/s "
-          f"({st10['seconds']:.3f} s)", flush=True)
+          f"256x256 4 spp depth 8: {rate_line(wbig, st10)})", flush=True)
+    calls, cull10, kept10 = timed_render(rk, ck, wbig)
+    T10 = wbig.data.geo.num_tris
+    in_render = {}
+    for kind, rows in calls.items():
+        ms = [c[0] for c in rows]
+        n_rows = sum(c[1] for c in rows)
+        n_need = sum(c[2] for c in rows)
+        in_render[kind] = dict(launches=len(rows), ms_per_launch=sum(ms)
+                               / len(ms), ms_max=max(ms),
+                               needed_share=n_need / max(n_rows, 1),
+                               needed_rows=n_need, rows=n_rows)
+        if kind == "cone_minz":
+            nbytes = len(rows) * cone_bytes(POOL, T10)
+        else:
+            nbytes = len(rows) * T10 * rk.NF * 4 + n_need * 45
+        b = bound(sum(c[3] for c in rows), nbytes)
+        in_render[kind].update(bound_ms_per_launch=b[0] / len(rows),
+                               bound_by=b[1])
+        print(f"phase 10: in the render, {kind}: {len(rows)} launches, "
+              f"{sum(ms) / len(ms):.3f} ms per launch (max {max(ms):.3f}), "
+              f"needed rows {n_need} of {n_rows} "
+              f"({n_need / max(n_rows, 1):.4f}), bound "
+              f"{b[0] / len(rows):.3f} ms per launch ({b[1]})", flush=True)
+    print(f"phase 10: in the render, K3: "
+          f"{cull_line(cull10, in_render['cone_minz']['rows'], T10, kept10)}"
+          f" (over {len(calls['cone_minz'])} launches)", flush=True)
+
+    # ---- phase 3b: K2's need masks at the leg width, at the leg share the
+    # scale render showed
+    legs_need = check_anyhit_need(
+        rk, big.data.geo, n_legs, 1238,
+        max(in_render["anyhit_legs"]["needed_share"], 1e-3))
 
     # ---- phase 11
-    def row(name, src, replaces, key, stats):
+    def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
         return dict(name=name, route="cuda",
                     source=f"wave_tracer_tpu_torch/csrc/{src}",
@@ -495,7 +826,7 @@ def main():
                                       "classical": classical_launches[key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=None)
+                    bound_by=bound_by, library_ms=None, **extra)
 
     kernels = [
         row("closest_hit", "ray_kernels.cu",
@@ -503,9 +834,14 @@ def main():
             kstats["closest"]),
         row("any_hit", "ray_kernels.cu",
             "wave_tracer_tpu/accel/mxu_trace.py:185", "anyhit",
-            kstats["anyhit"]),
+            kstats["anyhit"],
+            in_scale_render={k: in_render[k]
+                             for k in ("anyhit_legs", "anyhit_nee")},
+            need_mask_ms=legs_need[0], empty_mask_ms=legs_need[1]),
         row("cone_minz", "cone_kernels.cu",
-            "wave_tracer_tpu/accel/mxu_cone.py:309", "cone_minz", k3),
+            "wave_tracer_tpu/accel/mxu_cone.py:309", "cone_minz", k3,
+            narrow_cones=k3_narrow,
+            in_scale_render=in_render["cone_minz"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -112,8 +112,9 @@ def test_cone_kernel_wrapper_devices():
     args = (geo.cone_tris, *lane, ones, ones * 0.1, ones * 0.1, ones * 10,
             torch.full((N,), -1, dtype=torch.int32), torch.zeros((N, 16)))
     before = cone_kernels.LAUNCHES["cone_minz"]
-    zc, cnt = cone_kernels.cone_minz(*args)
+    zc, cnt = cone_kernels.cone_minz(*args, table=geo.cone_table)
     assert zc.shape == (N, 16) and cnt.dtype == torch.int32
     assert cone_kernels.LAUNCHES["cone_minz"] == before
     with pytest.raises(NotImplementedError):
-        cone_kernels.cone_minz(*[a.to("meta") for a in args])
+        cone_kernels.cone_minz(*[a.to("meta") for a in args],
+                               table=[x.to("meta") for x in geo.cone_table])

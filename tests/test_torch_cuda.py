@@ -36,14 +36,17 @@ def _soup_rays(dev, T=3000, N=4096, seed=0):
     t = [torch.from_numpy(x).to(dev) for x in (p0, e1, e2, ro, rd)]
     center = t[0].mean(0)
     feat = rk.tri_features(t[0], t[1], t[2], center)
+    table = rk.ray_table(t[0], t[1], t[2], center, feat,
+                         rk.tile_order(t[0], t[1], t[2]))
     ex = torch.from_numpy(r.integers(-1, T, (N, 3)).astype(np.int32)).to(dev)
-    return feat, center, t[3], t[4], ex
+    return feat, table, center, t[3], t[4], ex
 
 
 @pytest.mark.gpu
 def test_kernels_match_twins(cuda):
-    feat, center, ro, rd, ex = _soup_rays(cuda)
+    feat, table, center, ro, rd, ex = _soup_rays(cuda)
     N = ro.shape[0]
+    r = np.random.default_rng(1)
     # a negative tmin admits hits behind the origin (negative t), which the
     # kernel's cross-chunk merge must order like positive ones
     for tmin_v, tmax_v in ((1e-4, 1e30), (1e-4, 3.0), (-20.0, 1e30)):
@@ -57,10 +60,19 @@ def test_kernels_match_twins(cuda):
         both = (ik == ir) & (ir >= 0)
         torch.testing.assert_close(tk[both], tr[both], rtol=1e-4, atol=1e-5)
         assert (tr[both] < 0).any().item() == (tmin_v < 0)
-        occ = rk.any_hit(*args)
-        assert (occ == rk._anyhit_ref(*args)).float().mean().item() >= 0.999
+        occ = rk.any_hit(*args, table=table)
+        ref = rk._anyhit_ref(*args)
+        assert (occ == ref).float().mean().item() >= 0.999
         assert rk.LAUNCHES["closest"] == before["closest"] + 1
         assert rk.LAUNCHES["anyhit"] == before["anyhit"] + 1
+        # need masks: needed rows as before, the rest False
+        for need in (torch.from_numpy(r.random(N) < 0.1).to(cuda),
+                     torch.zeros(N, dtype=torch.bool, device=cuda)):
+            occ_n = rk.any_hit(*args, need, table=table)
+            assert not occ_n[~need].any().item()
+            if need.any().item():
+                assert (occ_n[need] == ref[need]).float().mean().item() \
+                    >= 0.999
 
 
 @pytest.mark.gpu
@@ -100,18 +112,87 @@ def test_cone_kernel_matches_plain(cuda):
         lam = torch.full((N,), 0.05, device=cuda)
         args = (ck.cone_tris(*t[:3]), *t[3:], *lane, zmax, ex,
                 segment_boundaries(lam), 1e-7)
-        before = ck.LAUNCHES["cone_minz"]
-        zc, cnt = ck.cone_minz(*args)
-        zr, cr = ck._minz_ref(*args)
-        torch.cuda.synchronize()
-        assert ck.LAUNCHES["cone_minz"] == before + 1
-        finite = torch.isfinite(zr)
-        assert finite.any().item()
-        assert (torch.isfinite(zc) == finite).float().mean().item() > 0.999
-        both = finite & torch.isfinite(zc)
-        torch.testing.assert_close(zc[both], zr[both], rtol=2e-4, atol=2e-4)
-        ok = (cnt - cr).abs() <= torch.clamp(0.02 * cr, min=2)
-        assert ok.float().mean().item() > 0.97
+        order = rk.tile_order(*t[:3])
+        _cone_matches_plain(args, ck.cone_table(args[0], order))
+
+
+def _cone_matches_plain(args, table):
+    """K3 against _minz_ref: bit-equal minima and counts (the culls skip
+    only pairs the body rejects), one launch counted; the counting build
+    returns the same, with consistent counters."""
+    before = ck.LAUNCHES["cone_minz"]
+    zc, cnt = ck.cone_minz(*args, table=table)
+    zr, cr = ck._minz_ref(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cone_minz"] == before + 1
+    assert torch.isfinite(zr).any().item()
+    assert torch.equal(zc, zr) and torch.equal(cnt, cr)
+    stats = torch.zeros((4,), dtype=torch.int64, device=zc.device)
+    zs, cs = ck.cone_minz(*args, table=table, stats=stats)
+    assert torch.equal(zs, zc) and torch.equal(cs, cnt)
+    tested, entered, witer, witer_in = stats.tolist()
+    assert entered <= tested <= args[1].shape[0] * args[0].shape[0]
+    assert witer_in <= witer and entered >= int(cnt.sum())
+
+
+@pytest.mark.gpu
+def test_cone_kernel_negative_x0_and_ta(cuda):
+    """K3 on lanes with x0 < 0 or ta <= 0 (which the render never makes):
+    its culls must still keep every pair the body accepts, so it stays
+    bit-equal to its plain version; triangles near and ⊥ the axis."""
+    r = np.random.default_rng(13)
+    T, N = 1500, 1024
+    ro = r.uniform(-1, 1, (N, 3)).astype(np.float32)
+    rd = np.tile(np.float32([0.0, 0.0, 1.0]), (N, 1))
+    xh = np.tile(np.float32([1.0, 0.0, 0.0]), (N, 1))
+    c = r.uniform(-1.2, 1.2, (T, 3))
+    c[:, 2] = r.uniform(0.0, 4.0, T)
+    tri = c[:, None] + r.normal(size=(T, 3, 3)) * 0.1
+    flat = r.random(T) < 0.5
+    tri[flat, :, 2] = tri[flat, :1, 2]
+    t = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda)
+         for x in (tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0],
+                   ro, rd, xh)]
+    pick = [r.choice(v, N).astype(np.float32) for v in
+            ([1.0, 0.7], [-0.1, -0.02, 0.05], [-0.1, 0.0, 0.1])]
+    lane = [torch.from_numpy(x).to(cuda) for x in pick]
+    args = (ck.cone_tris(*t[:3]), *t[3:], *lane,
+            torch.full((N,), 5.0, device=cuda),
+            torch.full((N,), -1, dtype=torch.int32, device=cuda),
+            segment_boundaries(torch.full((N,), 0.05, device=cuda)), 1e-7)
+    _cone_matches_plain(args, ck.cone_table(args[0], rk.tile_order(*t[:3])))
+
+
+@pytest.mark.gpu
+def test_cone_kernel_narrow_cones(cuda):
+    """K3 on render-like narrow cones (FSD restart beams at visible
+    wavelengths from points on the surfaces) over the box + icosphere
+    scene: bit-equal to its plain version."""
+    from wave_tracer_tpu_torch.wave import sourcing
+    scene = make_box_scene(res=8, spp=1, icosphere=True)
+    geo = build_scene(scene, device=cuda).data.geo
+    r = np.random.default_rng(9)
+    N, T = 2048, geo.num_tris
+    tg = geo.tri_geom.cpu().numpy()
+    pick = r.integers(0, T, N)
+    u = r.random((N, 2))
+    u = np.where(u.sum(1, keepdims=True) > 1, 1 - u, u)
+    ro = (tg[pick, 0:3] + u[:, :1] * tg[pick, 3:6]
+          + u[:, 1:] * tg[pick, 6:9]).astype(np.float32)
+    rd = r.normal(size=(N, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(x)).to(cuda, dtype)
+    lam = t(r.uniform(380e-9, 720e-9, N))
+    env = sourcing.restart_envelope(t(rd), t(10 ** r.uniform(-4, -2, N)),
+                                    2 * np.pi / lam)
+    zmax = t(np.where(r.random(N) < 0.5, r.uniform(0.05, 4.0, N),
+                      8 * scene.world_radius()))
+    args = (geo.cone_tris, t(ro), t(rd), env.x.contiguous(), env.e, env.x0,
+            env.ta, zmax, t(pick, torch.int32), segment_boundaries(lam),
+            1e-7)
+    _cone_matches_plain(args, geo.cone_table)
 
 
 @pytest.mark.gpu

@@ -178,7 +178,8 @@ def test_wrappers_run_twins_only_on_cpu():
     with pytest.raises(NotImplementedError):
         ray_kernels.closest_hit(*meta, t, t, ex)
     with pytest.raises(NotImplementedError):
-        ray_kernels.any_hit(*meta, t, t, ex)
+        ray_kernels.any_hit(*meta, t, t, ex,
+                            table=[x.to("meta") for x in tgeo.ray_table])
 
 
 def test_closest_hit_word_orders_like_t_then_id():
@@ -202,3 +203,40 @@ def test_closest_hit_word_orders_like_t_then_id():
     np.testing.assert_array_equal(tri.numpy(), ids.astype(np.int32))
     tt, tri = ray_kernels._unpack(torch.tensor([ray_kernels._NO_HIT]))
     assert tt.item() == np.float32(ray_kernels.BIG) and tri.item() == -1
+
+
+@pytest.mark.parametrize("mask", ["random", "none_set", "all_set"])
+def test_occluded_need_mask(mask):
+    """occluded(..., need=m) is occluded(...) & m: rows outside the mask
+    are False (the kernel never traces them), the rest unchanged; with
+    exclusions, as the wave bounce passes them."""
+    _, tgeo = _soup(seed=8)
+    ro, rd = [torch.from_numpy(x) for x in _rays(seed=9)]
+    N = ro.shape[0]
+    r = np.random.default_rng(10)
+    m = {"random": torch.from_numpy(r.random(N) < 0.3),
+         "none_set": torch.zeros(N, dtype=torch.bool),
+         "all_set": torch.ones(N, dtype=torch.bool)}[mask]
+    ex = [torch.from_numpy(r.integers(-1, 700, N).astype(np.int32))
+          for _ in range(3)]
+    args = (tgeo, ro, rd, torch.full((N,), 1e-4),
+            torch.from_numpy(r.uniform(0.5, 6.0, N).astype(np.float32)),
+            *ex)
+    full = ttrace.occluded(*args)
+    assert full.any() and (~full).any()
+    assert torch.equal(ttrace.occluded(*args, need=m), full & m)
+
+
+def test_need_list():
+    """The device-side need list: the set rows in order, then the count,
+    with no host read of the mask."""
+    r = np.random.default_rng(12)
+    for need in (torch.from_numpy(r.random(1000) < 0.1),
+                 torch.zeros(7, dtype=torch.bool),
+                 torch.ones(5, dtype=torch.bool)):
+        rows, count = ray_kernels.need_list(need)
+        n = int(count)
+        assert rows.dtype == count.dtype == torch.int32
+        assert rows.shape == (need.shape[0] + 1,) and count.shape == (1,)
+        assert n == int(need.sum())
+        assert torch.equal(rows[:n].long(), need.nonzero().squeeze(1))

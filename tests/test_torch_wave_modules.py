@@ -588,3 +588,65 @@ def test_wave_bounce_refuses_fsd_off():
     with pytest.raises(NotImplementedError, match="fsd=False"):
         tpp.wave_bounce(None, None, {}, None, None, 0, eps=1e-4, mis=True,
                         fsd=False, K=8, rr_depth=3, rr_floor=0.5)
+
+
+def test_wave_bounce_reads_no_unneeded_shadow_row(monkeypatch):
+    """The wave bounce passes K2 need masks (the FSD legs of valid
+    aperture slots of lanes whose carry is valid, NEE of surface lanes
+    with a valid light sample). With every row outside those masks
+    poisoned with random booleans, one bounce gives bit-identical outputs,
+    counters included: nothing reads an unneeded row."""
+    from wave_tracer_tpu_torch.accel import trace as ttrace
+    from wave_tracer_tpu_torch.integrator import path_compact as tpc
+    from wave_tracer_tpu_torch.integrator import plt_path as tpp
+    from wave_tracer_tpu_torch.sampling import rng as trng
+    from wave_tracer_tpu_torch.scene import build_scene as tbuild
+    from wave_tracer_tpu_torch.scene.procedural import \
+        make_box_scene as tmake_box_scene
+    from wave_tracer_tpu_torch.sensor import film as tfilm
+
+    scene = tmake_box_scene(res=16, spp=4)
+    scene.integrator.fsd = True
+    built = tbuild(scene, device="cpu")
+    data = dataclasses.replace(built.data,
+                               spectral=built.spectral_per_sensor[0])
+    sensor = scene.sensors[0]
+    eps = 1e-4 * scene.world_radius()
+    _, _, init_state, body, _ = tpc._pool_parts(sensor, 8, eps, True, 3,
+                                                0.5, True)
+    film = tfilm.make_film(16, 16, sensor.response.channels,
+                           sensor.rfilter_sigma, device="cpu")
+    key = trng.make_base_key(0)
+    c = init_state(data, film, key, 0, 512, "cpu")
+    for _ in range(2):          # fill the pool, then populate the carry
+        c = body(data, key, 16 * 16 * 4, c)
+    ps, meta = c["ps"], c["meta"]
+    assert ps["fsd_valid"].any() and not ps["fsd_valid"].all()
+    dkeys = trng.depth_key_v({"idx": meta["idx"], "strm": meta["strm"]},
+                             meta["depth"])
+    kw = dict(eps=eps, mis=True, fsd=True, K=tpc.FSD_SLOTS, rr_depth=3,
+              rr_floor=0.5, with_stats=True)
+
+    def step():
+        st = {k: v for k, v in ps.items()}
+        return tpp.wave_bounce(data, data.edges, st, dkeys, meta["k"],
+                               meta["depth"], **kw)
+
+    clean = step()
+    real = ttrace.occluded
+    r = np.random.default_rng(0)
+    seen = []
+
+    def poisoned(*args, need=None, **kwargs):
+        assert need is not None
+        out = real(*args, need=need, **kwargs)
+        seen.append(float(need.float().mean()))
+        noise = torch.from_numpy(r.random(out.shape[0]) < 0.5)
+        return torch.where(need, out, noise)
+
+    monkeypatch.setattr(ttrace, "occluded", poisoned)
+    dirty = step()
+    assert len(seen) == 2 and all(0.0 < s < 1.0 for s in seen)
+    for name, a in _fields(clean).items():
+        assert np.array_equal(a, _fields(dirty)[name], equal_nan=True), name
+    assert torch.equal(clean["stats"], dirty["stats"])

@@ -18,12 +18,24 @@ On a CUDA tensor `cone_minz` launches the hand-written kernel
 (csrc/cone_kernels.cu, built with nvcc for sm_90a at first use and loaded
 with ctypes) and adds one to LAUNCHES["cone_minz"]; on a CPU tensor it
 runs the plain torch version `_minz_ref` (the port of `_launch_ref`: a
-loop over triangle tiles of 512). Any other device raises.
+loop over triangle tiles of 512, every pair through the full entry math).
+Any other device raises.
+
+The kernel reads its own copy of the triangles (`ConeTable`), sorted so
+that its 256-triangle tiles are compact, and culls before the pair body:
+per warp and tile against the tile's bounding sphere (`tile_spheres`),
+then per pair
+against the triangle's bounding sphere (`tri_spheres`) and on the local
+vertices. `_sphere_cull` (both sphere tests) and `_pair_may_enter` are
+the plain twins of those predicates; the tests hold them against
+`_minz_block` (a culled pair must be one the body rejects), so the kernel
+equals the all-pairs plain version bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +46,10 @@ BIG = 1e30
 _EPS = 1e-12
 NB = 16                     # schedule boundaries (integrator/traversal.py)
 TILE_REF = 512              # triangle tile of the plain version
+TILE = 256                  # triangles per bounding-sphere tile (kernel)
+# blocks per SM the triangle-range split aims at: blocks finish unevenly
+# (their cones cull different tiles), so many short blocks balance better
+CHUNK_BLOCKS = 48
 
 LAUNCHES = {"cone_minz": 0}
 
@@ -44,6 +60,53 @@ def cone_tris(p0, e1, e2):
     """(T, 9) f32 rows [A | A+e1 | A+e2], summed in f32 as the JAX sweep
     forms its vertices."""
     return torch.cat([p0, p0 + e1, p0 + e2], dim=1).contiguous()
+
+
+def bounding_spheres(tri, group):
+    """(ceil(T / group), 4) f32 bounding spheres [centre | radius] of the
+    groups of `group` consecutive triangles of `tri` (T, 9) in row order.
+    Centre and radius are taken in f64; the radius is measured from the
+    f32-rounded centre and rounded up."""
+    T = tri.shape[0]
+    ng = -(-T // group)
+    if T == 0:
+        return tri.new_zeros((0, 4))
+    rows = torch.arange(ng * group, device=tri.device).clamp_max(T - 1)
+    v = tri.double()[rows].reshape(ng, group * 3, 3)
+    c = ((v.amin(1) + v.amax(1)) * 0.5).float().double()
+    r = (v - c[:, None]).norm(dim=-1).amax(1)
+    return torch.cat([c, (r * (1 + 1e-6) + 1e-12)[:, None]], 1).float()
+
+
+def tile_spheres(tri):
+    """The bounding spheres of the kernel's 256-triangle tiles."""
+    return bounding_spheres(tri, TILE)
+
+
+def tri_spheres(tri):
+    """The bounding sphere of each triangle, (T, 4)."""
+    return bounding_spheres(tri, 1)
+
+
+class ConeTable(NamedTuple):
+    """K3's own copy of the triangles, in `ray_kernels.tile_order` (so
+    that its 256-triangle tiles are compact): rows (T + pad, 9), zero-
+    padded to a multiple of 4 rows (the kernel streams whole 16-byte
+    words), the bake-order id of each row (T,) i32, which the exclusion
+    compares, and the bounding spheres of its tiles (`tile_spheres`) and
+    of each row (`tri_spheres`)."""
+    tris: torch.Tensor
+    ids: torch.Tensor
+    tiles: torch.Tensor
+    spheres: torch.Tensor
+
+
+def cone_table(tri, order):
+    """The ConeTable of `tri` (T, 9) in the row order `order`."""
+    rows = tri[order]
+    return ConeTable(torch.cat([rows, rows.new_zeros((-len(rows) % 4, 9))]),
+                     order.to(torch.int32), tile_spheres(rows),
+                     tri_spheres(rows))
 
 
 # ---------------------------------------------------------------------------
@@ -57,19 +120,23 @@ def build():
         return _lib
     lib = nvcc_build.build("cone_kernels")["cone_kernels"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wt_cone_minz.argtypes = [vp, ci, ci, vp, vp, vp, ci,
-                                 ctypes.c_float, vp, vp, vp]
+    lib.wt_cone_minz.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci,
+                                 ctypes.c_float, vp, vp, vp, vp]
     lib.wt_cone_minz.restype = ci
     _lib = lib
     return lib
 
 
-def _launch(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
+def _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
+            stats):
     lib = build()
     dev = ro.device
     N, T = ro.shape[0], tri.shape[0]
+    rows, ids, tiles, spheres = table
     f32 = torch.float32
-    for name, x, dt in (("tri", tri, f32), ("ro", ro, f32), ("rd", rd, f32),
+    for name, x, dt in (("tri", rows, f32), ("ids", ids, torch.int32),
+                        ("tiles", tiles, f32), ("spheres", spheres, f32),
+                        ("ro", ro, f32), ("rd", rd, f32),
                         ("xh", xh, f32), ("e", e, f32), ("x0", x0, f32),
                         ("ta", ta, f32), ("zmax", zmax, f32),
                         ("exclude", exclude, torch.int32),
@@ -77,23 +144,41 @@ def _launch(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
         if x.device != dev or x.dtype != dt:
             raise ValueError(f"{name}: need a {dt} tensor on {dev}, got "
                              f"{x.dtype} on {x.device}")
-    if (tri.ndim != 2 or tri.shape[1] != 9 or bnd.shape != (N, NB)
-            or exclude.shape != (N,)):
+    if (tri.ndim != 2 or tri.shape[1] != 9
+            or rows.shape != (T + -T % 4, 9) or ids.shape != (T,)
+            or bnd.shape != (N, NB)
+            or exclude.shape != (N,)
+            or tiles.shape != (-(-T // TILE), 4) or spheres.shape != (T, 4)):
         raise ValueError("cone kernel: bad shapes")
+    if stats is not None and (stats.shape != (4,)
+                              or stats.dtype != torch.int64
+                              or stats.device != dev):
+        raise ValueError(f"stats: need an int64 (4,) tensor on {dev}")
     if not zmin > 0.0:
         raise ValueError("cone kernel: zmin must be > 0 (the cross-block "
                          "merge compares float bits as ints)")
     lane = torch.cat([ro, rd, xh, e[:, None], x0[:, None], ta[:, None],
                       zmax[:, None], ro.new_zeros((N, 3))], dim=1)
-    tri, bnd, exclude = (tri.contiguous(), bnd.contiguous(),
-                         exclude.contiguous())
+    bnd, exclude, ids, tiles, spheres = (
+        bnd.contiguous(), exclude.contiguous(), ids.contiguous(),
+        tiles.contiguous(), spheres.contiguous())
+    # tiles stream through cp.async in 16-byte words
+    for name, x in (("tri", rows), ("spheres", spheres)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte words, so "
+                             "the rows must be contiguous from a 16-byte "
+                             "boundary (`cone_table`)")
     zc = torch.full((N, NB), float("inf"), dtype=f32, device=dev)
     cnt = torch.zeros((N,), dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = lib.wt_cone_minz(tri.data_ptr(), T, _chunks(N, T, dev),
-                           lane.data_ptr(), exclude.data_ptr(),
-                           bnd.data_ptr(), N, float(zmin), zc.data_ptr(),
-                           cnt.data_ptr(), stream)
+    err = lib.wt_cone_minz(rows.data_ptr(), ids.data_ptr(), tiles.data_ptr(),
+                           spheres.data_ptr(), T,
+                           _chunks(N, T, dev, block=128, per_sm=CHUNK_BLOCKS),
+                           lane.data_ptr(),
+                           exclude.data_ptr(), bnd.data_ptr(), N,
+                           float(zmin), zc.data_ptr(), cnt.data_ptr(),
+                           None if stats is None else stats.data_ptr(),
+                           stream)
     if err != 0:
         raise RuntimeError(f"cone kernel launch failed: cudaError {err}")
     LAUNCHES["cone_minz"] += 1
@@ -232,13 +317,12 @@ def _minz_block(A, B, C, x0, ta, zmax, zmin):
     return torch.minimum(best, torch.where(ok_c & in_c, z_c, BIG))
 
 
-def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
-    """Plain version of K3 → (zc (N, 16) f32 with inf where none,
-    cnt (N,) i32)."""
-    N = ro.shape[0]
-    # yh = rd × xh and the dot products are written out so that every
-    # operation rounds as the kernel's does (fused library kernels such as
-    # torch.linalg.cross may contract multiply-adds on the card)
+def _local_coords(tile, ro, rd, xh, e):
+    """Local scaled coordinates of a tile of points (bt, 3·P), P = 3 for
+    triangles, for every lane: P (x, y, z) tuples of (N, bt). yh = rd × xh and the dot products
+    are written out so that every operation rounds as the kernel's does
+    (fused library kernels such as torch.linalg.cross may contract
+    multiply-adds on the card)."""
     r0, r1, r2 = (rd[:, c:c + 1] for c in range(3))
     x_0, x_1, x_2 = (xh[:, c:c + 1] for c in range(3))
     axes = ((x_0, x_1, x_2),
@@ -246,19 +330,26 @@ def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
             (r0, r1, r2))
     o = [ro[:, c:c + 1] for c in range(3)]
     ecc = e[:, None]
+    local = []
+    for p in range(tile.shape[1] // 3):
+        u = [tile[None, :, 3 * p + c] - o[c] for c in range(3)]
+
+        def dot(a):
+            return u[0] * a[0] + u[1] * a[1] + u[2] * a[2]
+        local.append((dot(axes[0]), ecc * dot(axes[1]), dot(axes[2])))
+    return local
+
+
+def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
+    """Plain version of K3 → (zc (N, 16) f32 with inf where none,
+    cnt (N,) i32). All pairs, no cull."""
+    N = ro.shape[0]
     lane = [v[:, None] for v in (x0, ta, zmax)]
     mins = torch.full((N, NB), BIG, dtype=torch.float32, device=ro.device)
     cnt = torch.zeros((N,), dtype=torch.int32, device=ro.device)
     for base in range(0, tri.shape[0], TILE_REF):
         tile = tri[base:base + TILE_REF]
-        local = []
-        for p in range(3):
-            u = [tile[None, :, 3 * p + c] - o[c] for c in range(3)]
-
-            def dot(a):
-                return u[0] * a[0] + u[1] * a[1] + u[2] * a[2]
-            local.append((dot(axes[0]), ecc * dot(axes[1]), dot(axes[2])))
-        z = _minz_block(*local, *lane, zmin)
+        z = _minz_block(*_local_coords(tile, ro, rd, xh, e), *lane, zmin)
         ids = torch.arange(base, base + tile.shape[0], dtype=torch.int32,
                            device=ro.device)
         ok = (z < BIG) & (ids[None, :] != exclude[:, None])
@@ -270,17 +361,98 @@ def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
     return torch.where(mins >= BIG, float("inf"), mins), cnt
 
 
-def cone_minz(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin=1e-7):
+# ---------------------------------------------------------------------------
+# plain twins of the kernel's two culls (csrc/cone_kernels.cu); the kernel
+# skips a pair only where these say it may not enter
+# ---------------------------------------------------------------------------
+
+def _cull_pad(R, x0, ta, mag):
+    """Margin of both culls for coordinates of magnitude `mag`: 4·R, R the
+    radius bound (the conic near point the body accepts may lie √3·R off
+    the axis), twice the sqrt of the body's tolerance 1e-6·max(r0², 1),
+    and 1e-2·mag for the fp32 rounding of the squared distances the body
+    compares (the derivation: csrc/cone_kernels.cu's header)."""
+    return 4.0 * R + 2e-3 * (x0.abs() + ta.abs() * mag) + 1e-2 * mag
+
+
+def _lane_cull_terms(x0, ta, zmax, zmin):
+    """(zlo_eff, R, rinv): the least z an entry off the axis may have, the
+    largest |cone radius| over [zlo_eff, zmax], and 1 / (1 − 1.8·ta)."""
+    apex = -_safe_div(x0, ta.clamp_min(_EPS))
+    zlo_eff = torch.where(ta > 0, apex, -BIG).clamp_min(zmin)
+    return (zlo_eff, torch.fmax((x0 + ta * zlo_eff).abs(),
+                                (x0 + ta * zmax).abs()),
+            1.0 / (1.0 - 1.8 * ta))
+
+
+def _radius_bound(R, x0, ta, rinv, zlo_eff, zh):
+    """The cone radius an entry into a triangle (or tile) whose highest
+    local z is zh may see: vertices and edge points lie at z ≤ zh, the
+    conic near point at z_c ≤ zh + √3·r(z_c), so r ≤ (x0 + ta·zh) /
+    (1 − 1.8·ta) for x0 ≥ 0 and 0 ≤ ta < 0.5; never above R."""
+    tight = torch.fmin(R, (x0 + ta * torch.fmax(zh, zlo_eff)) * rinv)
+    return torch.where((x0 >= 0) & (ta >= 0) & (ta < 0.5), tight, R)
+
+
+def _sphere_cull(spheres, ro, rd, xh, e, x0, ta, zmax, zmin):
+    """Twin of sphere_may_enter → (N, S) bool: may the lane's cone reach
+    the bounding sphere (a tile's or a triangle's)? The margin comes from
+    the sphere's largest local coordinate, inflated by 1e-5, and its
+    highest z, so it is at least that of every triangle inside. Lane
+    inputs as `cone_minz`'s."""
+    (cx, cy, cz), = _local_coords(spheres[:, :3], ro, rd, xh, e)
+    x0, ta, zmax = (v[:, None] for v in (x0, ta, zmax))
+    zlo_eff, R, rinv = _lane_cull_terms(x0, ta, zmax, zmin)
+    rad = spheres[None, :, 3] * e.abs().clamp_min(1.0)[:, None]
+    mag = ((torch.fmax(torch.fmax(cx.abs(), cy.abs()), cz.abs()) + rad)
+           * 1.00001).clamp_min(1.0)
+    pad = _cull_pad(_radius_bound(R, x0, ta, rinv, zlo_eff, cz + rad), x0,
+                    ta, mag)
+    return ~((cz - rad > zmax + pad) | (cz + rad < zmin - pad)
+             | (cx.abs() - rad > pad) | (cy.abs() - rad > pad))
+
+
+def _pair_may_enter(A, B, C, x0, ta, zmax, zmin):
+    """Twin of pair_may_enter: False where the triangle's local vertices
+    lie wholly above zmax, below zmin, or beyond the cone in x or in y,
+    by more than the pair's margin. A, B, C: (x, y, z) tuples of
+    (N, bt) local coordinates; lane scalars (N, 1). NaN coordinates never
+    cull (fmax/fmin drop NaN)."""
+    zlo_eff, R, rinv = _lane_cull_terms(x0, ta, zmax, zmin)
+    mag = torch.ones_like(A[0])
+    for c in (*A, *B, *C):
+        mag = torch.fmax(mag, c.abs())
+
+    def lo(k):
+        return torch.fmin(torch.fmin(A[k], B[k]), C[k])
+
+    def hi(k):
+        return torch.fmax(torch.fmax(A[k], B[k]), C[k])
+    pad = _cull_pad(_radius_bound(R, x0, ta, rinv, zlo_eff, hi(2)), x0, ta,
+                    mag)
+    return ~((lo(2) > zmax + pad) | (hi(2) < zmin - pad)
+             | (lo(0) > pad) | (hi(0) < -pad)
+             | (lo(1) > pad) | (hi(1) < -pad))
+
+
+def cone_minz(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin=1e-7,
+              *, table, stats=None):
     """K3: per-boundary earliest exact cone–triangle entries.
 
-    tri (T, 9) f32 world vertices (`cone_tris`); per lane: ro, rd, xh
-    (N, 3) origin, unit axis and unit major-axis direction, e, x0, ta,
-    zmax (N,), exclude (N,) i32 (−1 = none), bnd (N, 16) boundaries
-    (pad with BIG). Returns (zc (N, 16) f32, inf where no encounter
-    ≥ bnd_j; cnt (N,) i32 encounters)."""
+    tri (T, 9) f32 world vertices (`cone_tris`), which the plain version
+    reads, and the kernel's copy of them, `table` (`cone_table`); per
+    lane: ro, rd, xh (N, 3) origin, unit
+    axis and unit major-axis direction, e, x0, ta, zmax (N,), exclude (N,)
+    i32 (−1 = none), bnd (N, 16) boundaries (pad with BIG). `stats`, for
+    measurement only: an int64 (4,) tensor on the card to which a counting
+    build of the kernel adds the pairs tested after the tile cull, the
+    pairs that entered the pair body, the warp-iterations and those in
+    which some lane entered the body. Returns (zc (N, 16) f32, inf where
+    no encounter ≥ bnd_j; cnt (N,) i32 encounters)."""
     if ro.device.type == "cpu":
         return _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd,
                          zmin)
     if ro.device.type != "cuda":
         raise NotImplementedError(f"cone kernel: no backend for {ro.device}")
-    return _launch(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin)
+    return _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd,
+                   zmin, stats)

@@ -16,7 +16,14 @@ triangles far from mxu_center the sides cancel, and t from their sum
 carries ~1e-4 relative error.
 
 * `closest_hit` (K1): least (t, id) per ray, ties to the smaller id.
-* `any_hit` (K2): whether any pair hits.
+* `any_hit` (K2): whether any pair hits. An optional bool `need` mask
+  names the rows whose result is read; the others return False and the
+  kernel never traces them. The kernel reads its own copy of the
+  triangles (`RayTable`), sorted so that its 256-triangle tiles are
+  compact (`tile_order`), and skips, per warp, the tiles whose box
+  (`tile_boxes`) no segment of the warp meets;
+  `_tile_box_may_hit` is the plain twin of that cull, which the tests
+  hold against `_anyhit_ref`.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (csrc/ray_kernels.cu, built with nvcc for sm_90a at first use and loaded
@@ -32,6 +39,7 @@ Triangle features are compact rows (T, 24) f32:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +54,8 @@ _NO_HIT = int(np.uint64(((int(np.float32(BIG).view(np.uint32)) | 1 << 31)
 DEN_EPS = 1e-12
 NF = 24                    # floats per triangle row
 TILE_REF = 512             # triangle tile of the torch twins
+TILE = 256                 # triangles per bounding-box tile (K2)
+BLOCKS_PER_SM = 4          # K2's persistent grid
 
 LAUNCHES = {"closest": 0, "anyhit": 0}
 
@@ -72,6 +82,77 @@ def tri_features(p0, e1, e2, center):
     return out.to(torch.float32).contiguous()
 
 
+def tile_boxes(p0, e1, e2, center):
+    """(ceil(T / 256), 8) f32 boxes of the 256-triangle tiles in row
+    order, translated by `center` as the kernel rows are: [lo | s | hi |
+    0] with s the tile's largest |v − center| component. Taken in f64 and
+    rounded outward."""
+    T = p0.shape[0]
+    nt = -(-T // TILE)
+    if T == 0:
+        return p0.new_zeros((0, 8))
+    f64 = torch.float64
+    A = p0.to(f64) - center.to(f64)
+    v = torch.stack([A, A + e1.to(f64), A + e2.to(f64)], 1)
+    rows = torch.arange(nt * TILE, device=p0.device).clamp_max(T - 1)
+    v = v[rows].reshape(nt, TILE * 3, 3)
+    lo, hi = v.amin(1), v.amax(1)
+    s = v.abs().amax(2).amax(1, keepdim=True)
+    slack = 1e-6 * (s + 1.0)
+    return torch.cat([lo - slack, s * (1 + 1e-6), hi + slack,
+                      torch.zeros_like(s)], 1).float()
+
+
+def tile_order(p0, e1, e2):
+    """(T,) int64 row order of the kernels' own copies of the triangles
+    (K2's `RayTable`, K3's `cone_kernels.ConeTable`), so that each
+    256-triangle tile holds triangles that lie together: the bake order
+    may interleave distant ones (an icosphere bakes each level of its
+    subdivision in turn), and a tile cull can only skip a compact tile.
+    The centroids are split at a multiple of 256 across the longest side
+    of their box, recursively, down to single tiles; triangles more than
+    16× the median extent go last. Computed on the host, once per scene."""
+    v = torch.stack([p0, p0 + e1, p0 + e2], 1).detach().cpu().double()
+    v = v.numpy()
+    if len(v) == 0:
+        return torch.zeros((0,), dtype=torch.long, device=p0.device)
+    c = v.mean(1)
+    ext = np.linalg.norm(v.max(1) - v.min(1), axis=-1)
+    big = ext > 16 * np.median(ext)
+    leaves = []
+
+    def split(idx):
+        if len(idx) <= TILE:
+            leaves.append(idx)
+            return
+        pts = c[idx]
+        axis = int(np.argmax(pts.max(0) - pts.min(0)))
+        k = TILE * -(-(-(-len(idx) // TILE)) // 2)
+        part = np.argpartition(pts[:, axis], k - 1)
+        split(idx[part[:k]])
+        split(idx[part[k:]])
+
+    split(np.flatnonzero(~big))
+    order = np.concatenate(leaves + [np.flatnonzero(big)])
+    return torch.from_numpy(order).to(p0.device)
+
+
+class RayTable(NamedTuple):
+    """K2's own copy of the triangles, in `tile_order`: the kernel rows
+    (T, 24), the bake-order id of each row (T,) i32, which exclusions
+    compare, and the rows' tile boxes (`tile_boxes`)."""
+    feat: torch.Tensor
+    ids: torch.Tensor
+    boxes: torch.Tensor
+
+
+def ray_table(p0, e1, e2, center, feat, order):
+    """The RayTable of the triangles p0/e1/e2 with rows `feat`
+    (`tri_features`) in the row order `order` (`tile_order`)."""
+    return RayTable(feat[order].contiguous(), order.to(torch.int32),
+                    tile_boxes(p0[order], e1[order], e2[order], center))
+
+
 # ---------------------------------------------------------------------------
 # build + bind
 # ---------------------------------------------------------------------------
@@ -86,20 +167,23 @@ def build():
         return _lib
     lib = nvcc_build.build("ray_kernels")["ray_kernels"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ("wt_closest_hit", "wt_any_hit"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
+    lib.wt_closest_hit.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, ci,
+                                   vp, vp]
+    lib.wt_any_hit.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp,
+                               vp, ci, vp, ci, vp]
+    for fn in (lib.wt_closest_hit, lib.wt_any_hit):
         fn.restype = ci
     _lib = lib
     return lib
 
 
-def _chunks(N, T, device):
-    """Triangle-range split so that ~8 blocks of 256 rays run per SM."""
+def _chunks(N, T, device, block=256, per_sm=8):
+    """Triangle-range split so that ~`per_sm` blocks of `block` lanes run
+    per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ray_blocks = -(-N // 256)
+    ray_blocks = -(-N // block)
     tiles = -(-T // 256)
-    return max(1, min(tiles, -(-8 * sms // ray_blocks)))
+    return max(1, min(tiles, -(-per_sm * sms // ray_blocks)))
 
 
 def _check(tri_feat, center, ro, rd, tmin, tmax, ex):
@@ -124,27 +208,73 @@ def _check(tri_feat, center, ro, rd, tmin, tmax, ex):
                          "must start on a 16-byte boundary")
 
 
-def _launch(anyhit, tri_feat, center, ro, rd, tmin, tmax, ex):
+def _launch_closest(tri_feat, center, ro, rd, tmin, tmax, ex):
     lib = build()
     _check(tri_feat, center, ro, rd, tmin, tmax, ex)
     N, T = ro.shape[0], tri_feat.shape[0]
     stream = ctypes.c_void_p(torch.cuda.current_stream(ro.device).cuda_stream)
-    chunks = _chunks(N, T, ro.device)
-    args = (tri_feat.data_ptr(), T, chunks, center.data_ptr(), ro.data_ptr(),
-            rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), ex.data_ptr(), N)
-    if anyhit:
-        occ = torch.zeros((N,), dtype=torch.uint8, device=ro.device)
-        err = lib.wt_any_hit(*args, occ.data_ptr(), stream)
-        out = occ
-    else:
-        best = torch.full((N,), _NO_HIT, dtype=torch.int64,
-                          device=ro.device)
-        err = lib.wt_closest_hit(*args, best.data_ptr(), stream)
-        out = best
+    best = torch.full((N,), _NO_HIT, dtype=torch.int64, device=ro.device)
+    err = lib.wt_closest_hit(tri_feat.data_ptr(), T, _chunks(N, T, ro.device),
+                             center.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                             tmin.data_ptr(), tmax.data_ptr(), ex.data_ptr(),
+                             N, best.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
-    LAUNCHES["anyhit" if anyhit else "closest"] += 1
-    return out
+    LAUNCHES["closest"] += 1
+    return best
+
+
+def need_list(need):
+    """The rows of a bool mask as a device-side list, with no host sync:
+    (rows (N + 1,) i32 whose first `count` entries are the set rows in
+    order, count (1,) i32). A cumsum ranks the set rows; the rest scatter
+    into the spare last slot."""
+    N = need.shape[0]
+    csum = torch.cumsum(need, 0, dtype=torch.int32)
+    dst = torch.where(need, csum - 1, N).long()
+    rows = torch.empty((N + 1,), dtype=torch.int32, device=need.device)
+    rows.scatter_(0, dst, torch.arange(N, dtype=torch.int32,
+                                       device=need.device))
+    return rows, csum[-1:]
+
+
+def _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex, need):
+    lib = build()
+    feat, ids, boxes = table
+    _check(feat, center, ro, rd, tmin, tmax, ex)
+    dev = ro.device
+    N, T = ro.shape[0], feat.shape[0]
+    if (feat.shape != tri_feat.shape or ids.shape != (T,)
+            or ids.dtype != torch.int32 or ids.device != dev
+            or not ids.is_contiguous() or boxes.device != dev
+            or boxes.dtype != torch.float32
+            or boxes.shape != (-(-T // TILE), 8)
+            or not boxes.is_contiguous()):
+        raise ValueError("table: need the RayTable (`ray_table`) of these "
+                         f"triangles on {dev}")
+    occ = torch.zeros((N,), dtype=torch.uint8, device=dev)
+    if N == 0:
+        return occ
+    if need is None:
+        rows = count = None
+    else:
+        if need.shape != (N,) or need.dtype != torch.bool \
+                or need.device != dev:
+            raise ValueError(f"need: a bool (N,) mask on {dev}")
+        rows, count = need_list(need)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.wt_any_hit(feat.data_ptr(), ids.data_ptr(), boxes.data_ptr(),
+                         T,
+                         center.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                         tmin.data_ptr(), tmax.data_ptr(), ex.data_ptr(),
+                         None if rows is None else rows.data_ptr(),
+                         None if count is None else count.data_ptr(), N,
+                         occ.data_ptr(), BLOCKS_PER_SM * sms, stream)
+    if err != 0:
+        raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
+    LAUNCHES["anyhit"] += 1
+    return occ
 
 
 def _unpack(best):
@@ -185,7 +315,7 @@ def _tile_matrix(tf):
 
 def _tile_hits(rf, tf, base, tmin, tmax, ex):
     """Shared twin body: (t, hit, ids) of one triangle tile."""
-    S = (rf @ _tile_matrix(tf)).view(rf.shape[0], -1, 5)
+    S = (rf @ _tile_matrix(tf)).view(rf.shape[0], tf.shape[0], 5)
     s0, s1, s2, tn, dn = S.unbind(-1)
     denom = s0 + s1 + s2
     pos = (s0 >= 0) & (s1 >= 0) & (s2 >= 0)
@@ -220,8 +350,13 @@ def _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex):
     return best_t, best_i
 
 
-def _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex):
-    """Twin of K2 → occluded (N,) bool."""
+def _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need=None):
+    """Twin of K2 → occluded (N,) bool; rows outside `need` are False."""
+    if need is not None:
+        occ = torch.zeros((ro.shape[0],), dtype=torch.bool, device=ro.device)
+        occ[need] = _anyhit_ref(tri_feat, center, ro[need], rd[need],
+                                tmin[need], tmax[need], ex[need])
+        return occ
     rf = _ray_features(ro, rd, center)
     occ = torch.zeros((ro.shape[0],), dtype=torch.bool, device=ro.device)
     for base in range(0, tri_feat.shape[0], TILE_REF):
@@ -229,6 +364,26 @@ def _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex):
                                tmin, tmax, ex)
         occ |= hit.any(dim=1)
     return occ
+
+
+def _tile_box_may_hit(boxes, center, ro, rd, tmin, tmax):
+    """Twin of K2's tile cull (seg_may_hit) → (N, ntiles) bool: may the
+    segment o + t·d, t in [tmin, tmax], meet the tile's padded box?"""
+    o = (ro - center)[:, None, :]
+    d = rd[:, None, :]
+    lo, s, hi = boxes[None, :, 0:3], boxes[None, :, 3], boxes[None, :, 4:7]
+    omax = o.abs().amax(-1)
+    pad = 2e-3 * (omax + s) + 1e-6
+    dlen = (d * d).sum(-1).clamp_min(1e-30).sqrt()
+    dt = pad / dlen
+    tn, tf = tmin[:, None] - dt, tmax[:, None] + dt
+    inv = 1.0 / d
+    a = (lo - pad[..., None] - o) * inv
+    b = (hi + pad[..., None] - o) * inv
+    for k in range(3):
+        tn = torch.fmax(tn, torch.fmin(a[..., k], b[..., k]))
+        tf = torch.fmin(tf, torch.fmax(a[..., k], b[..., k]))
+    return tn <= tf
 
 
 # ---------------------------------------------------------------------------
@@ -242,16 +397,20 @@ def closest_hit(tri_feat, center, ro, rd, tmin, tmax, ex):
         return _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex)
     if ro.device.type != "cuda":
         raise NotImplementedError(f"ray kernels: no backend for {ro.device}")
-    return _unpack(_launch(False, tri_feat, center, ro, rd, tmin, tmax, ex))
+    return _unpack(_launch_closest(tri_feat, center, ro, rd, tmin, tmax, ex))
 
 
-def any_hit(tri_feat, center, ro, rd, tmin, tmax, ex):
-    """K2: whether any triangle hits in (tmin, tmax]. Returns (N,) bool."""
+def any_hit(tri_feat, center, ro, rd, tmin, tmax, ex, need=None, *, table):
+    """K2: whether any triangle hits in (tmin, tmax]. `need` (N,) bool, or
+    None for all rows, names the rows to trace; the others are False.
+    The kernel reads `table`, the RayTable of `tri_feat` (`ray_table`);
+    the plain version reads `tri_feat`. Returns (N,) bool."""
     if ro.device.type == "cpu":
-        return _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex)
+        return _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need)
     if ro.device.type != "cuda":
         raise NotImplementedError(f"ray kernels: no backend for {ro.device}")
-    return _launch(True, tri_feat, center, ro, rd, tmin, tmax, ex).bool()
+    return _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex,
+                          need).bool()
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +453,11 @@ def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None):
 
 
 def occluded_rays(geo, ro, rd, tmin, tmax, exclude_tri=None,
-                  exclude_tri2=None, exclude_tri3=None):
-    """Any hit within (tmin, tmax]. Returns bool (N,)."""
+                  exclude_tri2=None, exclude_tri3=None, need=None):
+    """Any hit within (tmin, tmax] for the rows of `need` (all rows if
+    None); False elsewhere. Returns bool (N,)."""
     N = ro.shape[0]
     ex = _exclusions(N, ro.device, exclude_tri, exclude_tri2, exclude_tri3)
     return any_hit(geo.tri_feat, geo.mxu_center, ro.contiguous(),
-                   rd.contiguous(), tmin.contiguous(), tmax.contiguous(), ex)
+                   rd.contiguous(), tmin.contiguous(), tmax.contiguous(), ex,
+                   need, table=geo.ray_table)

@@ -33,11 +33,21 @@ class GeoArrays:
     tri_attr: torch.Tensor  # (T, 32)
     mxu_center: torch.Tensor  # (3,) translation of the kernel features
     tri_feat: torch.Tensor  # (T, 24) K1/K2 rows (ray_kernels.tri_features)
-    # (T, 9) K3 rows [A | B | C] (cone_kernels.cone_tris), derived
+    # derived: (T, 9) K3 rows [A | B | C] (cone_kernels.cone_tris), and
+    # the copies of the triangles that K3 and K2 read, in an order that
+    # makes their 256-triangle tiles compact (ray_kernels.tile_order),
+    # with the tiles' bounds
     cone_tris: torch.Tensor = field(init=False)
+    cone_table: cone_kernels.ConeTable = field(init=False)
+    ray_table: ray_kernels.RayTable = field(init=False)
 
     def __post_init__(self):
         self.cone_tris = cone_kernels.cone_tris(self.p0, self.e1, self.e2)
+        order = ray_kernels.tile_order(self.p0, self.e1, self.e2)
+        self.cone_table = cone_kernels.cone_table(self.cone_tris, order)
+        self.ray_table = ray_kernels.ray_table(self.p0, self.e1, self.e2,
+                                               self.mxu_center,
+                                               self.tri_feat, order)
 
     @property
     def num_tris(self):
@@ -93,14 +103,16 @@ def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None):
 
 
 def occluded(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
-             exclude_tri2=None, exclude_tri3=None):
-    """Any hit within (tmin, tmax]. Returns bool (N,)."""
+             exclude_tri2=None, exclude_tri3=None, need=None):
+    """Any hit within (tmin, tmax]. `need` (N,) bool names the rows whose
+    result is read (None: all); the others return False and are not
+    traced. Returns bool (N,)."""
     _check_size(geo, ro)
     if geo.num_tris == 0:
         return torch.zeros((ro.shape[0],), dtype=torch.bool,
                            device=ro.device)
     return ray_kernels.occluded_rays(geo, ro, rd, tmin, tmax, exclude_tri,
-                                     exclude_tri2, exclude_tri3)
+                                     exclude_tri2, exclude_tri3, need)
 
 
 def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
@@ -124,7 +136,7 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
     zc, cnt = cone_kernels.cone_minz(
         geo.cone_tris, ro.contiguous(), rd.contiguous(),
         env.x.contiguous(), env.e, env.x0, env.ta, zmax,
-        exclude_tri.to(torch.int32), bounds, zmin)
+        exclude_tri.to(torch.int32), bounds, zmin, table=geo.cone_table)
     return zc[:, :B], cnt
 
 

@@ -11,33 +11,98 @@
 //   triangle id. Per lane it keeps the 16 masked minima
 //   min{z : z >= bnd_j} and the number of triangles the cone meets.
 //
-// What bounds it on the card: 387 fp32 operations per pair (among them
-//   4 square roots and 17 divisions, besides many data-dependent
-//   compares and selects), over N·T pairs: a 262,144-lane pool × 81,932 triangles is
-//   2.1e10 pairs at the main path's largest shape. Compute bound; the
-//   triangle table (T × 36 bytes) is read once per block through L2, the
-//   lane state (N × 140 bytes) once per lane.
+// What bounds it on the card: the pair body is 387 fp32 operations
+//   (among them 4 square roots and 17 IEEE divisions, each many
+//   instructions, besides many data-dependent compares and selects) over
+//   N·T pairs: a 262,144-lane pool × 81,932 triangles is 2.1e10 pairs at
+//   the main path's largest shape. Run on every pair, that is compute
+//   bound at ~1,300 issued instructions per pair. But almost every pair
+//   of a narrow beam against a large scene misses, and that shows before
+//   any quadratic: the triangle lies wholly beyond zmax, before the
+//   apex, or off to one side of the cone.
 //
 // What the design does about it:
-//   * one thread per lane (cone); a block stages tiles of 256 triangles ×
-//     9 floats (A, B, C world coordinates, 9 KB) in shared memory, where
-//     every thread reads the same word (broadcast); the loop over tiles
-//     takes the place of the Pallas grid's sequential triangle axis;
+//   * two conservative culls in front of the pair body, over K3's own
+//     copy of the triangles, sorted so that each 256-triangle tile is
+//     compact (accel/ray_kernels.py::tile_order; min and count do not
+//     depend on the order, and the exclusion compares the rows'
+//     bake-order ids). (a) Per warp and tile: each tile has a bounding
+//     sphere (accel/cone_kernels.py::tile_spheres); a warp skips it when
+//     __any_sync says none of its 32 cones can reach the sphere. (b) Per
+//     pair: first against the triangle's bounding sphere (tri_spheres: one
+//     point to transform, not three), then, where some lane of the warp is
+//     still in, on the three local vertices: the body is skipped when all
+//     three local z lie above zmax, or all below the apex/zmin, or all x
+//     or all y lie beyond the cone. The margin is 4·R + 2e-3·(|x0| +
+//     |ta|·mag) + 1e-2·mag, R the cone radius an entry there may see and
+//     mag the largest local coordinate of the triangle (or of the sphere,
+//     which bounds every triangle's inside); why it holds is set out
+//     below. A culled pair is one the body would not accept, so the
+//     outputs equal the all-pairs plain version bit for bit;
+//     tests/test_torch_cull.py holds the plain twins of the predicates
+//     against _minz_block;
+//   * the pair body runs for few, scattered lanes of a warp, so run where
+//     it is found it would idle most of the warp. Instead each warp queues
+//     its surviving (lane, triangle) candidates in a shared-memory ring and
+//     drains them 32 at a time, one per thread: the lane's cone comes by
+//     __shfl_sync, and the 16 minima and the count of each lane live in
+//     shared memory and merge with shared atomicMin/atomicAdd (min and sum
+//     do not depend on the order);
+//   * one thread per lane, 128 lanes per block; the boundaries are read
+//     through L1 only for accepted pairs, so the hot loop (the culls)
+//     holds few registers (__launch_bounds__(128, 6): <= 85 registers;
+//     36 KB of shared memory per block, so 6 blocks, 24 warps per SM,
+//     against 16 before);
+//   * triangle tiles (256 × 9 floats and 256 spheres, 13 KB) stream
+//     through a 2-stage shared-memory ring with cp.async, so the next
+//     tile's load overlaps the current tile's tests; every thread reads
+//     the same word (broadcast);
 //   * local coordinates subtract first: u = V − ro, then (xh·u, e·(yh·u),
-//     rd·u) with yh = rd × xh. The MXU kernel's bilinear [v, 1]
-//     contraction cancels badly for small triangles far from the origin;
-//     the subtraction does not, and at ~57 operations per pair it is small
-//     beside the entry math, so no tensor cores are used;
-//   * the normal channels of the MXU features are dropped: the normal is
-//     recomputed from the local edges, as _minz_block does;
-//   * the 16 running minima, the 16 boundaries and the count live in
-//     registers; the per-boundary update runs only for pairs that meet;
-//   * for small N the triangle range is split across blockIdx.y so that
-//     the card fills; the partial results merge with atomicMin on the
-//     float bits and atomicAdd on the count. Every accepted z is
+//     rd·u) with yh = rd × xh (the MXU kernel's bilinear [v, 1]
+//     contraction cancels badly for small triangles far from the origin);
+//     the normal is recomputed from the local edges, as _minz_block does;
+//   * the triangle range is split across blockIdx.y into many short
+//     blocks (~48 per SM in all), so that the card fills and blocks that
+//     finish early (their cones cull more tiles) leave no long tail; the
+//     partial results merge with atomicMin on the float bits and
+//     atomicAdd on the count. Every accepted z is
 //     >= zlo_eff >= zmin > 0 (the wrapper refuses zmin <= 0), and the
-//     outputs start at +inf, so the bits of all values compared are those
-//     of non-negative floats, which order like the floats themselves.
+//     minima start at BIG or +inf, so the bits of all values compared are
+//     those of non-negative floats, which order like the floats themselves;
+//   * a second build of the kernel (kStats), launched only to measure,
+//     adds to four counters (pairs tested after the tile cull, pairs that
+//     entered the body, warp-iterations, warp-iterations in which some
+//     lane had a candidate), one atomic per warp; the main path's build
+//     does not count.
+//
+// Why the cull margin holds. An accepted entry lies in the triangle at a z
+//   in [zlo_eff, zmax] and within r = |x0 + ta·z| of the axis (vertex,
+//   edge and axis entries, up to the tolerance below), with two
+//   exceptions, both from the conic near point p = (s·r/ρ·(lnx, lny),
+//   z_c), z_c = max(lo1, lo2, zlo_eff):
+//   * where the plane cuts the disk at z_c rather than touching it, p is
+//     on the rim but off the plane, and the body accepts it when its
+//     projection along the normal's largest axis falls in the triangle's.
+//     The triangle point t with that projection lies within √3·r(z_c) of
+//     (0, 0, z_c). Dropping z: t_xy = p_xy, |p_xy| = r, and the plane
+//     climbs at most ρ/|lnz| <= √2 per unit across the <= r from its
+//     line's nearest point to p, so |t_z − z_c| <= √2·r. Dropping x (or
+//     y): t_z = z_c, |t_y| <= r and |t_x| <= r·(|n̂x| + |n̂y|) <= √2·r.
+//     So every side needs at most √3·R, R the largest |r| over [zlo_eff,
+//     zmax]; the margin's 4·R is more than twice that. With x0 >= 0 and
+//     0 <= ta < 0.5 the radius is also held by the triangle's highest z,
+//     zh: z_c <= zh + √3·r gives r <= (x0 + ta·zh) / (1 − √3·ta) <= (x0 +
+//     ta·zh) / (1 − 1.8·ta) (radius_bound);
+//   * a plane ⊥ the axis (ρ <= 1e-12) enters on the axis at z >= zmin,
+//     which may lie below the apex when x0 < 0, so the low-z test
+//     compares with zmin, not zlo_eff (the two differ only for x0 < 0).
+//   The tolerance q <= 1e-6·max(r0², 1) admits points sqrt(tol) =
+//   1e-3·max(|r0|, 1) beyond the rim; 2e-3·(|x0| + |ta|·mag) + 1e-2·mag
+//   covers that twice. fp32 rounding of q, a difference of squares of
+//   coordinates up to mag, moves the rim by about sqrt(k·2^-24)·mag for k
+//   rounded operations: 1e-2·mag covers k up to ~1,700.
+//   tests/test_torch_cull.py checks that the body rejects every triangle
+//   beyond half the margin, on each side.
 //
 // Precision: fp32 throughout, no tensor cores, no TF32. Build WITHOUT
 //   --use_fast_math: sqrtf and the divisions must be IEEE and denormals
@@ -45,21 +110,35 @@
 //   candidates, the conic `perp` branch) keep the JAX order of operations,
 //   and the source is built with -fmad=false: a multiply-add contracted
 //   into one FMA rounds once where the plain torch version rounds twice,
-//   and a pair at a membership threshold then flips (seen once in 4,717
-//   minima against the plain version before the flag).
+//   and a pair at a membership threshold then flips.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BN = 256;       // lanes per block = threads
-constexpr int TT = 256;       // triangles per shared-memory tile
+constexpr int BN = 128;       // lanes per block = threads
+constexpr int TT = 256;       // triangles per tile (= the bound tiles)
 constexpr int NF = 9;         // floats per triangle: A, B, C
+constexpr int TILE_F4 = TT * NF / 4;
 constexpr int NB = 16;        // schedule boundaries
 constexpr int LF = 16;        // floats per lane row
 constexpr float BIG = 1e30f;
 constexpr float EPS = 1e-12f;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // a / b with |b| < EPS replaced by -EPS (b < 0) or +EPS (b >= 0, so b = 0
 // maps to +EPS), as mxu_cone._safe_div
@@ -216,24 +295,117 @@ __device__ __forceinline__ float minz_pair(
   return jmin(best, (ok_c & in_c) ? z_c : BIG);
 }
 
-__global__ void __launch_bounds__(BN) cone_minz_kernel(
-    const float* __restrict__ tri, int T, int tiles_per_chunk,
-    const float* __restrict__ lane, const int* __restrict__ ex,
-    const float* __restrict__ bnd, int N, float zmin,
-    float* __restrict__ zc, int* __restrict__ cnt) {
-  __shared__ float sh[TT * NF];
-  const int i = blockIdx.x * BN + threadIdx.x;
+// cull margin for coordinates of magnitude `mag` (see the header);
+// accel/cone_kernels.py::_cull_pad is its plain twin
+__device__ __forceinline__ float cull_pad(float R, float x0, float ta,
+                                          float mag) {
+  return 4.f * R + 2e-3f * (fabsf(x0) + fabsf(ta) * mag) + 1e-2f * mag;
+}
+
+// The cone radius an entry into a triangle (or tile) whose highest local z
+// is zh may see: the vertices and edge points lie at z <= zh and the conic
+// near point at z_c <= zh + √3·r(z_c), so r <= (x0 + ta·zh) / (1 −
+// 1.8·ta) for x0 >= 0 and 0 <= ta < 0.5; never above the lane's bound R,
+// the largest |r| over [zlo_eff, zmax]. rinv = 1 / (1 − 1.8·ta). Twin:
+// cone_kernels.py::_radius_bound.
+__device__ __forceinline__ float radius_bound(float R, float x0, float ta,
+                                              float rinv, float zlo_eff,
+                                              float zh) {
+  return (x0 >= 0.f) & (ta >= 0.f) & (ta < 0.5f)
+             ? fminf(R, (x0 + ta * fmaxf(zh, zlo_eff)) * rinv)
+             : R;
+}
+
+// (b) may the body accept the pair? loc = local A, B, C (x, y, z each);
+// twin: accel/cone_kernels.py::_pair_may_enter. fmaxf/fminf drop NaN, so
+// a NaN coordinate never culls.
+__device__ __forceinline__ bool pair_may_enter(const float* loc, float x0,
+                                               float ta, float zlo_eff,
+                                               float zmin, float zmax,
+                                               float R, float rinv) {
+  float mag = 1.f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) mag = fmaxf(mag, fabsf(loc[k]));
+  const float zl = fminf(fminf(loc[2], loc[5]), loc[8]);
+  const float zh = fmaxf(fmaxf(loc[2], loc[5]), loc[8]);
+  const float pad =
+      cull_pad(radius_bound(R, x0, ta, rinv, zlo_eff, zh), x0, ta, mag);
+  const float xl = fminf(fminf(loc[0], loc[3]), loc[6]);
+  const float xh = fmaxf(fmaxf(loc[0], loc[3]), loc[6]);
+  const float yl = fminf(fminf(loc[1], loc[4]), loc[7]);
+  const float yh = fmaxf(fmaxf(loc[1], loc[4]), loc[7]);
+  return !((zl > zmax + pad) | (zh < zmin - pad) | (xl > pad) |
+           (xh < -pad) | (yl > pad) | (yh < -pad));
+}
+
+// may the cone reach a bounding sphere (world centre, radius), a tile's
+// in (a) and a triangle's in (b)? The margin comes from the sphere's
+// largest local coordinate (inflated by 1e-5 for the rounding of the two
+// transforms) and its highest z, so it is at least that of every triangle
+// inside. Twin: accel/cone_kernels.py::_sphere_cull
+__device__ __forceinline__ bool sphere_may_enter(
+    float4 sph, float rox, float roy, float roz, float rdx, float rdy,
+    float rdz, float xhx, float xhy, float xhz, float yhx, float yhy,
+    float yhz, float ecc, float x0, float ta, float zlo_eff, float zmin,
+    float zmax, float R, float rinv) {
+  const float ux = sph.x - rox, uy = sph.y - roy, uz = sph.z - roz;
+  const float cx = xhx * ux + xhy * uy + xhz * uz;
+  const float cy = ecc * (yhx * ux + yhy * uy + yhz * uz);
+  const float cz = rdx * ux + rdy * uy + rdz * uz;
+  const float rad = sph.w * fmaxf(1.f, fabsf(ecc));
+  const float mag = fmaxf(
+      1.f, (fmaxf(fmaxf(fabsf(cx), fabsf(cy)), fabsf(cz)) + rad) * 1.00001f);
+  const float pad = cull_pad(
+      radius_bound(R, x0, ta, rinv, zlo_eff, cz + rad), x0, ta, mag);
+  return !((cz - rad > zmax + pad) | (cz + rad < zmin - pad) |
+           (fabsf(cx) - rad > pad) | (fabsf(cy) - rad > pad));
+}
+
+// local scaled coordinates of triangle v (9 floats) for one cone
+__device__ __forceinline__ void to_local(const float* v, float* loc,
+                                         float rox, float roy, float roz,
+                                         float rdx, float rdy, float rdz,
+                                         float xhx, float xhy, float xhz,
+                                         float yhx, float yhy, float yhz,
+                                         float ecc) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const float ux = v[3 * p] - rox;
+    const float uy = v[3 * p + 1] - roy;
+    const float uz = v[3 * p + 2] - roz;
+    loc[3 * p] = xhx * ux + xhy * uy + xhz * uz;
+    loc[3 * p + 1] = ecc * (yhx * ux + yhy * uy + yhz * uz);
+    loc[3 * p + 2] = rdx * ux + rdy * uy + rdz * uz;
+  }
+}
+
+constexpr int WARPS = BN / 32;
+constexpr int QCAP = 64;      // candidate ring per warp (a power of 2)
+
+template <bool kStats>
+__global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
+    const float* __restrict__ tri, const int* __restrict__ ids,
+    const float4* __restrict__ tiles,
+    const float4* __restrict__ spheres, int T,
+    int tiles_per_chunk, const float* __restrict__ lane,
+    const int* __restrict__ ex, const float* __restrict__ bnd, int N,
+    float zmin, float* __restrict__ zc, int* __restrict__ cnt,
+    unsigned long long* __restrict__ stats) {
+  __shared__ __align__(16) float4 sh[2][TILE_F4];
+  __shared__ float4 ssph[2][TT];
+  __shared__ float smin[NB][BN];
+  __shared__ int scnt[BN];
+  __shared__ int squeue[WARPS][QCAP];
+  const int tid = threadIdx.x;
+  const int lid = tid & 31, warp = tid >> 5;
+  const int i = blockIdx.x * BN + tid;
   const bool live = i < N;
 
   // lane row: ro(0:3) rd(3:6) xh(6:9) e x0 ta zmax pad3
   float L[LF];
-  float bd[NB];
-  int exc = -1;
 #pragma unroll
   for (int k = 0; k < LF; ++k) L[k] = live ? lane[(size_t)i * LF + k] : 0.f;
-#pragma unroll
-  for (int k = 0; k < NB; ++k) bd[k] = live ? bnd[(size_t)i * NB + k] : BIG;
-  if (live) exc = ex[i];
+  const int exc = live ? ex[i] : -1;
   const float rox = L[0], roy = L[1], roz = L[2];
   const float rdx = L[3], rdy = L[4], rdz = L[5];
   const float xhx = L[6], xhy = L[7], xhz = L[8];
@@ -244,66 +416,169 @@ __global__ void __launch_bounds__(BN) cone_minz_kernel(
   const float yhz = rdx * xhy - rdy * xhx;
   const float apex = -safe_div(x0, jmax(ta, EPS));
   const float zlo_eff = jmax(zmin, ta > 0.f ? apex : -BIG);
+  // the cone's radius bound over the z range an accepted pair lies in
+  const float R = fmaxf(fabsf(x0 + ta * zlo_eff), fabsf(x0 + ta * zmax));
+  const float rinv = 1.f / (1.f - 1.8f * ta);
 
-  float mins[NB];
 #pragma unroll
-  for (int k = 0; k < NB; ++k) mins[k] = BIG;
-  int count = 0;
+  for (int k = 0; k < NB; ++k) smin[k][tid] = BIG;
+  scnt[tid] = 0;
+  unsigned tested = 0, entered = 0, witer = 0, witer_in = 0;  // kStats
+  unsigned qhead = 0, qtail = 0;        // warp-uniform ring positions
 
-  const int first = blockIdx.y * tiles_per_chunk * TT;
-  const int last = min(T, first + tiles_per_chunk * TT);
-  for (int base = first; base < last; base += TT) {
-    const int n = min(TT, last - base);
-    __syncthreads();
-    const float* src = tri + (size_t)base * NF;
-    for (int k = threadIdx.x; k < n * NF; k += BN) sh[k] = src[k];
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const float* v = sh + j * NF;
+  // the pair body for the m oldest queued candidates (lane, triangle),
+  // one per thread: the lane's cone comes by shuffle; the minima and the
+  // count merge with shared-memory atomics (min and sum do not depend on
+  // the order, so the result is that of the all-pairs loop)
+  auto drain = [&](unsigned m, const float* v0, int base) {
+    __syncwarp();
+    const int e = lid < (int)m ? squeue[warp][(qhead + lid) & (QCAP - 1)]
+                               : 0;
+    const int src = e >> 8, j = e & 255;
+    const float qrox = __shfl_sync(FULL, rox, src);
+    const float qroy = __shfl_sync(FULL, roy, src);
+    const float qroz = __shfl_sync(FULL, roz, src);
+    const float qrdx = __shfl_sync(FULL, rdx, src);
+    const float qrdy = __shfl_sync(FULL, rdy, src);
+    const float qrdz = __shfl_sync(FULL, rdz, src);
+    const float qxhx = __shfl_sync(FULL, xhx, src);
+    const float qxhy = __shfl_sync(FULL, xhy, src);
+    const float qxhz = __shfl_sync(FULL, xhz, src);
+    const float qyhx = __shfl_sync(FULL, yhx, src);
+    const float qyhy = __shfl_sync(FULL, yhy, src);
+    const float qyhz = __shfl_sync(FULL, yhz, src);
+    const float qecc = __shfl_sync(FULL, ecc, src);
+    const float qx0 = __shfl_sync(FULL, x0, src);
+    const float qta = __shfl_sync(FULL, ta, src);
+    const float qzmax = __shfl_sync(FULL, zmax, src);
+    const float qzlo = __shfl_sync(FULL, zlo_eff, src);
+    const int qexc = __shfl_sync(FULL, exc, src);
+    if (lid < (int)m) {
       float loc[9];
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        const float ux = v[3 * p] - rox;
-        const float uy = v[3 * p + 1] - roy;
-        const float uz = v[3 * p + 2] - roz;
-        loc[3 * p] = xhx * ux + xhy * uy + xhz * uz;
-        loc[3 * p + 1] = ecc * (yhx * ux + yhy * uy + yhz * uz);
-        loc[3 * p + 2] = rdx * ux + rdy * uy + rdz * uz;
-      }
+      to_local(v0 + j * NF, loc, qrox, qroy, qroz, qrdx, qrdy, qrdz, qxhx,
+               qxhy, qxhz, qyhx, qyhy, qyhz, qecc);
       const float z = minz_pair(loc[0], loc[1], loc[2], loc[3], loc[4],
-                                loc[5], loc[6], loc[7], loc[8], x0, ta,
-                                zlo_eff, zmin, zmax);
-      if ((z < BIG) & (base + j != exc)) {
-        ++count;
+                                loc[5], loc[6], loc[7], loc[8], qx0, qta,
+                                qzlo, zmin, qzmax);
+      if ((z < BIG) && __ldg(ids + base + j) != qexc) {
+        const int slot = warp * 32 + src;
+        const size_t row = (size_t)(blockIdx.x * BN + slot) * NB;
+        atomicAdd(&scnt[slot], 1);
 #pragma unroll
         for (int k = 0; k < NB; ++k)
-          if (z >= bd[k]) mins[k] = fminf(mins[k], z);
+          if (z >= __ldg(bnd + row + k))
+            atomicMin(reinterpret_cast<int*>(&smin[k][slot]),
+                      __float_as_int(z));
       }
     }
+    qhead += m;
+    __syncwarp();
+  };
+
+  const int t_first = blockIdx.y * tiles_per_chunk;
+  const int t_end = min((T + TT - 1) / TT, t_first + tiles_per_chunk);
+  // cone_table pads tri to a multiple of 4 rows, so every tile is a whole
+  // number of 16-byte words
+  auto load_tile = [&](int t, int stage) {
+    const int n = min(TT, T - t * TT);
+    const int nf4 = (n * NF + 3) / 4;
+    const float4* src =
+        reinterpret_cast<const float4*>(tri + (size_t)t * TT * NF);
+    for (int k = tid; k < nf4; k += BN) cp_async16(&sh[stage][k], src + k);
+    for (int k = tid; k < n; k += BN)
+      cp_async16(&ssph[stage][k], spheres + t * TT + k);
+    cp_async_commit();
+  };
+  if (t_first < t_end) load_tile(t_first, 0);
+  for (int t = t_first; t < t_end; ++t) {
+    const int stage = (t - t_first) & 1;
+    if (t + 1 < t_end) {
+      load_tile(t + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool may =
+        live && sphere_may_enter(__ldg(tiles + t), rox, roy, roz, rdx, rdy,
+                                 rdz, xhx, xhy, xhz, yhx, yhy, yhz, ecc, x0,
+                                 ta, zlo_eff, zmin, zmax, R, rinv);
+    if (__any_sync(FULL, may)) {
+      const int base = t * TT;
+      const int n = min(TT, T - base);
+      const float* v0 = reinterpret_cast<const float*>(sh[stage]);
+      for (int j = 0; j < n; ++j) {
+        // (b) the pair cull: the triangle's bounding sphere (one point
+        // to transform), then, where some lane of the warp is still in,
+        // the three vertices
+        bool pass =
+            may && sphere_may_enter(ssph[stage][j], rox, roy, roz, rdx, rdy,
+                                    rdz, xhx, xhy, xhz, yhx, yhy, yhz, ecc,
+                                    x0, ta, zlo_eff, zmin, zmax, R, rinv);
+        if (__any_sync(FULL, pass)) {
+          float loc[9];
+          to_local(v0 + j * NF, loc, rox, roy, roz, rdx, rdy, rdz, xhx, xhy,
+                   xhz, yhx, yhy, yhz, ecc);
+          pass &= pair_may_enter(loc, x0, ta, zlo_eff, zmin, zmax, R,
+                                 rinv);
+        }
+        const unsigned bal = __ballot_sync(FULL, pass);
+        if (pass)
+          squeue[warp][(qtail + __popc(bal & ((1u << lid) - 1u))) &
+                       (QCAP - 1)] = (lid << 8) | j;
+        qtail += __popc(bal);
+        if constexpr (kStats) {
+          tested += live;
+          entered += pass;
+          ++witer;
+          witer_in += bal != 0u;
+        }
+        if (qtail - qhead >= 32u) drain(32u, v0, base);
+      }
+      // the tile leaves shared memory: drain what is left
+      if (qtail != qhead) drain(qtail - qhead, v0, base);
+    }
+    __syncthreads();           // the stage is refilled next iteration
   }
-  if (!live) return;
-  if (count) {
-    atomicAdd(cnt + i, count);
+  if constexpr (kStats) {
+    tested = __reduce_add_sync(FULL, tested);
+    entered = __reduce_add_sync(FULL, entered);
+    if (lid == 0) {
+      atomicAdd(stats + 0, (unsigned long long)tested);
+      atomicAdd(stats + 1, (unsigned long long)entered);
+      atomicAdd(stats + 2, (unsigned long long)witer);
+      atomicAdd(stats + 3, (unsigned long long)witer_in);
+    }
+  }
+  const int count = scnt[tid];
+  if (!live || !count) return;
+  atomicAdd(cnt + i, count);
 #pragma unroll
-    for (int k = 0; k < NB; ++k)
-      if (mins[k] < BIG)
-        atomicMin(reinterpret_cast<int*>(zc) + (size_t)i * NB + k,
-                  __float_as_int(mins[k]));
-  }
+  for (int k = 0; k < NB; ++k)
+    if (smin[k][tid] < BIG)
+      atomicMin(reinterpret_cast<int*>(zc) + (size_t)i * NB + k,
+                __float_as_int(smin[k][tid]));
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Pointers are device pointers;
-// `stream` is a cudaStream_t. tri (T, 9) f32; lane (N, 16) f32; ex (N,)
-// i32; bnd (N, 16) f32 (BIG-padded); zc (N, 16) f32 must hold +inf and
-// cnt (N,) i32 zeros before the launch. Returns cudaGetLastError() after
-// the launch (0 = launched).
-extern "C" int wt_cone_minz(const float* tri, int T, int chunks,
-                            const float* lane, const int* ex,
+// `stream` is a cudaStream_t. tri (≥ T rows, a multiple of 4, × 9) f32,
+// 16-byte aligned, in tile order, and ids (T,) i32 their bake-order ids
+// (the exclusion compares these); tiles (ceil(T / 256), 4) f32 tile
+// spheres; spheres
+// (T, 4) f32 triangle spheres, 16-byte aligned; lane (N, 16)
+// f32; ex (N,) i32; bnd (N, 16) f32 (BIG-padded); zc (N, 16) f32 must hold
+// +inf and cnt (N,) i32 zeros before the launch; stats, if not null, (4,)
+// u64 counters to which the counting build adds. Returns cudaGetLastError() after the launch (0 =
+// launched).
+extern "C" int wt_cone_minz(const float* tri, const int* ids,
+                            const float* tiles,
+                            const float* spheres, int T,
+                            int chunks, const float* lane, const int* ex,
                             const float* bnd, int N, float zmin, float* zc,
-                            int* cnt, void* stream) {
+                            int* cnt, unsigned long long* stats,
+                            void* stream) {
   if (N <= 0 || T <= 0) return 0;
   const int ntiles = (T + TT - 1) / TT;
   if (chunks < 1) chunks = 1;
@@ -311,7 +586,10 @@ extern "C" int wt_cone_minz(const float* tri, int T, int chunks,
   const int per = (ntiles + chunks - 1) / chunks;
   chunks = (ntiles + per - 1) / per;
   dim3 grid((N + BN - 1) / BN, chunks);
-  cone_minz_kernel<<<grid, BN, 0, (cudaStream_t)stream>>>(
-      tri, T, per, lane, ex, bnd, N, zmin, zc, cnt);
+  auto kernel = stats ? cone_minz_kernel<true> : cone_minz_kernel<false>;
+  kernel<<<grid, BN, 0, (cudaStream_t)stream>>>(
+      tri, ids, reinterpret_cast<const float4*>(tiles),
+      reinterpret_cast<const float4*>(spheres), T, per, lane, ex, bnd, N,
+      zmin, zc, cnt, stats);
   return (int)cudaGetLastError();
 }

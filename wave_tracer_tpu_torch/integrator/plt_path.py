@@ -9,7 +9,8 @@ superposed one bounce later.
 Per bounce: trace (K1) → hybrid ballistic/diffusive traversal over the
 exact cone–triangle sweep (K3) → edges inside the beam envelope →
 deferred coherent UTD sum with per-edge shadow tests (K2, one batched
-call over the 2K+1 legs of every lane) → emission MIS → NEE (K2) →
+call over the 2K+1 legs of every lane, tracing only the legs that are
+read) → emission MIS → NEE (K2, surface lanes only) →
 interaction (surface | FSD | null) → the next deferred aperture → RR.
 
 Only the default cone query of the JAX module is ported (the
@@ -134,9 +135,16 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
     seg = b_pts - a_pts
     seg_d = vec.safe_length(seg)
     seg_n = seg / seg_d.clamp_min(1e-20)[:, None]
+    # only these legs are read: an edge leg where the carry is valid and
+    # the edge term survives fsd_eval (coherent_sum masks with
+    # ev["valid"], and f_mod is 1 where ~fsd_valid), the direct leg where
+    # the carry is valid
+    leg_need = (st["fsd_valid"][:, None] & ev["valid"]).reshape(-1)
     occ_all = trace_mod.occluded(geo, a_pts, seg_n,
                                  full(a_pts.shape[0], eps),
-                                 seg_d - 2.0 * eps, ex1, ex2, ex3)
+                                 seg_d - 2.0 * eps, ex1, ex2, ex3,
+                                 need=torch.cat([leg_need, leg_need,
+                                                 st["fsd_valid"]]))
     s1 = occ_all[:N * K].view(N, K)
     s2 = occ_all[N * K:2 * N * K].view(N, K)
     direct_vis = st["fsd_valid"] & ~occ_all[2 * N * K:]
@@ -181,8 +189,10 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
     wo_nee_l = sf.to_local(nee["wo"])
     f_nee, pdf_b_nee = bsdf_dev.eval_f(tables, hit.mat_id, wi_l, wo_nee_l,
                                        hit.uv, k)
+    # read only through ok_nee
     occ = trace_mod.occluded(geo, hit.p, nee["wo"], full(N, eps),
-                             nee["dist"] - 2.0 * eps, hit.tri, nee["tri"])
+                             nee["dist"] - 2.0 * eps, hit.tri, nee["tri"],
+                             need=surface & nee["valid"])
     pdf_nee = pmf_n * nee["pdf_sa"]
     w_mis_n = one if not mis else torch.where(
         nee["delta_dir"], one, _power_heuristic(pdf_nee, pdf_b_nee))

@@ -2,6 +2,7 @@
 
     python -m wave_tracer_tpu_torch.measure pool      # wave pool widths
     python -m wave_tracer_tpu_torch.measure profile   # torch.profiler split
+    python -m wave_tracer_tpu_torch.measure cells     # host-bound cells
 
 `pool` renders the wave box headline (plt_path,
 fsd=True, 256×256, 8 spp, max_depth 8) at 2^16, 2^17 and 2^18 lanes, in
@@ -9,7 +10,11 @@ two passes of opposite order, and the box + icosphere at 4 spp once per
 width, printing paths/s. `profile` runs torch.profiler over one wave
 render of each scene at the default pool width and prints the device
 time by op and kernel and the device's busy share of the wall time.
-Every line starts with the card's name and power limit. Needs a card:
+`cells` renders the wave box headline, the classical box (fsd=False,
+256×256, 16 spp, max_depth 8) and the classical box + icosphere (4 spp)
+at the default pool, in turn, CELL_READINGS times each, printing every
+reading: the cells whose host dispatch moves between readings, for an
+A/B of two trees in one call. Every line starts with the card's name and power limit. Needs a card:
 without one each mode exits nonzero.
 """
 
@@ -22,6 +27,7 @@ import time
 import torch
 
 WIDTHS = (1 << 16, 1 << 17, 1 << 18)
+CELL_READINGS = 5
 
 
 def card_line():
@@ -31,11 +37,11 @@ def card_line():
     return out.splitlines()[0] if out else "nvidia-smi: n/a"
 
 
-def wave_scene(res, spp, depth, icosphere=False):
+def wave_scene(res, spp, depth, icosphere=False, fsd=True):
     from wave_tracer_tpu_torch.scene.procedural import make_box_scene
     scene = make_box_scene(res=res, spp=spp, icosphere=icosphere)
     scene.integrator.type = "plt_path"
-    scene.integrator.fsd = True
+    scene.integrator.fsd = fsd
     scene.integrator.max_depth = depth
     return scene
 
@@ -58,6 +64,25 @@ def pool():
         print(f"{card} | wave box+icosphere 256x256 4 spp depth 8, pool "
               f"{lanes}: {st['paths_per_sec']:.1f} paths/s "
               f"({st['seconds']:.3f} s)", flush=True)
+
+
+def cells():
+    from wave_tracer_tpu_torch.render import render_scene
+    from wave_tracer_tpu_torch.scene import build_scene
+    card = card_line()
+    built = [(tag, build_scene(scene, device="cuda")) for tag, scene in (
+        ("wave box 256x256 8 spp depth 8", wave_scene(256, 8, 8)),
+        ("classical box 256x256 16 spp depth 8",
+         wave_scene(256, 16, 8, fsd=False)),
+        ("classical box+icosphere 256x256 4 spp depth 8",
+         wave_scene(256, 4, 8, icosphere=True, fsd=False)))]
+    for _, b in built:
+        render_scene(b, spp=1, device="cuda")              # warm-up
+    for _ in range(CELL_READINGS):
+        for tag, b in built:
+            _, st = render_scene(b, device="cuda")
+            print(f"{card} | {tag}: {st['paths_per_sec']:.1f} paths/s "
+                  f"({st['seconds']:.3f} s)", flush=True)
 
 
 def _self_dev_us(e):
@@ -115,7 +140,7 @@ def main(argv):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    modes = dict(pool=pool, profile=profile)
+    modes = dict(pool=pool, profile=profile, cells=cells)
     if not argv or any(m not in modes for m in argv):
         print(f"measure: modes are {sorted(modes)}", file=sys.stderr)
         return 2
