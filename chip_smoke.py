@@ -19,13 +19,20 @@ Phases (each raises on failure; nothing is caught):
      as the renderer's lane pool (262,144), a third with exclusions, on
      the box (12 triangles) and on the box + icosphere (81,932): ids agree
      on >= 99.9% of rays, t within rtol 1e-4 / atol 1e-5 where ids agree,
-     occlusion agrees on >= 99.9%; times from CUDA events after a warm-up.
+     occlusion agrees on >= 99.9%; K1's words also equal, bit for bit,
+     those of its launch with the culls off (every pair of every tile),
+     timed; times from CUDA events after a warm-up.
      K2 also at the width of the wave bounce's batched FSD-leg call,
      (2K+1)·262,144 = 4,456,448 segments, on both scenes, against its
      plain version run in ray chunks of 262,144, with the same bar; and,
      after phase 10 (phase 3b), at that width with a need mask of the
      share the scale render showed and with an empty one: needed rows
-     agree with the plain version on >= 99.9%, unneeded rows are False
+     agree with the plain version on >= 99.9%, unneeded rows are False.
+     Phase 3b also runs K1 at 262,144 rays on both scenes with a need
+     mask at the live share of the scale render's K1 calls and with an
+     empty one, and a carried hit for every row: needed rows hold the
+     words of tracing every row and agree with the plain version under
+     the bars above, the other rows their carried hit bit for bit
   4. render_scene: box, plt_path, fsd=False, 256x256, 16 spp, max_depth 8
      (the benchmark's classical configuration); launch counters are zeroed
      just before and read just after, and must both have grown
@@ -51,13 +58,19 @@ Phases (each raises on failure; nothing is caught):
      edge-sweep hits all occurred
   9. the wave box at 32x32, 4 spp, max_depth 5 on the card and on the CPU:
      channel means within 2%, Pearson correlation >= 0.999, >= 90% of
-     pixels within 1e-2·max(|ref|, mean|ref|), device counters within 2%
+     pixels within 1e-2·max(|ref|, mean|ref|), device counters within 2%;
+     then (phase 9b) that scene and the classical box + icosphere at
+     32x32, 4 spp, depth 8, with a pool of 1,024 lanes (so that lanes
+     refill and hit the depth cap) rendered on the card with every K1
+     call that carries hits traced again over all rows: the carried rows
+     equal that trace bit for bit; and once without the carry: every
+     counter equal, the image within splat-order rounding
  10. wave box + icosphere at 256x256, 4 spp, max_depth 8; then once more
-     with CUDA events around every K2 and K3 call, printing each call
-     kind's time per launch, the needed-row share of each K2 call kind
-     (FSD legs, NEE), K3's culled-pair shares (counted by a launch of its
-     counting build on the same inputs, outside the events) and each
-     kind's bound
+     with CUDA events around every K1, K2 and K3 call, printing each call
+     kind's time per launch, the needed-row share of K1 (per pool step)
+     and of each K2 call kind (FSD legs, NEE), K3's culled-pair shares
+     (counted by a launch of its counting build on the same inputs,
+     outside the events) and each kind's bound
  11. prints the kernels' JSON line (each kernel's launches on the wave
      main path, and per path under "launches_by_path") and, last, the
      result JSON line
@@ -101,14 +114,16 @@ FLOP_CULL = 39
 # (1), the widened range (2), three reciprocals and six slab distances of
 # three operations each
 FLOP_SLAB = 33
-# K2's and K3's bounds count what each lane's own data needs, by one rule:
+# The kernels' bounds count what each lane's own data needs, by one rule:
 # the lane's test of every tile; each triangle of the tiles that test
 # keeps (the plain twins `_tile_box_may_hit` and `_sphere_cull`, on the
-# same inputs) at its pair test (K2: the hit test, K3: the sphere test);
-# and, for K3, each pair that its pair culls let into the body (the
-# counting build's count) at the body. An occluded ray needs one pair
-# after its tile tests (a hit ends its loop), so it counts one. K1 has no
-# cull and counts every pair.
+# same inputs) at its pair test (K1, K2: the hit test, K3: the sphere
+# test); and, for K3, each pair that its pair culls let into the body (the
+# counting build's count) at the body. K1's tile test is asked with its
+# segment [tmin, the closest t] (a miss: [tmin, tmax]). An occluded ray
+# needs one pair after its tile tests (a hit ends its loop), so it counts
+# one. Only the rows a call traces count. Bytes: each traced row in and
+# out once, and the triangle rows once.
 TWIN_LANES = 65536          # lanes per chunk of the twins' counts
 
 
@@ -150,6 +165,18 @@ def tile_sizes(ntiles, T, tile, device):
     return sizes
 
 
+def kept_pairs(rk, table, center, ro, rd, tmin, tmax):
+    """(N,) f64: the triangles of the tiles whose padded box each segment
+    meets (the twin `_tile_box_may_hit`)."""
+    sizes = tile_sizes(table.boxes.shape[0], table.feat.shape[0], rk.TILE,
+                       ro.device)
+    return torch.cat([ro.new_zeros((0,), dtype=torch.float64)] + [
+        (rk._tile_box_may_hit(
+            table.boxes, center, ro[s:s + TWIN_LANES], rd[s:s + TWIN_LANES],
+            tmin[s:s + TWIN_LANES], tmax[s:s + TWIN_LANES]).float() @ sizes
+         ).double() for s in range(0, ro.shape[0], TWIN_LANES)])
+
+
 def anyhit_need(rk, table, args, occ, need=None):
     """(operations, pairs) K2's data needs (the bounds' rule) for its
     arguments `args` and result `occ`, over the rows of `need` (all if
@@ -157,17 +184,23 @@ def anyhit_need(rk, table, args, occ, need=None):
     center, ro, rd, tmin, tmax = args[1:6]
     if need is not None:
         ro, rd, tmin, tmax, occ = (x[need] for x in (ro, rd, tmin, tmax, occ))
-    boxes = table.boxes
-    sizes = tile_sizes(boxes.shape[0], table.feat.shape[0], rk.TILE,
-                       ro.device)
-    pairs = 0.0
-    for s in range(0, ro.shape[0], TWIN_LANES):
-        c = slice(s, s + TWIN_LANES)
-        kept = rk._tile_box_may_hit(boxes, center, ro[c], rd[c], tmin[c],
-                                    tmax[c]).float() @ sizes
-        pairs += torch.where(occ[c], 1.0, kept).double().sum().item()
-    n_tests = ro.shape[0] * boxes.shape[0]
+    kept = kept_pairs(rk, table, center, ro, rd, tmin, tmax)
+    pairs = torch.where(occ, 1.0, kept).sum().item()
+    n_tests = ro.shape[0] * table.boxes.shape[0]
     return n_tests * FLOP_SLAB + pairs * FLOP_PER_PAIR["anyhit"], pairs
+
+
+def closest_need(rk, table, args, t, need=None):
+    """(operations, pairs) K1's data needs (the bounds' rule) for its
+    arguments `args` and closest t `t` (BIG on a miss), over the rows of
+    `need` (all if None)."""
+    center, ro, rd, tmin, tmax = args[1:6]
+    t_hi = torch.minimum(t, tmax)
+    if need is not None:
+        ro, rd, tmin, t_hi = (x[need] for x in (ro, rd, tmin, t_hi))
+    pairs = kept_pairs(rk, table, center, ro, rd, tmin, t_hi).sum().item()
+    n_tests = ro.shape[0] * table.boxes.shape[0]
+    return n_tests * FLOP_SLAB + pairs * FLOP_PER_PAIR["closest"], pairs
 
 
 def cone_need(ck, table, args, entered):
@@ -255,7 +288,8 @@ def check_ray_kernels(rk, geo, N, seed):
     ex[:, 1:] = torch.where(sel[:, None], torch.from_numpy(
         r.integers(0, T, (N, 2)).astype(np.int32)).to(dev), ex[:, 1:])
 
-    tk, ik = rk.closest_hit(*args, ex)
+    table = geo.ray_table
+    tk, ik = rk.closest_hit(*args, ex, table=table)
     tr, ir = rk._closest_ref(*args, ex)
     agree = (ik == ir)
     frac_id = agree.float().mean().item()
@@ -265,11 +299,18 @@ def check_ray_kernels(rk, geo, N, seed):
     check(bool((err_t <= 1e-5 + 1e-4 * tr[both].abs()).all()),
           f"K1: t disagrees (max abs {err_t.max().item()})")
     check(frac_id >= 0.999, f"K1: ids agree on {frac_id:.5f} of rays")
+    # the walk near to far and the culls skip only pairs that cannot win:
+    # the same words as every pair of every tile
+    def words(every_pair):
+        return rk._launch_closest(geo.tri_feat, table, *args[1:], ex,
+                                  every_pair=every_pair)
+    check(torch.equal(words(False), words(True)),
+          "K1: the culls change a result")
+    ops1, kept1 = closest_need(rk, table, (*args, ex), tk)
 
     tmax_s = torch.from_numpy(r.uniform(0.05, 4.0, N).astype(np.float32)
                               ).to(dev)
     sargs = (geo.tri_feat, geo.mxu_center, ro_t, rd_t, tmin, tmax_s, ex)
-    table = geo.ray_table
     ok_k = rk.any_hit(*sargs, table=table)
     ops2, kept = anyhit_need(rk, table, sargs, ok_k)
     ok_r = rk._anyhit_ref(*sargs)
@@ -277,26 +318,33 @@ def check_ray_kernels(rk, geo, N, seed):
     check(frac_occ >= 0.999, f"K2: occlusion agrees on {frac_occ:.5f}")
     torch.cuda.synchronize()
 
-    ms_k1 = cuda_ms(lambda: rk.closest_hit(*args, ex), 5)
+    ms_k1 = cuda_ms(lambda: rk.closest_hit(*args, ex, table=table), 5)
     ms_t1 = cuda_ms(lambda: rk._closest_ref(*args, ex), 1)
+    ms_k1_all = cuda_ms(lambda: words(True), 1)
     ms_k2 = cuda_ms(lambda: rk.any_hit(*sargs, table=table), 5)
     ms_t2 = cuda_ms(lambda: rk._anyhit_ref(*sargs), 1)
     print(f"phase 3: N={N} T={T}: K1 ids agree {frac_id:.6f}, max |dt| "
-          f"{err_t.max().item():.3e}, hits {both.float().mean().item():.3f}; "
+          f"{err_t.max().item():.3e}, hits {both.float().mean().item():.3f},"
+          f" words bit-equal with the culls off, pairs "
+          f"its data needs "
+          f"{kept1 / (N * T):.6f}; "
           f"K2 agree {frac_occ:.6f}, occluded "
           f"{ok_r.float().mean().item():.3f}, pairs its data needs "
           f"{kept / (N * T):.6f}", flush=True)
     # bytes: the triangle rows, per ray ro/rd/tmin/tmax/3 exclusions in
     # and one 8-byte word (K1) or byte (K2) out
     tri_bytes = T * rk.NF * 4
-    k1 = bound(N * T * FLOP_PER_PAIR["closest"], tri_bytes + N * (44 + 8))
+    k1 = bound(ops1, tri_bytes + N * (44 + 8))
+    k1_all = bound(N * T * FLOP_PER_PAIR["closest"], tri_bytes + N * (44 + 8))
     k2 = bound(ops2, tri_bytes + N * (44 + 1))
     print(f"phase 3: N={N} T={T}: K1 {ms_k1:.3f} ms (plain {ms_t1:.3f} ms, "
-          f"bound {k1[0]:.3f} ms), K2 {ms_k2:.3f} ms (plain {ms_t2:.3f} ms,"
-          f" bound {k2[0]:.3f} ms)", flush=True)
+          f"culls off {ms_k1_all:.3f} ms, bound {k1[0]:.3f} ms ({k1[1]}), "
+          f"every pair {k1_all[0]:.3f} ms), K2 {ms_k2:.3f} ms (plain "
+          f"{ms_t2:.3f} ms, bound {k2[0]:.3f} ms)", flush=True)
     return dict(
         closest=dict(max_abs_err=err_t.max().item(), ms=ms_k1,
-                     plain_ms=ms_t1, bound=k1),
+                     plain_ms=ms_t1, bound=k1, culls_off_ms=ms_k1_all,
+                     all_pairs_bound_ms=k1_all[0]),
         anyhit=dict(max_abs_err=float((ok_k != ok_r).float().max().item()),
                     ms=ms_k2, plain_ms=ms_t2, bound=k2))
 
@@ -381,6 +429,110 @@ def check_anyhit_need(rk, geo, N, seed, share):
           f"rows all False; {ms:.3f} ms; empty mask {ms0:.3f} ms",
           flush=True)
     return ms, ms0, n_need
+
+
+def check_closest_need(rk, geo, N, seed, share):
+    """K1 on N seeded random rays (a third with exclusions) with a seeded
+    need mask of `share` and with an empty one, every row carrying a
+    random hit: needed rows hold the words of tracing every row and agree
+    with the plain version (given the same mask and carry) under phase
+    3's bars, the rest hold their carried hit bit for bit. Returns (ms
+    masked, ms empty, needed rows)."""
+    T = geo.num_tris
+    r = np.random.default_rng(seed)
+    ro, rd = random_rays(geo, N, r)
+    dev = geo.p0.device
+    ex = np.where((r.random(N) < 1 / 3)[:, None],
+                  r.integers(0, T, (N, 3)), -1).astype(np.int32)
+    args = (geo.tri_feat, geo.mxu_center, torch.from_numpy(ro).to(dev),
+            torch.from_numpy(rd).to(dev), torch.full((N,), 1e-4, device=dev),
+            torch.full((N,), 1e30, device=dev), torch.from_numpy(ex).to(dev))
+    table = geo.ray_table
+    need = torch.from_numpy(r.random(N) < share).to(dev)
+    empty = torch.zeros_like(need)
+    carry = (torch.from_numpy(r.uniform(0.0, 9.0, N).astype(np.float32)
+                              ).to(dev),
+             torch.from_numpy(r.integers(-1, T, N).astype(np.int32)).to(dev))
+    t_all, i_all = rk.closest_hit(*args, table=table)
+    tn, i_n = rk.closest_hit(*args, need, carry, table=table)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    check(same(tn[need], t_all[need]) and torch.equal(i_n[need], i_all[need]),
+          "K1 need mask: a needed row differs from tracing every row")
+    check(same(tn[~need], carry[0][~need])
+          and torch.equal(i_n[~need], carry[1][~need]),
+          "K1 need mask: an unneeded row lost its carried hit")
+    tr, ir = rk._closest_ref(*args, need, carry)
+    agree = i_n[need] == ir[need]
+    check(agree.float().mean().item() >= 0.999,
+          f"K1 need mask: ids agree with the plain version on "
+          f"{agree.float().mean().item():.5f} of the needed rows")
+    both = need & (i_n == ir) & (ir >= 0)
+    check(bool(((tn[both] - tr[both]).abs()
+                <= 1e-5 + 1e-4 * tr[both].abs()).all()),
+          "K1 need mask: t disagrees with the plain version")
+    t0, i0 = rk.closest_hit(*args, empty, carry, table=table)
+    check(same(t0, carry[0]) and torch.equal(i0, carry[1]),
+          "K1 empty need mask: a row lost its carried hit")
+    ms = cuda_ms(lambda: rk.closest_hit(*args, need, carry, table=table), 3)
+    ms0 = cuda_ms(lambda: rk.closest_hit(*args, empty, carry, table=table), 3)
+    n_need = int(need.sum().item())
+    print(f"phase 3b: N={N} T={T}: K1 with a need mask of {n_need} rows "
+          f"({n_need / N:.4f}): needed rows equal tracing every row and "
+          f"agree with the plain version, "
+          f"unneeded rows keep their carried hit; {ms:.3f} ms; empty mask "
+          f"{ms0:.3f} ms", flush=True)
+    return ms, ms0, n_need
+
+
+def check_carry(rk, built, tag, lanes):
+    """`built` rendered on the card with a pool of `lanes`, every K1 call
+    that carries hits traced again over all rows: the carried rows must
+    equal that trace bit for bit. Then rendered without the carry: every
+    counter equal, the image within splat-order rounding (index_add_ on
+    the card sums in no fixed order). Returns the needed-row shares."""
+    import functools
+
+    from wave_tracer_tpu_torch.integrator import path_compact
+    from wave_tracer_tpu_torch.render import render_scene
+    from wave_tracer_tpu_torch.render import renderer as renderer_mod
+    real, pool = rk.closest_hit, renderer_mod.render_pool
+    shares = []
+
+    def checked(*args, **kw):
+        out = real(*args, **kw)
+        need = args[7] if len(args) > 7 else kw.get("need")
+        if need is not None:
+            full = real(*args[:7], table=kw["table"])
+            check(torch.equal(out[0].view(torch.int32),
+                              full[0].view(torch.int32))
+                  and torch.equal(out[1], full[1]),
+                  f"{tag}: a carried hit differs from its retrace")
+            shares.append(need.float().mean().item())
+        return out
+
+    rk.closest_hit = checked
+    try:
+        img, st = render_scene(built, device="cuda", pool_lanes=lanes)
+    finally:
+        rk.closest_hit = real
+    check(shares and min(shares) < 1.0, f"{tag}: no hits carried {shares}")
+    renderer_mod.render_pool = functools.partial(path_compact.render_pool,
+                                                 carry_hits=False)
+    try:
+        img0, st0 = render_scene(built, device="cuda", pool_lanes=lanes)
+    finally:
+        renderer_mod.render_pool = pool
+    check(st["device_counters"] == st0["device_counters"],
+          f"{tag}: counters differ without the carry")
+    check(np.allclose(img, img0, rtol=1e-5, atol=1e-12),
+          f"{tag}: the image differs without the carry")
+    print(f"phase 9b: {tag}: carried hits equal their retrace in "
+          f"{len(shares)} K1 calls (needed shares {min(shares):.4f}-"
+          f"{max(shares):.4f}); without the carry every counter equal",
+          flush=True)
+    return shares
 
 
 def minz_ref_chunked(ck, args, lanes=None):
@@ -546,16 +698,17 @@ def check_cone_narrow(ck, built, N, seed):
 
 
 def timed_render(rk, ck, built):
-    """One render of `built` with CUDA events around every K2 and K3 call
+    """One render of `built` with CUDA events around every K1, K2 and K3 call
     (wrapping the module functions the accel layer calls), each followed,
     outside its events, by the count of what its data needs (the bounds'
     rule; for K3 with a launch of its counting build on the same inputs).
     Returns ({kind: [(ms, rows, needed rows, operations needed)]}, K3's
     cull counters and its tile-kept pairs, summed over the render); kinds:
-    anyhit_legs (the batched FSD-leg call), anyhit_nee, cone_minz."""
+    closest, anyhit_legs (the batched FSD-leg call), anyhit_nee,
+    cone_minz."""
     from wave_tracer_tpu_torch.render import render_scene
     rec = []
-    any_hit, cone_minz = rk.any_hit, ck.cone_minz
+    closest_hit, any_hit, cone_minz = rk.closest_hit, rk.any_hit, ck.cone_minz
     dev = built.data.geo.p0.device
     cull = torch.zeros((4,), dtype=torch.int64, device=dev)
     kept3 = []
@@ -567,11 +720,15 @@ def timed_render(rk, ck, built):
             a.record()
             out = fn(*args, **kw)
             b.record()
-            if fn is any_hit:
+            if fn is closest_hit or fn is any_hit:
                 need = args[7] if len(args) > 7 else kw.get("need")
                 n = args[2].shape[0]
-                ops, _ = anyhit_need(rk, kw["table"], args, out, need)
                 n_need = n if need is None else int(need.sum())
+                if fn is any_hit:
+                    ops, _ = anyhit_need(rk, kw["table"], args, out, need)
+                else:
+                    ops, _ = closest_need(rk, kw["table"], args, out[0],
+                                          need)
             else:
                 n = n_need = args[1].shape[0]
                 stats = torch.zeros((4,), dtype=torch.int64, device=dev)
@@ -585,13 +742,15 @@ def timed_render(rk, ck, built):
             return out
         return wrapper
 
+    rk.closest_hit = timed(lambda n: "closest", closest_hit)
     rk.any_hit = timed(
         lambda n: "anyhit_legs" if n > POOL else "anyhit_nee", any_hit)
     ck.cone_minz = timed(lambda n: "cone_minz", cone_minz)
     try:
         render_scene(built, device="cuda")
     finally:
-        rk.any_hit, ck.cone_minz = any_hit, cone_minz
+        rk.closest_hit, rk.any_hit, ck.cone_minz = (closest_hit, any_hit,
+                                                    cone_minz)
     torch.cuda.synchronize()
     calls = {}
     for kind, a, b, n, n_need, ops in rec:
@@ -772,6 +931,13 @@ def main():
     print(f"phase 9: wave 32x32 4 spp depth 5: cuda vs cpu: {frac:.4f} of "
           f"pixels within the bar", flush=True)
 
+    # ---- phase 9b: carried hits on the card
+    check_carry(rk, wsmall, "wave box 32x32 4 spp depth 5, pool 1024", 1024)
+    check_carry(rk, build_scene(box_scene(32, 4, 8, icosphere=True),
+                                device="cuda"),
+                "classical box + icosphere 32x32 4 spp depth 8, pool 1024",
+                1024)
+
     # ---- phase 10: wave scale case
     render_scene(wbig, spp=1, device="cuda")           # warm-up
     before = dict(rk.LAUNCHES, **ck.LAUNCHES)
@@ -797,7 +963,8 @@ def main():
         if kind == "cone_minz":
             nbytes = len(rows) * cone_bytes(POOL, T10)
         else:
-            nbytes = len(rows) * T10 * rk.NF * 4 + n_need * 45
+            nbytes = len(rows) * T10 * rk.NF * 4 + n_need * (
+                52 if kind == "closest" else 45)
         b = bound(sum(c[3] for c in rows), nbytes)
         in_render[kind].update(bound_ms_per_launch=b[0] / len(rows),
                                bound_by=b[1])
@@ -806,6 +973,11 @@ def main():
               f"needed rows {n_need} of {n_rows} "
               f"({n_need / max(n_rows, 1):.4f}), bound "
               f"{b[0] / len(rows):.3f} ms per launch ({b[1]})", flush=True)
+    print("phase 10: in the render, closest: needed-row share per pool "
+          "step: " + ", ".join(f"{c[2] / c[1]:.4f}" for c in calls["closest"])
+          + "; ms per step: " + ", ".join(f"{c[0]:.3f}"
+                                         for c in calls["closest"]),
+          flush=True)
     print(f"phase 10: in the render, K3: "
           f"{cull_line(cull10, in_render['cone_minz']['rows'], T10, kept10)}"
           f" (over {len(calls['cone_minz'])} launches)", flush=True)
@@ -815,6 +987,9 @@ def main():
     legs_need = check_anyhit_need(
         rk, big.data.geo, n_legs, 1238,
         max(in_render["anyhit_legs"]["needed_share"], 1e-3))
+    k1_share = in_render["closest"]["needed_share"]
+    check_closest_need(rk, built.data.geo, lanes4, 1239, k1_share)
+    k1_need = check_closest_need(rk, big.data.geo, lanes6, 1240, k1_share)
 
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
@@ -831,7 +1006,10 @@ def main():
     kernels = [
         row("closest_hit", "ray_kernels.cu",
             "wave_tracer_tpu/accel/mxu_trace.py:155", "closest",
-            kstats["closest"]),
+            kstats["closest"], in_scale_render=in_render["closest"],
+            need_mask_ms=k1_need[0], empty_mask_ms=k1_need[1],
+            culls_off_ms=kstats["closest"]["culls_off_ms"],
+            all_pairs_bound_ms=kstats["closest"]["all_pairs_bound_ms"]),
         row("any_hit", "ray_kernels.cu",
             "wave_tracer_tpu/accel/mxu_trace.py:185", "anyhit",
             kstats["anyhit"],

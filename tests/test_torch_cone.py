@@ -118,3 +118,30 @@ def test_cone_kernel_wrapper_devices():
     with pytest.raises(NotImplementedError):
         cone_kernels.cone_minz(*[a.to("meta") for a in args],
                                table=[x.to("meta") for x in geo.cone_table])
+
+
+def test_cone_minz_ignores_default_dtype():
+    """The plain sweep gives the same bits whatever torch's default dtype:
+    a state that one test could leave for the next in the same worker.
+    (Under float64 the K3 plain version once promoted its safe division,
+    and with it every entry z, to float64.)"""
+    N = 64
+    p0, e1, e2 = _random_scene(300)
+    ro, rd, env = _lanes(N)
+    bounds = _t(jtraversal.segment_boundaries(jnp.full((N,), 0.05)))
+
+    def sweep():
+        return ttrace.cone_boundary_minz(
+            _torch_geo(p0, e1, e2), _t(ro), _t(rd), _torch_env(env), bounds,
+            torch.full((N,), 30.0, dtype=torch.float32))
+
+    zc, cnt = sweep()
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        zc64, cnt64 = sweep()
+    finally:
+        torch.set_default_dtype(old)
+    assert zc64.dtype == torch.float32
+    assert torch.equal(zc64.view(torch.int32), zc.view(torch.int32))
+    assert torch.equal(cnt64, cnt)

@@ -15,6 +15,7 @@ from wave_tracer_tpu_torch.integrator.traversal import segment_boundaries
 from wave_tracer_tpu_torch.render import render_scene
 from wave_tracer_tpu_torch.scene import build_scene
 from wave_tracer_tpu_torch.scene.procedural import make_box_scene
+from test_torch_cull import tie_rays, tie_soup
 
 
 @pytest.fixture
@@ -54,7 +55,7 @@ def test_kernels_match_twins(cuda):
         tmax = torch.full((N,), tmax_v, device=cuda)
         args = (feat, center, ro, rd, tmin, tmax, ex)
         before = dict(rk.LAUNCHES)
-        tk, ik = rk.closest_hit(*args)
+        tk, ik = rk.closest_hit(*args, table=table)
         tr, ir = rk._closest_ref(*args)
         assert (ik == ir).float().mean().item() >= 0.999
         both = (ik == ir) & (ir >= 0)
@@ -73,6 +74,10 @@ def test_kernels_match_twins(cuda):
             if need.any().item():
                 assert (occ_n[need] == ref[need]).float().mean().item() \
                     >= 0.999
+        # K1's walk and culls, with its tiles split (4,096 rays are fewer
+        # blocks than the grid), change no word
+        words = rk._launch_closest(feat, table, *args[1:], every_pair=True)
+        assert torch.equal(rk._launch_closest(feat, table, *args[1:]), words)
 
 
 @pytest.mark.gpu
@@ -207,3 +212,80 @@ def test_wave_render_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(img_c.mean((0, 1)), img_h.mean((0, 1)),
                                rtol=0.02)
     assert np.corrcoef(img_c.ravel(), img_h.ravel())[0, 1] >= 0.999
+
+
+@pytest.mark.gpu
+def test_closest_hit_need_and_carry_on_card(cuda):
+    """K1 with a need mask and a carried hit per row: needed rows hold the
+    words of tracing every row, the others their carried (t, tri) bit for
+    bit; an empty mask traces nothing."""
+    feat, table, center, ro, rd, ex = _soup_rays(cuda, seed=3)
+    N, T = ro.shape[0], feat.shape[0]
+    r = np.random.default_rng(4)
+    args = (feat, center, ro, rd, torch.full((N,), 1e-4, device=cuda),
+            torch.full((N,), 1e30, device=cuda), ex)
+    carry = (torch.from_numpy(r.uniform(-1.0, 9.0, N).astype(np.float32))
+             .to(cuda),
+             torch.from_numpy(r.integers(-1, T, N).astype(np.int32))
+             .to(cuda))
+    t_all, i_all = rk.closest_hit(*args, table=table)
+    tr, ir = rk._closest_ref(*args)
+    assert (i_all == ir).float().mean().item() >= 0.999
+    for share in (0.3, 0.0, 1.0):
+        need = torch.from_numpy(r.random(N) < share).to(cuda)
+        before = rk.LAUNCHES["closest"]
+        t, i = rk.closest_hit(*args, need, carry, table=table)
+        assert rk.LAUNCHES["closest"] == before + 1
+        bits = t.view(torch.int32)
+        assert torch.equal(bits[need], t_all.view(torch.int32)[need])
+        assert torch.equal(i[need], i_all[need])
+        assert torch.equal(bits[~need], carry[0].view(torch.int32)[~need])
+        assert torch.equal(i[~need], carry[1][~need])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("smaller_left", [False, True])
+def test_closest_hit_ties_on_card(cuda, smaller_left):
+    """Coincident triangles at the same t in different tiles: the kernel
+    returns the smaller bake id, as its plain version does."""
+    p0, e1, e2, left, right = [x.to(cuda) if torch.is_tensor(x) else x
+                               for x in tie_soup(smaller_left)]
+    center = torch.zeros(3, device=cuda)
+    feat = rk.tri_features(p0, e1, e2, center)
+    table = rk.ray_table(p0, e1, e2, center, feat,
+                         rk.tile_order(p0, e1, e2))
+    ro, rd = (x.to(cuda) for x in tie_rays(2048))
+    N = ro.shape[0]
+    t, tri = rk.closest_hit(feat, center, ro, rd,
+                            torch.full((N,), 1e-4, device=cuda),
+                            torch.full((N,), 1e30, device=cuda),
+                            torch.full((N, 3), -1, dtype=torch.int32,
+                                       device=cuda), table=table)
+    assert (tri == min(left, right)).all().item()
+    assert (t == 3.0).all().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fsd", [False, True])
+def test_carried_hits_on_card(cuda, fsd):
+    """A render whose pool carries hits (lanes refill and hit the depth
+    cap) and one that traces every lane: every counter equal, the image
+    within splat-order rounding."""
+    import functools
+
+    from wave_tracer_tpu_torch.integrator import path_compact
+    from wave_tracer_tpu_torch.render import renderer as renderer_mod
+    scene = make_box_scene(res=16, spp=4)
+    scene.integrator.fsd = fsd
+    scene.integrator.max_depth = 5
+    built = build_scene(scene, device=cuda)
+    img, st = render_scene(built, device="cuda", pool_lanes=256)
+    pool = renderer_mod.render_pool
+    renderer_mod.render_pool = functools.partial(path_compact.render_pool,
+                                                 carry_hits=False)
+    try:
+        img0, st0 = render_scene(built, device="cuda", pool_lanes=256)
+    finally:
+        renderer_mod.render_pool = pool
+    assert st["device_counters"] == st0["device_counters"]
+    np.testing.assert_allclose(img, img0, rtol=1e-5, atol=1e-12)

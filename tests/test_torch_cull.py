@@ -408,3 +408,142 @@ def test_anyhit_tile_cull(clustered):
     assert hits > 50
     if clustered:
         assert (~may).float().mean() > 0.3
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def _closest_scene(kind, r):
+    """(p0, e1, e2, ro, rd, ex, big) of a K1 scene; `big` are the ids of
+    the big triangles, which tile_order puts last. "random": a clustered
+    soup with twelve triangles 40× the others' extent among them, and
+    random rays. "render": the box (its twelve walls are the big ones)
+    with an icosphere inside it; camera rays from the eye, and rays
+    leaving points on the triangles, each excluding its own, as a bounce
+    makes them."""
+    if kind == "random":
+        T, N = 700, 600
+        p0, e1, e2 = _soup(r, T, clustered=False)
+        big = r.choice(T, 12, replace=False)
+        e1[big], e2[big] = e1[big] * 40, e2[big] * 40
+        ro = _t(r.normal(size=(N, 3)) * 3 + 5.0)
+        ex = torch.full((N, 3), -1, dtype=torch.int32)
+        return p0, e1, e2, ro, _t(_unit(r, N)), ex, big
+    geo, _ = _render_scene_tris()
+    N, T = 640, geo.num_tris
+    pick = r.integers(0, T, N)
+    u = r.random((N, 2))
+    u = np.where(u.sum(1, keepdims=True) > 1, 1 - u, u)
+    tg = geo.tri_geom.numpy()
+    ro = tg[pick, 0:3] + u[:, :1] * tg[pick, 3:6] + u[:, 1:] * tg[pick, 6:9]
+    rd = _unit(r, N)
+    cam = r.random(N) < 0.25
+    ro[cam] = [0.0, 1.0, 3.2]
+    rd[cam, 2] = -np.abs(rd[cam, 2]) - 1.0
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ex = torch.full((N, 3), -1, dtype=torch.int32)
+    ex[:, 0] = _t(np.where(cam, -1, pick), torch.int32)
+    return geo.p0, geo.e1, geo.e2, _t(ro), _t(rd), ex, np.arange(12)
+
+
+@pytest.mark.parametrize("kind", ["random", "render"])
+def test_closest_tile_cull_keeps_the_winner(kind):
+    """K1 culls a tile when no segment [tmin, best t] of the warp meets its
+    padded box. With the best t at its final value, the closest t, the
+    twin `_tile_box_may_hit` keeps every tile in which the pair test
+    finds a hit at t <= the closest t (ties included), so the winner's
+    tile above all: on random rays among big and small triangles, and on
+    render-like rays in the box with an icosphere inside it."""
+    r = np.random.default_rng(40 + (kind == "render"))
+    p0, e1, e2, ro, rd, ex, big = _closest_scene(kind, r)
+    T, N = p0.shape[0], ro.shape[0]
+    center = p0.mean(0)
+    feat = rk.tri_features(p0, e1, e2, center)
+    order = rk.tile_order(p0, e1, e2)
+    table = rk.ray_table(p0, e1, e2, center, feat, order)
+    pos = torch.empty(T, dtype=torch.long)
+    pos[order] = torch.arange(T)
+    assert (pos[big] // rk.TILE == (T - 1) // rk.TILE).all()
+    tmin = torch.full((N,), 1e-4)
+    tmax = torch.full((N,), 1e30)
+    t, tri = rk._closest_ref(feat, center, ro, rd, tmin, tmax, ex)
+    hit = tri >= 0
+    assert hit.float().mean() > 0.5
+    # the big triangles give many rays their closest hit
+    assert np.isin(tri[hit].numpy(), big).mean() > 0.2
+    t_hi = torch.where(hit, t, tmax)
+    may = rk._tile_box_may_hit(table.boxes, center, ro, rd, tmin, t_hi)
+    rf = rk._ray_features(ro, rd, center)
+    win_tile = pos[tri.clamp_min(0).long()] // rk.TILE
+    assert may[hit, win_tile[hit]].all(), "the winner's tile is culled"
+    for base in range(0, T, rk.TILE):
+        _, ok, _ = rk._tile_hits(rf, table.feat[base:base + rk.TILE],
+                                 base, tmin, t_hi, ex)
+        ok = ok.any(1)
+        assert not (ok & ~may[:, base // rk.TILE]).any(), \
+            "a tile with a hit at t <= the closest t is culled"
+    # the shrunk segments cull more tiles than the whole rays
+    full = rk._tile_box_may_hit(table.boxes, center, ro, rd, tmin, tmax)
+    assert may.float().mean() < full.float().mean()
+
+
+def tie_soup(smaller_left):
+    """Two coincident triangles (the same edges in the plane z = 2,
+    shifted by 0.5 along x, so that the part x > 0.5, x + y < 1 lies in
+    both and every ray through it meets both at the same t) whose
+    centroids tile_order puts into different tiles: 255 small filler
+    triangles on each side. `smaller_left` gives the left one the smaller
+    bake id. Returns (p0, e1, e2, ids of the left and right one)."""
+    r = np.random.default_rng(50)
+    fill = [np.c_[r.uniform(lo, lo + 5, 255), r.uniform(-2, 2, 255),
+                  r.uniform(-1, 1, 255)] for lo in (-10.0, 5.0)]
+    p0 = np.concatenate(fill + [[[0.0, 0.0, 2.0], [0.5, 0.0, 2.0]]])
+    e1 = np.concatenate([r.normal(size=(510, 3)) * 0.05,
+                         [[1.0, 0.0, 0.0]] * 2])
+    e2 = np.concatenate([r.normal(size=(510, 3)) * 0.05,
+                         [[0.0, 1.0, 0.0]] * 2])
+    left, right = (3, 400) if smaller_left else (400, 3)
+    ids = np.delete(np.arange(512), [left, right])
+    rows = np.empty(512, np.int64)         # bake id → row above
+    rows[ids] = r.permutation(510)
+    rows[left], rows[right] = 510, 511
+    out = [_t(x[rows].astype(np.float32)) for x in (p0, e1, e2)]
+    return (*out, left, right)
+
+
+def tie_rays(n, seed=51):
+    """n rays straight down onto the common part from z = 5, on a grid of
+    1/64: with the scene's center at 0 every side, tn and d·N is exact,
+    so both triangles give t = 3 bit for bit, whatever order a product
+    sums in."""
+    r = np.random.default_rng(seed)
+    ro = np.c_[r.integers(34, 45, n) / 64, r.integers(2, 19, n) / 64,
+               np.full(n, 5.0)]
+    rd = np.tile([0.0, 0.0, -1.0], (n, 1))
+    return _t(ro), _t(rd)
+
+
+@pytest.mark.parametrize("smaller_left", [False, True])
+def test_closest_hit_ties_across_tiles(smaller_left):
+    """Coincident triangles at the same t whose bake ids lie in different
+    tiles of tile_order: the closest hit is the smaller id, whichever tile
+    holds it (the kernel walks the tiles in its own order and compares
+    (t, id) words)."""
+    p0, e1, e2, left, right = tie_soup(smaller_left)
+    assert (left < right) == smaller_left
+    order = rk.tile_order(p0, e1, e2)
+    pos = torch.empty(512, dtype=torch.long)
+    pos[order] = torch.arange(512)
+    assert pos[left] // rk.TILE != pos[right] // rk.TILE
+    center = torch.zeros(3)
+    feat = rk.tri_features(p0, e1, e2, center)
+    ro, rd = tie_rays(256)
+    N = ro.shape[0]
+    t, tri = rk.closest_hit(feat, center, ro, rd, torch.full((N,), 1e-4),
+                            torch.full((N,), 1e30),
+                            torch.full((N, 3), -1, dtype=torch.int32),
+                            table=rk.ray_table(p0, e1, e2, center, feat,
+                                               order))
+    assert (tri == min(left, right)).all()
+    assert (t == 3.0).all()

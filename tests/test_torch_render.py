@@ -14,6 +14,7 @@ triangles of the lamp for the same draw than the JAX BVH order does: that
 render is held to the JAX image mean within 5%."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -21,6 +22,9 @@ import pytest
 from test_render import make_box_scene
 from wave_tracer_tpu.render import render_scene as jrender
 from wave_tracer_tpu.scene import build_scene as jbuild
+from wave_tracer_tpu_torch.accel import ray_kernels
+from wave_tracer_tpu_torch.integrator import path_compact
+from wave_tracer_tpu_torch.render import renderer as renderer_mod
 from wave_tracer_tpu_torch.render import Renderer, render_scene
 from wave_tracer_tpu_torch.scene.build import BuiltScene, build_scene
 from wave_tracer_tpu_torch.scene.bridge import SPECTRAL_KEYS
@@ -108,3 +112,31 @@ def test_unported_configurations_raise(renders):
     finally:
         built.scene.integrator.type = "plt_path"
         built.scene.integrator.ray_trace_only = False
+
+
+def test_carried_hits_change_nothing(renders, monkeypatch):
+    """The pool traces only the lanes whose ray changed and carries the
+    last hit of the others; lanes ended by the depth cap hold a new ray
+    that is not traced yet, and refilled lanes a fresh one. The image and
+    every counter equal, bit for bit, those of a render that traces every
+    lane at every step (a pool smaller than the paths, so lanes refill)."""
+    built = renders["own_built"]
+    shares = []
+    real = ray_kernels.closest_hit
+
+    def spy(*args, **kw):
+        need = args[7] if len(args) > 7 else kw.get("need")
+        shares.append(None if need is None else need.float().mean().item())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ray_kernels, "closest_hit", spy)
+    img, st = render_scene(built, device="cpu", pool_lanes=LANES)
+    assert None not in shares and shares[0] == 1.0
+    assert min(shares) < 0.5
+    del shares[:]
+    monkeypatch.setattr(renderer_mod, "render_pool", functools.partial(
+        path_compact.render_pool, carry_hits=False))
+    img0, st0 = render_scene(built, device="cpu", pool_lanes=LANES)
+    assert shares and all(x is None for x in shares)
+    np.testing.assert_array_equal(img, img0)
+    assert st["device_counters"] == st0["device_counters"]

@@ -175,11 +175,11 @@ def test_wrappers_run_twins_only_on_cpu():
     meta = [x.to("meta") for x in (tgeo.tri_feat, tgeo.mxu_center, ro, rd)]
     ex = torch.full((32, 3), -1, dtype=torch.int32, device="meta")
     t = torch.zeros(32, device="meta")
+    table = [x.to("meta") for x in tgeo.ray_table]
     with pytest.raises(NotImplementedError):
-        ray_kernels.closest_hit(*meta, t, t, ex)
+        ray_kernels.closest_hit(*meta, t, t, ex, table=table)
     with pytest.raises(NotImplementedError):
-        ray_kernels.any_hit(*meta, t, t, ex,
-                            table=[x.to("meta") for x in tgeo.ray_table])
+        ray_kernels.any_hit(*meta, t, t, ex, table=table)
 
 
 def test_closest_hit_word_orders_like_t_then_id():
@@ -240,3 +240,62 @@ def test_need_list():
         assert rows.shape == (need.shape[0] + 1,) and count.shape == (1,)
         assert n == int(need.sum())
         assert torch.equal(rows[:n].long(), need.nonzero().squeeze(1))
+
+
+def test_pack_inverts_unpack():
+    """`_pack` builds K1's words from (t, tri), the carried hit of a row
+    the kernel does not trace: bit for bit the inverse of `_unpack`, for t
+    of either sign, and a miss (BIG, -1) packs to the "no hit" word."""
+    r = np.random.default_rng(6)
+    t = np.concatenate([r.normal(size=300) * 10.0 ** r.integers(-6, 6, 300),
+                        [0.0, -0.0, 3.4e38, -3.4e38]]).astype(np.float32)
+    tri = np.where(r.random(t.size) < 0.2, -1,
+                   r.integers(0, 1 << 17, t.size)).astype(np.int32)
+    word = ray_kernels._pack(torch.from_numpy(t), torch.from_numpy(tri))
+    assert word.dtype == torch.int64
+    tt, ti = ray_kernels._unpack(word)
+    np.testing.assert_array_equal(tt.numpy().view(np.uint32),
+                                  t.view(np.uint32))
+    np.testing.assert_array_equal(ti.numpy(), tri)
+    miss = ray_kernels._pack(torch.tensor([np.float32(ray_kernels.BIG)]),
+                             torch.tensor([-1], dtype=torch.int32))
+    assert miss.item() == ray_kernels._NO_HIT
+
+
+@pytest.mark.parametrize("mask", ["random", "none_set", "all_set"])
+def test_closest_hit_need_and_carry(mask):
+    """trace(..., need=m, carry=(t, tri)): rows off the mask return the
+    carried (t, tri) bit for bit, untraced, with u/v of that triangle;
+    rows on it return what tracing every row returns; without a carry the
+    rows off the mask are misses. With exclusions, as the bounces pass
+    them."""
+    _, tgeo = _soup(seed=13)
+    ro, rd = [torch.from_numpy(x) for x in _rays(seed=14)]
+    N = ro.shape[0]
+    r = np.random.default_rng(15)
+    m = {"random": torch.from_numpy(r.random(N) < 0.3),
+         "none_set": torch.zeros(N, dtype=torch.bool),
+         "all_set": torch.ones(N, dtype=torch.bool)}[mask]
+    args = (tgeo, ro, rd, torch.full((N,), 1e-4), torch.full((N,), 1e30),
+            torch.from_numpy(r.integers(-1, 700, N).astype(np.int32)))
+    t0, i0, u0, v0 = ttrace.trace(*args)
+    assert (i0 >= 0).any() and (i0 < 0).any()
+    # a carry that differs from the trace everywhere: another draw's hits
+    ct, ci, _, _ = ttrace.trace(tgeo, ro, -rd, *args[3:])
+    ct, ci = ct + 1.0, torch.where(ci >= 0, 699 - ci, 5)
+    t1, i1, u1, v1 = ttrace.trace(*args, need=m, carry=(ct, ci))
+    np.testing.assert_array_equal(t1[~m].numpy().view(np.uint32),
+                                  ct[~m].numpy().view(np.uint32))
+    assert torch.equal(i1[~m], ci[~m])
+    np.testing.assert_array_equal(t1[m].numpy().view(np.uint32),
+                                  t0[m].numpy().view(np.uint32))
+    assert torch.equal(i1[m], i0[m])
+    assert torch.equal(u1[m], u0[m]) and torch.equal(v1[m], v0[m])
+    # the carried row's u/v are those of the carried triangle, recomputed
+    _, _, uc, vc = ray_kernels.trace_rays(tgeo, ro, rd, *args[3:],
+                                          need=torch.zeros_like(m),
+                                          carry=(ct, ci))
+    assert torch.equal(u1[~m], uc[~m]) and torch.equal(v1[~m], vc[~m])
+    t2, i2, _, _ = ttrace.trace(*args, need=m)
+    assert (t2[~m] == np.float32(ray_kernels.BIG)).all()
+    assert (i2[~m] == -1).all() and torch.equal(i2[m], i0[m])

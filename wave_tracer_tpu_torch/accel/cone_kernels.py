@@ -40,7 +40,6 @@ from typing import NamedTuple
 import torch
 
 from wave_tracer_tpu_torch.accel import nvcc_build
-from wave_tracer_tpu_torch.accel.ray_kernels import _chunks
 
 BIG = 1e30
 _EPS = 1e-12
@@ -54,6 +53,15 @@ CHUNK_BLOCKS = 48
 LAUNCHES = {"cone_minz": 0}
 
 _lib = None
+
+
+def _chunks(N, T, device, block, per_sm):
+    """Triangle-range split so that ~`per_sm` blocks of `block` lanes run
+    per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ray_blocks = -(-N // block)
+    tiles = -(-T // TILE)
+    return max(1, min(tiles, -(-per_sm * sms // ray_blocks)))
 
 
 def cone_tris(p0, e1, e2):
@@ -190,8 +198,10 @@ def _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
 # ---------------------------------------------------------------------------
 
 def _safe_div(a, b):
-    return a / torch.where(b.abs() < _EPS, torch.where(b < 0, -_EPS, _EPS),
-                           b)
+    # a where of two Python floats takes torch's default dtype: pin b's, so
+    # that the result never depends on torch.set_default_dtype
+    eps = torch.where(b < 0, -_EPS, _EPS).to(b.dtype)
+    return a / torch.where(b.abs() < _EPS, eps, b)
 
 
 def _edge_entry_z(A, B, x0, ta, zlo_eff, zmin, zmax):

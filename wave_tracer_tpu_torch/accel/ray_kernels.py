@@ -15,22 +15,27 @@ rather than as the sum of the sides (the JAX kernel's identity): for small
 triangles far from mxu_center the sides cancel, and t from their sum
 carries ~1e-4 relative error.
 
-* `closest_hit` (K1): least (t, id) per ray, ties to the smaller id.
-* `any_hit` (K2): whether any pair hits. An optional bool `need` mask
-  names the rows whose result is read; the others return False and the
-  kernel never traces them. The kernel reads its own copy of the
-  triangles (`RayTable`), sorted so that its 256-triangle tiles are
-  compact (`tile_order`), and skips, per warp, the tiles whose box
-  (`tile_boxes`) no segment of the warp meets;
-  `_tile_box_may_hit` is the plain twin of that cull, which the tests
-  hold against `_anyhit_ref`.
+* `closest_hit` (K1): least (t, id) per ray, ties to the smaller id. An
+  optional bool `need` mask names the rows to trace; the others keep
+  `carry`, the (t, tri) the caller already has for them (a miss if
+  None), and the kernel never traces them.
+* `any_hit` (K2): whether any pair hits. Rows outside `need` return
+  False and are never traced.
+
+Both kernels read their own copy of the triangles (`RayTable`), sorted so
+that their 256-triangle tiles are compact (`tile_order`), and skip, per
+warp, the tiles whose box (`tile_boxes`) no segment of the warp meets;
+K1 walks each block's tiles near to far and shrinks each segment to the
+best t found so far. `_tile_box_may_hit` is the plain twin of that cull,
+which the tests hold against the pair tests.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (csrc/ray_kernels.cu, built with nvcc for sm_90a at first use and loaded
 with ctypes) and adds one to LAUNCHES; on a CPU tensor it runs the plain
 torch twin (`_closest_ref` / `_anyhit_ref`, the port of `_launch_ref`: a
 loop over triangle tiles of 512 with a running min or max, fp32 matmuls,
-never materializing (N, 4T)). Any other device raises.
+never materializing (N, 4T); it computes every row and keeps the carried
+result off the need mask). Any other device raises.
 
 Triangle features are compact rows (T, 24) f32:
   [A×B | B−A | B×C | C−B | C×A | A−C | −N | N·A | pad2]
@@ -54,8 +59,10 @@ _NO_HIT = int(np.uint64(((int(np.float32(BIG).view(np.uint32)) | 1 << 31)
 DEN_EPS = 1e-12
 NF = 24                    # floats per triangle row
 TILE_REF = 512             # triangle tile of the torch twins
-TILE = 256                 # triangles per bounding-box tile (K2)
+TILE = 256                 # triangles per bounding-box tile
 BLOCKS_PER_SM = 4          # K2's persistent grid
+K1_BLOCKS_PER_SM = 3       # K1's persistent grid (its __launch_bounds__)
+K1_MAX_TILES = 512         # tiles K1 sorts in shared memory (T <= 2^17)
 
 LAUNCHES = {"closest": 0, "anyhit": 0}
 
@@ -138,9 +145,10 @@ def tile_order(p0, e1, e2):
 
 
 class RayTable(NamedTuple):
-    """K2's own copy of the triangles, in `tile_order`: the kernel rows
-    (T, 24), the bake-order id of each row (T,) i32, which exclusions
-    compare, and the rows' tile boxes (`tile_boxes`)."""
+    """K1's and K2's own copy of the triangles, in `tile_order`: the
+    kernel rows (T, 24), the bake-order id of each row (T,) i32, which
+    exclusions and K1's ties compare, and the rows' tile boxes
+    (`tile_boxes`)."""
     feat: torch.Tensor
     ids: torch.Tensor
     boxes: torch.Tensor
@@ -167,23 +175,14 @@ def build():
         return _lib
     lib = nvcc_build.build("ray_kernels")["ray_kernels"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wt_closest_hit.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, ci,
-                                   vp, vp]
+    lib.wt_closest_hit.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp,
+                                   vp, vp, vp, ci, vp, vp, ci, vp]
     lib.wt_any_hit.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp,
                                vp, ci, vp, ci, vp]
     for fn in (lib.wt_closest_hit, lib.wt_any_hit):
         fn.restype = ci
     _lib = lib
     return lib
-
-
-def _chunks(N, T, device, block=256, per_sm=8):
-    """Triangle-range split so that ~`per_sm` blocks of `block` lanes run
-    per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ray_blocks = -(-N // block)
-    tiles = -(-T // 256)
-    return max(1, min(tiles, -(-per_sm * sms // ray_blocks)))
 
 
 def _check(tri_feat, center, ro, rd, tmin, tmax, ex):
@@ -208,22 +207,6 @@ def _check(tri_feat, center, ro, rd, tmin, tmax, ex):
                          "must start on a 16-byte boundary")
 
 
-def _launch_closest(tri_feat, center, ro, rd, tmin, tmax, ex):
-    lib = build()
-    _check(tri_feat, center, ro, rd, tmin, tmax, ex)
-    N, T = ro.shape[0], tri_feat.shape[0]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(ro.device).cuda_stream)
-    best = torch.full((N,), _NO_HIT, dtype=torch.int64, device=ro.device)
-    err = lib.wt_closest_hit(tri_feat.data_ptr(), T, _chunks(N, T, ro.device),
-                             center.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-                             tmin.data_ptr(), tmax.data_ptr(), ex.data_ptr(),
-                             N, best.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
-    LAUNCHES["closest"] += 1
-    return best
-
-
 def need_list(need):
     """The rows of a bool mask as a device-side list, with no host sync:
     (rows (N + 1,) i32 whose first `count` entries are the set rows in
@@ -238,12 +221,11 @@ def need_list(need):
     return rows, csum[-1:]
 
 
-def _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex, need):
-    lib = build()
+def _check_table(table, tri_feat, center, ro, rd, tmin, tmax, ex):
     feat, ids, boxes = table
     _check(feat, center, ro, rd, tmin, tmax, ex)
     dev = ro.device
-    N, T = ro.shape[0], feat.shape[0]
+    T = feat.shape[0]
     if (feat.shape != tri_feat.shape or ids.shape != (T,)
             or ids.dtype != torch.int32 or ids.device != dev
             or not ids.is_contiguous() or boxes.device != dev
@@ -252,16 +234,65 @@ def _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex, need):
             or not boxes.is_contiguous()):
         raise ValueError("table: need the RayTable (`ray_table`) of these "
                          f"triangles on {dev}")
+
+
+def _need_rows(need, N, dev):
+    """(rows, count) of the need list, or (None, None) for all rows."""
+    if need is None:
+        return None, None
+    if need.shape != (N,) or need.dtype != torch.bool or need.device != dev:
+        raise ValueError(f"need: a bool (N,) mask on {dev}")
+    return need_list(need)
+
+
+def _launch_closest(tri_feat, table, center, ro, rd, tmin, tmax, ex,
+                    need=None, carry=None, *, every_pair=False):
+    """K1's launch → (N,) int64 words. `every_pair` tests every pair of
+    every tile in tile order: the same words, slower; the reference its
+    walk and culls are held to."""
+    lib = build()
+    _check_table(table, tri_feat, center, ro, rd, tmin, tmax, ex)
+    feat, ids, boxes = table
+    dev = ro.device
+    N, T = ro.shape[0], feat.shape[0]
+    if -(-T // TILE) > K1_MAX_TILES:
+        raise ValueError(f"closest hit: {T} triangles > "
+                         f"{K1_MAX_TILES * TILE}")
+    rows, count = _need_rows(need, N, dev)
+    best = torch.full((N,), _NO_HIT, dtype=torch.int64, device=dev)
+    if need is not None and carry is not None:
+        if any(x.shape != (N,) or x.device != dev for x in carry):
+            raise ValueError(f"carry: (t, tri), each (N,) on {dev}")
+        best = torch.where(need, best, _pack(*carry))
+    if N == 0:
+        return best
+    queue = torch.zeros((1,), dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.wt_closest_hit(feat.data_ptr(), ids.data_ptr(),
+                             boxes.data_ptr(), T, int(every_pair),
+                             center.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                             tmin.data_ptr(), tmax.data_ptr(), ex.data_ptr(),
+                             None if rows is None else rows.data_ptr(),
+                             None if count is None else count.data_ptr(), N,
+                             best.data_ptr(), queue.data_ptr(),
+                             K1_BLOCKS_PER_SM * sms, stream)
+    if err != 0:
+        raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
+    LAUNCHES["closest"] += 1
+    return best
+
+
+def _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex, need):
+    lib = build()
+    _check_table(table, tri_feat, center, ro, rd, tmin, tmax, ex)
+    feat, ids, boxes = table
+    dev = ro.device
+    N, T = ro.shape[0], feat.shape[0]
     occ = torch.zeros((N,), dtype=torch.uint8, device=dev)
     if N == 0:
         return occ
-    if need is None:
-        rows = count = None
-    else:
-        if need.shape != (N,) or need.dtype != torch.bool \
-                or need.device != dev:
-            raise ValueError(f"need: a bool (N,) mask on {dev}")
-        rows, count = need_list(need)
+    rows, count = _need_rows(need, N, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     err = lib.wt_any_hit(feat.data_ptr(), ids.data_ptr(), boxes.data_ptr(),
@@ -275,6 +306,15 @@ def _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex, need):
         raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
     LAUNCHES["anyhit"] += 1
     return occ
+
+
+def _pack(t, tri):
+    """(t f32, tri int32) → K1's int64 words (order_key(t) << 32 | id), the
+    inverse of `_unpack`; tri -1 packs to id 0xFFFFFFFF."""
+    b = t.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(b >= 1 << 31, b ^ 0xFFFFFFFF, b | 1 << 31)
+    hi = torch.where(key >= 1 << 31, key - (1 << 32), key)
+    return hi * (1 << 32) + (tri.long() & 0xFFFFFFFF)
 
 
 def _unpack(best):
@@ -330,8 +370,10 @@ def _tile_hits(rf, tf, base, tmin, tmax, ex):
     return t, hit, ids
 
 
-def _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex):
-    """Twin of K1 → (t (N,) f32, BIG on miss; tri (N,) int32, -1 on miss)."""
+def _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need=None,
+                 carry=None):
+    """Twin of K1 → (t (N,) f32, BIG on miss; tri (N,) int32, -1 on miss).
+    Rows outside `need` return `carry` (t, tri), or a miss if None."""
     N = ro.shape[0]
     rf = _ray_features(ro, rd, center)
     best_t = torch.full((N,), _BIG_F32, dtype=torch.float32, device=ro.device)
@@ -347,7 +389,13 @@ def _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex):
         better = trow < best_t
         best_i = torch.where(better, idrow, best_i)
         best_t = torch.where(better, trow, best_t)
-    return best_t, best_i
+    if need is None:
+        return best_t, best_i
+    if carry is None:
+        carry = (torch.full_like(best_t, _BIG_F32),
+                 torch.full_like(best_i, -1))
+    return (torch.where(need, best_t, carry[0]),
+            torch.where(need, best_i, carry[1].to(torch.int32)))
 
 
 def _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need=None):
@@ -367,8 +415,9 @@ def _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need=None):
 
 
 def _tile_box_may_hit(boxes, center, ro, rd, tmin, tmax):
-    """Twin of K2's tile cull (seg_may_hit) → (N, ntiles) bool: may the
-    segment o + t·d, t in [tmin, tmax], meet the tile's padded box?"""
+    """Twin of K1's and K2's tile cull (seg_may_hit) → (N, ntiles) bool:
+    may the segment o + t·d, t in [tmin, tmax], meet the tile's padded
+    box? (K1 asks with tmax = the best t so far.)"""
     o = (ro - center)[:, None, :]
     d = rd[:, None, :]
     lo, s, hi = boxes[None, :, 0:3], boxes[None, :, 3], boxes[None, :, 4:7]
@@ -390,14 +439,21 @@ def _tile_box_may_hit(boxes, center, ro, rd, tmin, tmax):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def closest_hit(tri_feat, center, ro, rd, tmin, tmax, ex):
+def closest_hit(tri_feat, center, ro, rd, tmin, tmax, ex, need=None,
+                carry=None, *, table):
     """K1: closest hit per ray. ex (N, 3) int32 excluded ids (-1 = none).
-    Returns (t (N,) f32 with BIG on miss, tri (N,) int32 with -1 on miss)."""
+    `need` (N,) bool, or None for all rows, names the rows to trace; the
+    others return `carry` (t, tri), or a miss if None, untraced. The
+    kernel reads `table`, the RayTable of `tri_feat` (`ray_table`); the
+    plain version reads `tri_feat`. Returns (t (N,) f32 with BIG on miss,
+    tri (N,) int32 with -1 on miss)."""
     if ro.device.type == "cpu":
-        return _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex)
+        return _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need,
+                            carry)
     if ro.device.type != "cuda":
         raise NotImplementedError(f"ray kernels: no backend for {ro.device}")
-    return _unpack(_launch_closest(tri_feat, center, ro, rd, tmin, tmax, ex))
+    return _unpack(_launch_closest(tri_feat, table, center, ro, rd, tmin,
+                                   tmax, ex, need, carry))
 
 
 def any_hit(tri_feat, center, ro, rd, tmin, tmax, ex, need=None, *, table):
@@ -424,15 +480,18 @@ def _exclusions(N, device, *ids):
     return torch.stack(cols, dim=-1).contiguous()
 
 
-def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None):
-    """Closest hit over all triangles. Returns (t, tri, u, v): t = BIG and
-    tri = -1 on a miss; u/v of the winner recomputed here with the standard
-    Möller–Trumbore formula from one gather."""
+def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None, need=None,
+               carry=None):
+    """Closest hit over all triangles, traced for the rows of `need` (all
+    if None); the others take `carry` (t, tri). Returns (t, tri, u, v): t =
+    BIG and tri = -1 on a miss; u/v of the winner recomputed here with the
+    standard Möller–Trumbore formula from one gather."""
     N = ro.shape[0]
     ex = _exclusions(N, ro.device, exclude_tri)
     t, tri = closest_hit(geo.tri_feat, geo.mxu_center, ro.contiguous(),
                          rd.contiguous(), tmin.contiguous(),
-                         tmax.contiguous(), ex)
+                         tmax.contiguous(), ex, need, carry,
+                         table=geo.ray_table)
     valid = tri >= 0
     row = geo.tri_geom[tri.clamp_min(0).long()]
     p0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]

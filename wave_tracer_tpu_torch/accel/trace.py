@@ -34,7 +34,7 @@ class GeoArrays:
     mxu_center: torch.Tensor  # (3,) translation of the kernel features
     tri_feat: torch.Tensor  # (T, 24) K1/K2 rows (ray_kernels.tri_features)
     # derived: (T, 9) K3 rows [A | B | C] (cone_kernels.cone_tris), and
-    # the copies of the triangles that K3 and K2 read, in an order that
+    # the copies of the triangles that K3 and K1/K2 read, in an order that
     # makes their 256-triangle tiles compact (ray_kernels.tile_order),
     # with the tiles' bounds
     cone_tris: torch.Tensor = field(init=False)
@@ -90,8 +90,13 @@ def _check_size(geo, ro):
             "is not ported yet")
 
 
-def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None):
-    """Closest hit → (t, tri, u, v); tri == -1 and t = BIG on a miss."""
+def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None, need=None,
+          carry=None):
+    """Closest hit → (t, tri, u, v); tri == -1 and t = BIG on a miss.
+    `need` (N,) bool names the rows to trace (None: all); the others take
+    `carry`, the (t, tri) of their last trace (a miss if None), untraced:
+    the caller passes it for rows whose ray, tmin, tmax and exclusion are
+    those of that trace."""
     _check_size(geo, ro)
     if geo.num_tris == 0:
         N = ro.shape[0]
@@ -99,7 +104,8 @@ def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None):
         return (torch.full_like(z, ray_kernels._BIG_F32),
                 torch.full((N,), -1, dtype=torch.int32, device=ro.device),
                 z, z.clone())
-    return ray_kernels.trace_rays(geo, ro, rd, tmin, tmax, exclude_tri)
+    return ray_kernels.trace_rays(geo, ro, rd, tmin, tmax, exclude_tri,
+                                  need, carry)
 
 
 def occluded(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,

@@ -96,11 +96,31 @@ def _sample_emitter_by_power(et, u):
     return e.to(torch.int32), et.power[e] / tot
 
 
+def carried_hit(st):
+    """The need/carry arguments of a bounce's trace: a lane whose ray is
+    still the one its carried hit (hit_t, hit_tri) was traced for
+    (hit_current) keeps that hit untraced. {} (trace every lane) for a
+    state that carries no hit."""
+    if "hit_current" not in st:
+        return {}
+    return dict(need=~st["hit_current"], carry=(st["hit_t"], st["hit_tri"]))
+
+
+def next_carried_hit(st, t, tri, active):
+    """The carried hit after a bounce that traced (t, tri): the bounce
+    writes a new ray (ro, rd, exclude) on the lanes it keeps `active`, so
+    their hit goes stale; every other lane keeps its ray and this hit."""
+    if "hit_current" not in st:
+        return {}
+    return dict(hit_t=t, hit_tri=tri, hit_current=~active)
+
+
 def classical_bounce(data, st, dkeys, k, depth, *, eps, mis, rr_depth,
                      rr_floor, with_stats=False):
     """One classical bounce over the lane state dict (ro, rd, M, xf, L,
-    active, exclude, prev_pdf, prev_specular, stats). `depth` is an int or
-    a per-lane tensor. Returns the new state dict."""
+    active, exclude, prev_pdf, prev_specular, stats, and optionally the
+    carried hit hit_t, hit_tri, hit_current). `depth` is an int or a
+    per-lane tensor. Returns the new state dict."""
     geo = data.geo
     tables = data.tables
     et = data.emitters
@@ -111,7 +131,7 @@ def classical_bounce(data, st, dkeys, k, depth, *, eps, mis, rr_depth,
     t, tri, u, v = trace_mod.trace(
         geo, st["ro"], st["rd"], eps_v,
         torch.full((N,), BIG, dtype=torch.float32, device=dev),
-        st["exclude"])
+        st["exclude"], **carried_hit(st))
     hit = trace_mod.hit_attributes(geo, st["ro"], st["rd"], t, tri, u, v)
     lane = st["active"] & hit.valid
 
@@ -201,4 +221,5 @@ def classical_bounce(data, st, dkeys, k, depth, *, eps, mis, rr_depth,
         prev_specular=torch.where(active, bs.specular,
                                   st["prev_specular"]),
         stats=stats,
+        **next_carried_hit(st, t, tri, active),
     )

@@ -10,6 +10,13 @@ integrator/plt_path.py), then poll `alive`.
 RNG streams are keyed by (pixel, sample, depth, use), never by the lane
 slot, so the pool size does not change which paths are traced: images
 from different pool sizes agree to splat-order rounding.
+
+Each lane carries its last closest hit (hit_t, hit_tri) and whether its
+ray is still the one that hit belongs to (hit_current): a refill and a
+bounce that writes a new ray clear it, the trace sets it. The bounce
+traces only the lanes without a current hit; the others (dead lanes,
+which keep their ray) take the carried one, which is what tracing them
+again would give.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ def _put(dst, slots, val):
         dst[slots] = val
 
 
-def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave):
+def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
+                carry_hits=True):
     """Pool machinery: fresh-lane sourcing, develop-to-channels and the
     one-step body, over (data, base_key, id_end)."""
     W, H = sensor.width, sensor.height
@@ -86,6 +94,13 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave):
                 fsd_valid=torch.zeros((n,), dtype=torch.bool, device=dev),
                 sampled_fsd=torch.zeros((n,), dtype=torch.bool, device=dev),
                 prev_vert=ro.clone(), M_prev=M0.clone())
+        if carry_hits:
+            ps.update(hit_t=torch.zeros((n,), dtype=torch.float32,
+                                        device=dev),
+                      hit_tri=torch.full((n,), -1, dtype=torch.int32,
+                                         device=dev),
+                      hit_current=torch.zeros((n,), dtype=torch.bool,
+                                              device=dev))
         meta = dict(idx=keys["idx"], strm=keys["strm"], k=k,
                     w_spectral=w_spectral, sens=sens,
                     splat_pos=pxy.to(torch.float32) + jitter,
@@ -146,7 +161,9 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave):
                                   with_stats=True)
         meta["depth"] = torch.where(ps["active"], meta["depth"] + 1,
                                     meta["depth"])
-        # depth cap = the batched renderer's max_depth
+        # depth cap = the batched renderer's max_depth. The lanes it ends
+        # hold the new ray the bounce wrote, which is not traced yet: the
+        # bounce cleared their hit_current
         ps["active"] = ps["active"] & (meta["depth"] < max_depth)
         return dict(ps=ps, meta=meta, film=c["film"], pending=pending,
                     next_id=next_id)
@@ -160,14 +177,17 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave):
 
 
 def render_pool(data, film, base_key, id_bounds, lanes, *, sensor,
-                max_depth, eps, mis, rr_depth=3, rr_floor=0.5, wave=False):
+                max_depth, eps, mis, rr_depth=3, rr_floor=0.5, wave=False,
+                carry_hits=True):
     """Run the pool over ids [id_bounds[0], id_bounds[1]) with `lanes`
     lanes. Ids enumerate (pixel, sample) pairs as id = sid·npixels + pixel.
     wave=True runs the wave-optical bounce (hybrid cone traversal +
-    deferred coherent FSD with FSD_SLOTS aperture slots). Returns (film,
-    stats (N_STATS,) f32); the film is updated in place."""
+    deferred coherent FSD with FSD_SLOTS aperture slots). carry_hits=False
+    traces every lane at every step instead of only the lanes whose ray
+    changed (the same image and counters). Returns (film, stats (N_STATS,)
+    f32); the film is updated in place."""
     _, _, init_state, body, final_splat = _pool_parts(
-        sensor, max_depth, eps, mis, rr_depth, rr_floor, wave)
+        sensor, max_depth, eps, mis, rr_depth, rr_floor, wave, carry_hits)
     id_start, id_end = int(id_bounds[0]), int(id_bounds[1])
     c = init_state(data, film, base_key, id_start, lanes,
                    film.value.device)

@@ -31,8 +31,8 @@ from wave_tracer_tpu_torch.emitter import table as etab
 from wave_tracer_tpu_torch.integrator import traversal as traversal_mod
 from wave_tracer_tpu_torch.integrator.path import (
     N_TRI_HIST, _contribution, _emitter_pmf,
-    _perp_axis, _power_heuristic, _sample_emitter_by_power, compose_scatter,
-    tri_hist_bin)
+    _perp_axis, _power_heuristic, _sample_emitter_by_power, carried_hit,
+    compose_scatter, next_carried_hit, tri_hist_bin)
 from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.math import vec
 from wave_tracer_tpu_torch.sampling import rng
@@ -55,9 +55,10 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
                 K, rr_depth, rr_floor, with_stats=False):
     """One wave-optical bounce over the lane state dict (ro, rd, M, xf, L,
     active, exclude, prev_pdf, prev_specular, env, fsd_ap, fsd_valid,
-    sampled_fsd, prev_vert, M_prev, stats). `depth` is an int or a
-    per-lane tensor. Returns the new state dict. Only fsd=True is ported:
-    the renderer takes the classical bounce when FSD is off."""
+    sampled_fsd, prev_vert, M_prev, stats, and optionally the carried hit
+    hit_t, hit_tri, hit_current). `depth` is an int or a per-lane tensor.
+    Returns the new state dict. Only fsd=True is ported: the renderer
+    takes the classical bounce when FSD is off."""
     if not fsd:
         raise NotImplementedError("wave_bounce with fsd=False is not ported")
     geo = data.geo
@@ -71,8 +72,11 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
     def full(n, val, dtype=f32):
         return torch.full((n,), val, dtype=dtype, device=dev)
 
+    # every lane's hit is read below (zmax, and the surface, FSD and null
+    # counters count the whole pool), so a lane that is not traced keeps
+    # its carried hit rather than a miss
     t, tri, u, v = trace_mod.trace(geo, ro, rd, full(N, eps), full(N, BIG),
-                                   st["exclude"])
+                                   st["exclude"], **carried_hit(st))
     hit = trace_mod.hit_attributes(geo, ro, rd, t, tri, u, v)
     lane = st["active"]
 
@@ -297,4 +301,5 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
         prev_vert=_where_lanes(active, ro, st["prev_vert"]),
         M_prev=_where_lanes(active, M_cur, st["M_prev"]),
         stats=stats,
+        **next_carried_hit(st, t, tri, active),
     )

@@ -2,20 +2,22 @@
 
     python -m wave_tracer_tpu_torch.measure pool      # wave pool widths
     python -m wave_tracer_tpu_torch.measure profile   # torch.profiler split
-    python -m wave_tracer_tpu_torch.measure cells     # host-bound cells
+    python -m wave_tracer_tpu_torch.measure cells     # every cell, in turn
 
 `pool` renders the wave box headline (plt_path,
 fsd=True, 256×256, 8 spp, max_depth 8) at 2^16, 2^17 and 2^18 lanes, in
 two passes of opposite order, and the box + icosphere at 4 spp once per
-width, printing paths/s. `profile` runs torch.profiler over one wave
-render of each scene at the default pool width and prints the device
-time by op and kernel and the device's busy share of the wall time.
-`cells` renders the wave box headline, the classical box (fsd=False,
-256×256, 16 spp, max_depth 8) and the classical box + icosphere (4 spp)
-at the default pool, in turn, CELL_READINGS times each, printing every
-reading: the cells whose host dispatch moves between readings, for an
-A/B of two trees in one call. Every line starts with the card's name and power limit. Needs a card:
-without one each mode exits nonzero.
+width, printing paths/s. `profile` runs torch.profiler over one render
+of the wave box, the wave box + icosphere and the classical box +
+icosphere at the default pool width and prints the device time by op and
+kernel and the device's busy share of the wall time. `cells` renders the
+wave box headline, the classical box (fsd=False, 256×256, 16 spp,
+max_depth 8), the classical box + icosphere (4 spp) and the wave box +
+icosphere (4 spp) at the default pool, in turn, CELL_READINGS times
+each, printing every reading, for an A/B of two trees in one call (the
+cells' readings move from one to the next). Every line starts with the
+card's name and power limit. Needs a card: without one each mode exits
+nonzero.
 """
 
 from __future__ import annotations
@@ -75,7 +77,9 @@ def cells():
         ("classical box 256x256 16 spp depth 8",
          wave_scene(256, 16, 8, fsd=False)),
         ("classical box+icosphere 256x256 4 spp depth 8",
-         wave_scene(256, 4, 8, icosphere=True, fsd=False)))]
+         wave_scene(256, 4, 8, icosphere=True, fsd=False)),
+        ("wave box+icosphere 256x256 4 spp depth 8",
+         wave_scene(256, 4, 8, icosphere=True)))]
     for _, b in built:
         render_scene(b, spp=1, device="cuda")              # warm-up
     for _ in range(CELL_READINGS):
@@ -106,7 +110,9 @@ def profile():
     for tag, scene in (("wave box 256x256 8 spp depth 8",
                         wave_scene(256, 8, 8)),
                        ("wave box+icosphere 256x256 4 spp depth 8",
-                        wave_scene(256, 4, 8, icosphere=True))):
+                        wave_scene(256, 4, 8, icosphere=True)),
+                       ("classical box+icosphere 256x256 4 spp depth 8",
+                        wave_scene(256, 4, 8, icosphere=True, fsd=False))):
         built = build_scene(scene, device="cuda")
         render_scene(built, spp=1, device="cuda")          # warm-up
         torch.cuda.synchronize()
