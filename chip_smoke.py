@@ -1,11 +1,12 @@
 """On-card smoke test of the PyTorch/CUDA port (wave_tracer_tpu_torch).
 
-Drives the port's two main paths through the entry points a user calls
+Drives the port's three main paths through the entry points a user calls
 (`scene.build_scene`, `render.render_scene`) on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
-the persistent compacted wavefront — and holds every hand-written kernel
-of those paths against its plain torch version.
+the persistent compacted wavefront, and plt_bdpt with Fraunhofer FSD
+through its batched renderer — and holds every hand-written kernel of those
+paths against its plain torch version.
 
     python3 chip_smoke.py                # needs one card
 
@@ -71,12 +72,28 @@ Phases (each raises on failure; nothing is caught):
      and of each K2 call kind (FSD legs, NEE), K3's culled-pair shares
      (counted by a launch of its counting build on the same inputs,
      outside the events) and each kind's bound
- 11. prints the kernels' JSON line (each kernel's launches on the wave
-     main path, and per path under "launches_by_path") and, last, the
+ 12. the bdpt main path: box, plt_bdpt, fsd=True, 256x256, 4 spp,
+     max_depth 8 (bench.py's bdpt cell), after a warm-up; counters zeroed
+     just before and read just after: K1 and K2 must have launched, the
+     mode is "bdpt", the image finite and FSD interactions occurred; its
+     paths/s is the median of three renders if one takes under 30 s, else
+     that one render (the line says which); then once more with CUDA
+     events around every K1 and K2 call: launches, ms per launch, needed-
+     row share and bound by the rule below
+ 13. bdpt at 32x32, 4 spp, max_depth 5, FSD on, on the card and on the
+     CPU, at the CPU test's bars (tests/test_torch_bdpt_render.py):
+     channel means within 2%, Pearson >= 0.999, >= 90% of pixels within
+     1e-2·max(|ref|, mean|ref|), rays, surface and FSD interactions,
+     depth sum and shadow rays within 2%, edge-sweep hits within 8%,
+     null interactions within 18%
+ 11. (last) prints the kernels' JSON line (each kernel's launches on the
+     wave main path, per path under "launches_by_path", and K1's and K2's
+     timings in the bdpt render under "in_bdpt_render") and, last, the
      result JSON line
 
-Each paths/s reading (phases 4, 6, 8, 10) is the median of three
-renders, the one whose launches are counted first; all three are printed.
+Each paths/s reading (phases 4, 6, 8, 10, and 12 where a render takes
+under 30 s) is the median of three renders, the one whose launches are
+counted first; all three are printed.
 """
 
 import json
@@ -227,6 +244,12 @@ def box_scene(res, spp, depth, icosphere=False, fsd=False):
     scene.integrator.type = "plt_path"
     scene.integrator.fsd = fsd
     scene.integrator.max_depth = depth
+    return scene
+
+
+def bdpt_scene(res, spp, depth):
+    scene = box_scene(res, spp, depth, fsd=True)
+    scene.integrator.type = "plt_bdpt"
     return scene
 
 
@@ -697,15 +720,15 @@ def check_cone_narrow(ck, built, N, seed):
                 bound_by=b[1], pairs_culled=1 - entered / (N * T))
 
 
-def timed_render(rk, ck, built):
+def timed_render(rk, ck, built, anyhit_kind=None):
     """One render of `built` with CUDA events around every K1, K2 and K3 call
     (wrapping the module functions the accel layer calls), each followed,
     outside its events, by the count of what its data needs (the bounds'
     rule; for K3 with a launch of its counting build on the same inputs).
     Returns ({kind: [(ms, rows, needed rows, operations needed)]}, K3's
     cull counters and its tile-kept pairs, summed over the render); kinds:
-    closest, anyhit_legs (the batched FSD-leg call), anyhit_nee,
-    cone_minz."""
+    closest, cone_minz and, by default, anyhit_legs (the batched FSD-leg
+    call) and anyhit_nee; `anyhit_kind(rows)` names K2's kinds instead."""
     from wave_tracer_tpu_torch.render import render_scene
     rec = []
     closest_hit, any_hit, cone_minz = rk.closest_hit, rk.any_hit, ck.cone_minz
@@ -743,8 +766,8 @@ def timed_render(rk, ck, built):
         return wrapper
 
     rk.closest_hit = timed(lambda n: "closest", closest_hit)
-    rk.any_hit = timed(
-        lambda n: "anyhit_legs" if n > POOL else "anyhit_nee", any_hit)
+    rk.any_hit = timed(anyhit_kind or (
+        lambda n: "anyhit_legs" if n > POOL else "anyhit_nee"), any_hit)
     ck.cone_minz = timed(lambda n: "cone_minz", cone_minz)
     try:
         render_scene(built, device="cuda")
@@ -757,6 +780,32 @@ def timed_render(rk, ck, built):
         calls.setdefault(kind, []).append((a.elapsed_time(b), n, n_need,
                                            ops))
     return calls, cull, sum(kept3)
+
+
+def summarize_calls(rk, calls, T, phase):
+    """Per call kind of a timed render: launches, ms per launch, needed-row
+    share and bound per launch (the shared rule), printed and returned."""
+    out = {}
+    for kind, rows in calls.items():
+        ms = [c[0] for c in rows]
+        n_rows = sum(c[1] for c in rows)
+        n_need = sum(c[2] for c in rows)
+        out[kind] = dict(launches=len(rows), ms_per_launch=sum(ms) / len(ms),
+                         ms_max=max(ms), needed_share=n_need / max(n_rows, 1),
+                         needed_rows=n_need, rows=n_rows)
+        if kind == "cone_minz":
+            nbytes = len(rows) * cone_bytes(POOL, T)
+        else:
+            nbytes = len(rows) * T * rk.NF * 4 + n_need * (
+                52 if kind == "closest" else 45)
+        b = bound(sum(c[3] for c in rows), nbytes)
+        out[kind].update(bound_ms_per_launch=b[0] / len(rows), bound_by=b[1])
+        print(f"{phase}: in the render, {kind}: {len(rows)} launches, "
+              f"{sum(ms) / len(ms):.3f} ms per launch (max {max(ms):.3f}), "
+              f"needed rows {n_need} of {n_rows} "
+              f"({n_need / max(n_rows, 1):.4f}), bound "
+              f"{b[0] / len(rows):.3f} ms per launch ({b[1]})", flush=True)
+    return out
 
 
 def compare_images(img, ref, st, st_ref, tag, *, mean_rtol, px_tol, px_frac,
@@ -951,28 +1000,7 @@ def main():
           f"256x256 4 spp depth 8: {rate_line(wbig, st10)})", flush=True)
     calls, cull10, kept10 = timed_render(rk, ck, wbig)
     T10 = wbig.data.geo.num_tris
-    in_render = {}
-    for kind, rows in calls.items():
-        ms = [c[0] for c in rows]
-        n_rows = sum(c[1] for c in rows)
-        n_need = sum(c[2] for c in rows)
-        in_render[kind] = dict(launches=len(rows), ms_per_launch=sum(ms)
-                               / len(ms), ms_max=max(ms),
-                               needed_share=n_need / max(n_rows, 1),
-                               needed_rows=n_need, rows=n_rows)
-        if kind == "cone_minz":
-            nbytes = len(rows) * cone_bytes(POOL, T10)
-        else:
-            nbytes = len(rows) * T10 * rk.NF * 4 + n_need * (
-                52 if kind == "closest" else 45)
-        b = bound(sum(c[3] for c in rows), nbytes)
-        in_render[kind].update(bound_ms_per_launch=b[0] / len(rows),
-                               bound_by=b[1])
-        print(f"phase 10: in the render, {kind}: {len(rows)} launches, "
-              f"{sum(ms) / len(ms):.3f} ms per launch (max {max(ms):.3f}), "
-              f"needed rows {n_need} of {n_rows} "
-              f"({n_need / max(n_rows, 1):.4f}), bound "
-              f"{b[0] / len(rows):.3f} ms per launch ({b[1]})", flush=True)
+    in_render = summarize_calls(rk, calls, T10, "phase 10")
     print("phase 10: in the render, closest: needed-row share per pool "
           "step: " + ", ".join(f"{c[2] / c[1]:.4f}" for c in calls["closest"])
           + "; ms per step: " + ", ".join(f"{c[0]:.3f}"
@@ -991,6 +1019,47 @@ def main():
     check_closest_need(rk, built.data.geo, lanes4, 1239, k1_share)
     k1_need = check_closest_need(rk, big.data.geo, lanes6, 1240, k1_share)
 
+    # ---- phase 12: the bdpt main path
+    bdpt = build_scene(bdpt_scene(256, 4, 8), device="cuda")
+    render_scene(bdpt, spp=1, device="cuda")           # warm-up
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    img12, st12 = render_scene(bdpt, device="cuda")
+    torch.cuda.synchronize()
+    bdpt_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(bdpt_launches["closest"] > 0 and bdpt_launches["anyhit"] > 0,
+          f"bdpt main path launched {bdpt_launches}")
+    check_render(img12, st12, (256, 256, 3), "phase 12")
+    check(st12["mode"] == "bdpt", f"phase 12: mode {st12['mode']}")
+    dc = st12["device_counters"]
+    check(dc["fsd_interactions"] > 0, f"phase 12: no FSD interactions {dc}")
+    rate12 = (rate_line(bdpt, st12) if st12["seconds"] < 30 else
+              f"{st12['paths_per_sec']:.1f} paths/s (one render of "
+              f"{st12['seconds']:.3f} s")
+    print(f"phase 12: bdpt box 256x256 4 spp depth 8: {rate12}, batch "
+          f"{st12['pool_lanes']}), launches {bdpt_launches}, fsd "
+          f"{dc['fsd_interactions']:.0f}, null {dc['null_interactions']:.0f}"
+          f", edge hits {dc['edge_sweep_hits']:.0f}", flush=True)
+    calls12, _, _ = timed_render(rk, ck, bdpt, anyhit_kind=lambda n: "anyhit")
+    in_bdpt = summarize_calls(rk, calls12, bdpt.data.geo.num_tris,
+                              "phase 12")
+
+    # ---- phase 13: bdpt, card vs CPU
+    bsmall = build_scene(bdpt_scene(32, 4, 5), device="cuda")
+    img_c, st_c = render_scene(bsmall, device="cuda")
+    img_h, st_h = render_scene(bsmall, device="cpu")
+    check(st_c["mode"] == st_h["mode"] == "bdpt", "phase 13: mode")
+    frac = compare_images(
+        img_c, img_h, st_c, st_h, "phase 13", mean_rtol=0.02, px_tol=1e-2,
+        px_frac=0.90, counter_rtol=0.02, corr=0.999,
+        counters=("rays_cast", "surface_interactions", "fsd_interactions",
+                  "sum_path_depth", "shadow_rays"))
+    for k, rtol in (("edge_sweep_hits", 0.08), ("null_interactions", 0.18)):
+        a, b = st_c["device_counters"][k], st_h["device_counters"][k]
+        check(abs(a - b) <= rtol * max(b, 1.0),
+              f"phase 13: counter {k} {a} vs {b}")
+    print(f"phase 13: bdpt 32x32 4 spp depth 5: cuda vs cpu: {frac:.4f} of "
+          f"pixels within the bar", flush=True)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -998,7 +1067,8 @@ def main():
                     source=f"wave_tracer_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=wave_launches[key],
                     launches_by_path={"wave": wave_launches[key],
-                                      "classical": classical_launches[key]},
+                                      "classical": classical_launches[key],
+                                      "bdpt": bdpt_launches[key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)
@@ -1008,6 +1078,7 @@ def main():
             "wave_tracer_tpu/accel/mxu_trace.py:155", "closest",
             kstats["closest"], in_scale_render=in_render["closest"],
             need_mask_ms=k1_need[0], empty_mask_ms=k1_need[1],
+            in_bdpt_render=in_bdpt["closest"],
             culls_off_ms=kstats["closest"]["culls_off_ms"],
             all_pairs_bound_ms=kstats["closest"]["all_pairs_bound_ms"]),
         row("any_hit", "ray_kernels.cu",
@@ -1015,6 +1086,7 @@ def main():
             kstats["anyhit"],
             in_scale_render={k: in_render[k]
                              for k in ("anyhit_legs", "anyhit_nee")},
+            in_bdpt_render=in_bdpt["anyhit"],
             need_mask_ms=legs_need[0], empty_mask_ms=legs_need[1]),
         row("cone_minz", "cone_kernels.cu",
             "wave_tracer_tpu/accel/mxu_cone.py:309", "cone_minz", k3,

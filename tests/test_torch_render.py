@@ -99,17 +99,38 @@ def test_pool_size_does_not_change_the_image(renders):
         assert st2["device_counters"][k] == st["device_counters"][k]
 
 
-def test_unported_configurations_raise(renders):
+class _PlaneSensor:
+    """Stands in for a virtual-plane sensor (forward coverage rendering,
+    not ported yet)."""
+    ray_trace_only = False
+
+
+def test_unported_configurations_raise(renders, monkeypatch):
     built = renders["own_built"]
     assert Renderer(built).device == "cuda"
-    built.scene.integrator.type = "plt_bdpt"
+    sensors = built.scene.sensors
+    built.scene.sensors = [_PlaneSensor()]
     try:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="_PlaneSensor"):
             render_scene(built, device="cpu")
+    finally:
+        built.scene.sensors = sensors
+    with monkeypatch.context() as m:
+        m.setenv("WT_SAMPLER", "uniform")
+        with pytest.raises(NotImplementedError, match="Sobol"):
+            render_scene(built, spp=1, device="cpu", pool_lanes=256)
+    built.scene.integrator.type = "plt_bdpt"
+    sensor = built.scene.sensors[0]
+    try:
+        sensor.polarimetric = True
+        with pytest.raises(NotImplementedError, match="polarimetric"):
+            render_scene(built, spp=1, device="cpu", pool_lanes=256)
+        sensor.polarimetric = False
         built.scene.integrator.ray_trace_only = True   # classical again
         img, st = render_scene(built, spp=1, device="cpu", pool_lanes=256)
         assert np.isfinite(img).all() and st["mode"] == "ray-compact"
     finally:
+        sensor.polarimetric = False
         built.scene.integrator.type = "plt_path"
         built.scene.integrator.ray_trace_only = False
 

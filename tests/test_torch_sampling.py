@@ -47,6 +47,10 @@ def test_uniform_bit_equal(seed):
             a = jrng.uniform(jd, salt, 4)
             b = trng.uniform(td, salt, 4)
             np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))
+        # the widest draw: bdpt's 8 RIS proposals × 4 + the pick
+        np.testing.assert_array_equal(
+            _bits(jrng.uniform(jd, jrng.D_FSD, 33)),
+            _bits(trng.uniform(td, trng.D_FSD, 33).numpy()))
     jd = jrng.depth_key_v(jkeys, jnp.asarray(depth_v))
     td = trng.depth_key_v(tkeys, torch.from_numpy(depth_v))
     for salt in (jrng.D_EMITTER_PICK, jrng.D_BSDF_DIR):

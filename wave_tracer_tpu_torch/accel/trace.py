@@ -6,11 +6,13 @@ soup order; a table bridged from the JAX package keeps its BVH order).
 No BVH is built: scenes up to MXU_MAX_TRIS triangles go through the
 all-pairs kernels K1/K2 (accel/ray_kernels.py) and the cone sweep K3
 (accel/cone_kernels.py); a larger scene on a CUDA tensor raises, since
-the BVH backend is not ported yet.
+the BVH backend is not ported yet. The ball query of the bdpt
+blocked-flux integral (`tris_in_ball`) is plain torch.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -150,6 +152,82 @@ def ray_tests_per_lane(geo: GeoArrays) -> float:
     """Ray–triangle pair tests one trace/occluded call issues per lane
     (all-pairs: every triangle)."""
     return float(geo.num_tris)
+
+
+def _point_tri_dist(p, a, e1, e2, gn):
+    """Exact point-to-triangle distance, batched: p (N, 1, 3) against
+    triangle tiles a/e1/e2/gn (1, T, 3). Plane projection and barycentric
+    inside test, else the least distance to the three edge segments."""
+    w = p - a
+    dist_pl = (w * gn).sum(-1)
+    q = w - dist_pl[..., None] * gn              # projection, local to a
+    d11 = (e1 * e1).sum(-1)
+    d12 = (e1 * e2).sum(-1)
+    d22 = (e2 * e2).sum(-1)
+    q1 = (q * e1).sum(-1)
+    q2 = (q * e2).sum(-1)
+    det = (d11 * d22 - d12 * d12).clamp_min(1e-30)
+    u = (d22 * q1 - d12 * q2) / det
+    v = (d11 * q2 - d12 * q1) / det
+    inside = (u >= 0) & (v >= 0) & (u + v <= 1)
+
+    def seg_d(s0, sd):
+        ww = p - s0
+        ll = (sd * sd).sum(-1).clamp_min(1e-30)
+        t = ((ww * sd).sum(-1) / ll).clamp(0.0, 1.0)
+        r = ww - t[..., None] * sd
+        return torch.sqrt((r * r).sum(-1))
+
+    d_edges = torch.minimum(torch.minimum(seg_d(a, e1), seg_d(a, e2)),
+                            seg_d(a + e1, e2 - e1))
+    return torch.where(inside, dist_pl.abs(), d_edges)
+
+
+# lane chunk of the ball query: at most this many (lane, triangle) pairs
+# of temporaries at once
+_BALL_PAIRS = 1 << 22
+
+
+def tris_in_ball(geo: GeoArrays, center, radius, K: int, tile: int = 512):
+    """The K nearest triangles that meet the ball (center (N, 3), radius
+    (N,)), nearest first, ties to the lower id (as jax.lax.top_k). Returns
+    (idx (N, K) i32, −1-padded, dist (N, K), inf-padded, count (N,) i32).
+
+    Plain torch over triangle tiles of min(tile, T) (padding is masked
+    anyway), in lane chunks of at most _BALL_PAIRS pairs; used by the bdpt
+    blocked-flux integral. Unlike the JAX package, no clustered variant:
+    its TPU path never takes one."""
+    T = geo.num_tris
+    N = center.shape[0]
+    dev = center.device
+    bdist = torch.full((N, K), math.inf, device=dev)
+    bidx = torch.full((N, K), -1, dtype=torch.int32, device=dev)
+    if T == 0:
+        return bidx, bdist, torch.zeros((N,), dtype=torch.int32, device=dev)
+    tile = min(tile, T)
+    gn = geo.tri_attr[:, 15:18]
+    chunk = max(1, _BALL_PAIRS // tile)
+    for c in range(0, N, chunk):
+        cen = center[c:c + chunk, None, :]
+        rad = radius[c:c + chunk, None]
+        bd, bi = bdist[c:c + chunk], bidx[c:c + chunk]
+        for s in range(0, T, tile):
+            sl = slice(s, s + tile)
+            dist = _point_tri_dist(cen, geo.p0[None, sl], geo.e1[None, sl],
+                                   geo.e2[None, sl], gn[None, sl])
+            dist = torch.where(dist <= rad, dist, math.inf)
+            ids = torch.arange(s, s + dist.shape[1], dtype=torch.int32,
+                               device=dev)
+            cat_d = torch.cat([bd, dist], dim=1)
+            cat_i = torch.cat([bi, ids[None].expand_as(dist)], dim=1)
+            # stable ascending sort = top_k of −dist, ties to lower index
+            sd, sel = torch.sort(cat_d, dim=1, stable=True)
+            bd = sd[:, :K]
+            bi = torch.gather(cat_i, 1, sel[:, :K])
+        bdist[c:c + chunk], bidx[c:c + chunk] = bd, bi
+    valid = torch.isfinite(bdist)
+    return (torch.where(valid, bidx, -1), bdist,
+            valid.sum(1, dtype=torch.int32))
 
 
 @dataclass

@@ -95,15 +95,37 @@ def sample(tables: Tables, mat_id, wi, uv, k, u4):
                       refracted=torch.zeros_like(valid), valid=valid)
 
 
-def eval_f(tables: Tables, mat_id, wi, wo, uv, k):
+@dataclass
+class MaterialAt:
+    """What `eval_f` reads of a material at one surface point and
+    wavenumber, whatever the directions: formed once by `material_at` for
+    a vertex that many directions are evaluated at."""
+    row: torch.Tensor        # (N, C) material row
+    mtype: torch.Tensor      # (N,) i32 effective type
+    refl: torch.Tensor       # (N,) diffuse reflectance at (uv, k)
+
+
+def material_at(tables: Tables, mat_id, uv, k) -> MaterialAt:
+    row = tables.materials.pack[mat_id.clamp_min(0).long()]
+    mtype = torch.where(mat_id >= 0, row[:, C_MTYPE].to(torch.int32),
+                        torch.full_like(mat_id, MT_NULL, dtype=torch.int32))
+    return MaterialAt(row=row, mtype=mtype,
+                      refl=_reflectance(tables, row, uv, k))
+
+
+def eval_f(tables: Tables, mat_id, wi, wo, uv, k, at: MaterialAt = None):
     """Evaluate the non-delta lobes: returns (M (N,4,4), pdf (N,)). M
     includes the |wo.z| cosine; pdf is the density `sample` would have for
-    (wi → wo), for MIS. The null lobe is a delta: M = 0, pdf = 0."""
-    row, mtype, sgn = _row_and_frame(tables, mat_id, wi)
+    (wi → wo), for MIS. The null lobe is a delta: M = 0, pdf = 0. `at`:
+    the material at (mat_id, uv, k) from `material_at`, if formed."""
+    if at is None:
+        at = material_at(tables, mat_id, uv, k)
+    row, mtype, refl = at.row, at.mtype, at.refl
+    flip = (row[:, C_TWOSIDED] > 0.5) & (wi[..., 2] < 0.0)
+    sgn = torch.where(flip, -1.0, 1.0).to(wi.dtype)
     wi_l = _flip_z(wi, sgn)
     wo_l = _flip_z(wo, sgn)
     scale = row[:, C_SCALE]
-    refl = _reflectance(tables, row, uv, k)
     both_up = (wi_l[..., 2] > 0) & (wo_l[..., 2] > 0) & (mtype == MT_DIFFUSE)
     zero = torch.zeros_like(refl)
     f_d = torch.where(both_up, wo_l[..., 2] * INV_PI * refl * scale, zero)

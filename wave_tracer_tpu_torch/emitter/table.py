@@ -1,6 +1,8 @@
 """Device emitter table: NEE sampling, emission evaluation, pdfs.
 
-Port of wave_tracer_tpu/emitter/table.py for area and point emitters.
+Port of wave_tracer_tpu/emitter/table.py for area and point emitters:
+NEE (`sample_direct`), emission (`emission_radiance`), emitted-ray
+sampling for light subpaths (`sample_emission`) and their pdfs.
 The bake keeps the JAX package's (E, 20) pack layout and its concatenated
 per-emitter triangle CDF (triangle indices in the device triangle order
 of the GeoArrays the table is used with).
@@ -8,6 +10,7 @@ of the GeoArrays the table is used with).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,6 +28,7 @@ ET_DIRECTIONAL = 3
 C_ETYPE = 0
 C_POS = slice(1, 4)
 C_DIR = slice(4, 7)
+C_COS_CUTOFF = 8
 C_SPEC = 11
 C_POWER = 12
 C_AREA = 13
@@ -42,6 +46,9 @@ class EmitterTable:
     etri_idx: torch.Tensor    # (TT,) i32 triangle index in GeoArrays
     etri_cdf: torch.Tensor    # (TT,) inclusive CDF normalized per emitter
     scene_radius: torch.Tensor  # () scene bounding radius
+    dir: torch.Tensor         # (E, 3) propagation direction (spot)
+    cos_cutoff: torch.Tensor  # (E,) (spot; 1 for area and point)
+    pse_scale: torch.Tensor   # (E,) phase_space_extent_scale
 
     @property
     def count(self):
@@ -93,12 +100,14 @@ def bake_emitters(emitters, spec_ids, tri_emitter_id: np.ndarray,
         else np.zeros(1, np.int32)
     etri_cdf = np.concatenate(cdf_list) if cdf_list \
         else np.ones(1, np.float32)
+    edir = np.tile(np.array([0, 0, 1], np.float32), (E, 1))
+    cosc = np.ones(E, np.float32)
     pack = np.zeros((E, 20), np.float32)
     pack[:, C_ETYPE] = etype
     pack[:, C_POS] = pos
-    pack[:, C_DIR] = (0, 0, 1)
+    pack[:, C_DIR] = edir
     pack[:, 7] = 1.0              # cos_beam   (spot; unused here)
-    pack[:, 8] = 1.0              # cos_cutoff (spot; unused here)
+    pack[:, C_COS_CUTOFF] = cosc
     pack[:, C_SPEC] = spec
     pack[:, C_POWER] = power
     pack[:, C_AREA] = atot
@@ -107,7 +116,8 @@ def bake_emitters(emitters, spec_ids, tri_emitter_id: np.ndarray,
     pack[:, 16] = pse
     return dict(pack=pack, etype=etype, spec_id=spec, power=power,
                 area_total=atot, etri_idx=etri_idx, etri_cdf=etri_cdf,
-                scene_radius=np.asarray(scene_radius, np.float32))
+                scene_radius=np.asarray(scene_radius, np.float32),
+                dir=edir, cos_cutoff=cosc, pse_scale=pse)
 
 
 def _sample_area_point(et: EmitterTable, geo, row, u3):
@@ -193,3 +203,55 @@ def pdf_direct_solid_angle(et: EmitterTable, emitter_id, dist2, cos_l):
                    * et.area_total[eid].clamp_min(1e-30))
     ok = (emitter_id >= 0) & (et.etype[eid] == ET_AREA) & (cos_l > 1e-7)
     return torch.where(ok, pdf, torch.zeros_like(pdf))
+
+
+def sample_emission(et: EmitterTable, geo, spec_table, e, k, u4):
+    """Forward transport: sample an emitted ray of emitter e (area:
+    uniform position and cosine direction; point: uniform sphere). Returns
+    dict with position y, normal ln, direction wo, weight (spectral power
+    per unit pdf), pdf_area, pdf_dir, valid."""
+    from wave_tracer_tpu_torch.math import frame as frame_mod
+    row = et.pack[e.long()]                       # ONE packed gather
+    spec_val = spec_table.eval(row[..., C_SPEC].to(torch.int32), k)
+    etype = row[..., C_ETYPE].to(torch.int32)
+
+    # area: uniform position, cosine direction
+    y_a, ln_a, pdf_area_a, _ = _sample_area_point(et, geo, row, u4[..., :3])
+    fr = frame_mod.build_orthogonal_frame(ln_a)
+    wo_loc = warps.cosine_hemisphere(
+        torch.stack([u4[..., 3], u4[..., 0]], dim=-1))
+    wo_area = fr.to_world(wo_loc)
+    pdf_dir_a = warps.cosine_hemisphere_pdf(wo_loc[..., 2])
+    # point: uniform sphere
+    wo_pt = warps.uniform_sphere(u4[..., 0:2])
+
+    is_area = etype == ET_AREA
+    a3 = is_area[..., None]
+    one = torch.ones_like(pdf_area_a)
+    y = torch.where(a3, y_a, row[..., C_POS])
+    wo = torch.where(a3, wo_area, wo_pt)
+    ln = torch.where(a3, ln_a, wo)
+    pdf_area = torch.where(is_area, pdf_area_a, one)
+    pdf_dir = torch.where(is_area, pdf_dir_a,
+                          one * warps.uniform_sphere_pdf())
+    # emitted power per (area × solid angle × wavenumber): area L·cosθ,
+    # point I (per sr)
+    cos_e = vec.dot(wo, ln).abs()
+    Le = torch.where(is_area, spec_val * cos_e, spec_val)
+    weight = Le / (pdf_area * pdf_dir).clamp_min(1e-30)
+    return dict(y=y, ln=ln, wo=wo, weight=weight, pdf_area=pdf_area,
+                pdf_dir=pdf_dir, valid=weight > 0)
+
+
+def pdf_emission_dir(et: EmitterTable, emitter_id, ln, wo):
+    """Directional density of sample_emission at an emitter vertex
+    (solid-angle measure): area = cosine hemisphere, point = uniform
+    sphere."""
+    eid = emitter_id.clamp_min(0).long()
+    etype = et.etype[eid]
+    cos_e = vec.dot(ln, wo)
+    zero = torch.zeros_like(cos_e)
+    pdf = torch.where(etype == ET_AREA, cos_e.clamp_min(0.0) / math.pi,
+                      torch.where(etype == ET_POINT,
+                                  zero + 1.0 / (4.0 * math.pi), zero))
+    return torch.where(emitter_id >= 0, pdf, zero)

@@ -1,19 +1,23 @@
 """Measurements of the port on one CUDA card.
 
     python -m wave_tracer_tpu_torch.measure pool      # wave pool widths
+    python -m wave_tracer_tpu_torch.measure bdpt      # bdpt batch widths
     python -m wave_tracer_tpu_torch.measure profile   # torch.profiler split
     python -m wave_tracer_tpu_torch.measure cells     # every cell, in turn
 
-`pool` renders the wave box headline (plt_path,
+`bdpt` renders the bdpt box cell (plt_bdpt, fsd=True, 256×256, 4 spp,
+max_depth 8) with batches of 2^16, 2^17 and 2^18 lanes, in two passes of
+opposite order, printing paths/s. `pool` renders the wave box headline (plt_path,
 fsd=True, 256×256, 8 spp, max_depth 8) at 2^16, 2^17 and 2^18 lanes, in
 two passes of opposite order, and the box + icosphere at 4 spp once per
 width, printing paths/s. `profile` runs torch.profiler over one render
 of the wave box, the wave box + icosphere and the classical box +
 icosphere at the default pool width and prints the device time by op and
-kernel and the device's busy share of the wall time. `cells` renders the
-wave box headline, the classical box (fsd=False, 256×256, 16 spp,
-max_depth 8), the classical box + icosphere (4 spp) and the wave box +
-icosphere (4 spp) at the default pool, in turn, CELL_READINGS times
+kernel and the device's busy share of the wall time (and the bdpt box
+cell's). `cells` renders the wave box headline, the classical box
+(fsd=False, 256×256, 16 spp, max_depth 8), the classical box + icosphere
+(4 spp), the wave box + icosphere (4 spp) and the bdpt box cell at the
+default pool or batch width, in turn, CELL_READINGS times
 each, printing every reading, for an A/B of two trees in one call (the
 cells' readings move from one to the next). Every line starts with the
 card's name and power limit. Needs a card: without one each mode exits
@@ -39,13 +43,40 @@ def card_line():
     return out.splitlines()[0] if out else "nvidia-smi: n/a"
 
 
-def wave_scene(res, spp, depth, icosphere=False, fsd=True):
+def wave_scene(res, spp, depth, icosphere=False, fsd=True,
+               integrator="plt_path"):
     from wave_tracer_tpu_torch.scene.procedural import make_box_scene
     scene = make_box_scene(res=res, spp=spp, icosphere=icosphere)
-    scene.integrator.type = "plt_path"
+    scene.integrator.type = integrator
     scene.integrator.fsd = fsd
     scene.integrator.max_depth = depth
     return scene
+
+
+def bdpt_scene():
+    """bench.py's bdpt cell: the box, plt_bdpt, FSD on, 256×256, 4 spp,
+    max_depth 8."""
+    return wave_scene(256, 4, 8, integrator="plt_bdpt")
+
+
+BDPT_TAG = "bdpt box 256x256 4 spp depth 8"
+
+
+def bdpt():
+    from wave_tracer_tpu_torch.render import render_scene
+    from wave_tracer_tpu_torch.scene import build_scene
+    card = card_line()
+    box = build_scene(bdpt_scene(), device="cuda")
+    render_scene(box, spp=1, device="cuda")                # warm-up
+    for order in (WIDTHS, WIDTHS[::-1]):
+        for lanes in order:
+            _, st = render_scene(box, device="cuda", pool_lanes=lanes)
+            torch.cuda.synchronize()
+            print(f"{card} | {BDPT_TAG}, batch {lanes}: "
+                  f"{st['paths_per_sec']:.1f} paths/s ({st['seconds']:.3f} s,"
+                  f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f" GiB)", flush=True)
+            torch.cuda.reset_peak_memory_stats()
 
 
 def pool():
@@ -79,7 +110,8 @@ def cells():
         ("classical box+icosphere 256x256 4 spp depth 8",
          wave_scene(256, 4, 8, icosphere=True, fsd=False)),
         ("wave box+icosphere 256x256 4 spp depth 8",
-         wave_scene(256, 4, 8, icosphere=True)))]
+         wave_scene(256, 4, 8, icosphere=True)),
+        (BDPT_TAG, bdpt_scene()))]
     for _, b in built:
         render_scene(b, spp=1, device="cuda")              # warm-up
     for _ in range(CELL_READINGS):
@@ -112,7 +144,8 @@ def profile():
                        ("wave box+icosphere 256x256 4 spp depth 8",
                         wave_scene(256, 4, 8, icosphere=True)),
                        ("classical box+icosphere 256x256 4 spp depth 8",
-                        wave_scene(256, 4, 8, icosphere=True, fsd=False))):
+                        wave_scene(256, 4, 8, icosphere=True, fsd=False)),
+                       (BDPT_TAG, bdpt_scene())):
         built = build_scene(scene, device="cuda")
         render_scene(built, spp=1, device="cuda")          # warm-up
         torch.cuda.synchronize()
@@ -146,7 +179,7 @@ def main(argv):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    modes = dict(pool=pool, profile=profile, cells=cells)
+    modes = dict(pool=pool, bdpt=bdpt, profile=profile, cells=cells)
     if not argv or any(m not in modes for m in argv):
         print(f"measure: modes are {sorted(modes)}", file=sys.stderr)
         return 2

@@ -1,10 +1,15 @@
-"""Render orchestration: the persistent compacted wavefront into a film.
+"""Render orchestration: backward rendering of a perspective sensor.
 
-Port of wave_tracer_tpu/render/renderer.py for backward rendering through
-the compacted pool (`Renderer._render_backward_compact`): the integrator
-`plt_path` with free-space diffraction on (the wave bounce, when the
-scene has wedge edges) or off (the classical bounce), or in ray-trace-only
-mode. plt_bdpt and virtual-plane sensors raise NotImplementedError.
+Port of wave_tracer_tpu/render/renderer.py for backward rendering. The
+integrator `plt_path` — with free-space diffraction on (the wave bounce,
+when the scene has wedge edges) or off (the classical bounce), or in
+ray-trace-only mode — runs through the compacted pool
+(`Renderer._render_backward_compact` of the JAX package). `plt_bdpt`
+runs the batched renderer (`Renderer._render_backward`): lanes are pixel
+batch × spp batch, each batch one `trace_bdpt` call whose camera values
+splat into the film and whose light-tracing values splat into its light
+image, developed by the samples per pixel. Virtual-plane sensors raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 from wave_tracer_tpu_torch.integrator import path as path_mod
 from wave_tracer_tpu_torch.integrator.path_compact import render_pool
+from wave_tracer_tpu_torch.integrator.plt_bdpt import trace_bdpt
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
 from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
@@ -32,6 +38,12 @@ from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
 # the kernels would trace the idle lanes too.
 POOL_LANES_CUDA = 1 << 18
 POOL_LANES_CPU = 1 << 13
+# default lanes per bdpt batch. A lane holds two stored subpaths of up to
+# max_depth vertices, each with its Fraunhofer aperture slots (about 15 KB
+# at depth 8); every draw is keyed by (pixel, sample), so the batch width
+# changes no pixel. On the CPU the JAX package's test-sized batches.
+BDPT_LANES_CUDA = 1 << 18
+BDPT_LANES_CPU = 1 << 12
 # the JAX renderer's ceiling on the edge count for FSD. Above 2048 edges
 # the JAX integrators take the clustered edge sweep, which the port lacks:
 # accel/edges.py raises there
@@ -57,7 +69,9 @@ class Renderer:
     built: object                  # scene.build.BuiltScene
     seed: int = 0
     device: str = "cuda"           # never falls back to the CPU by itself
-    pool_lanes: int | None = None  # None: POOL_LANES_CUDA / POOL_LANES_CPU
+    # lanes per launch: the pool width of plt_path, the batch width of
+    # plt_bdpt. None: POOL_LANES_* / BDPT_LANES_* for the device
+    pool_lanes: int | None = None
 
     def render_sensor(self, sensor_index: int = 0, spp: int | None = None):
         built = self.built
@@ -73,41 +87,85 @@ class Renderer:
                 f"{type(sensor).__name__} sensors are not ported yet")
         cfg = scene.integrator
         trace_only = sensor.ray_trace_only or cfg.ray_trace_only
-        if cfg.type != "plt_path" and not trace_only:
+        if cfg.type not in ("plt_path", "plt_bdpt") and not trace_only:
             raise NotImplementedError(f"{cfg.type} is not ported yet")
         # as the JAX renderer decides: FSD needs wedge edges; a scene
         # without any renders classically
         n_edges = built.data.edges.count
-        wave = (cfg.fsd and not trace_only
-                and 0 < n_edges <= MAX_FSD_EDGES)
+        fsd_on = (cfg.fsd and not trace_only
+                  and 0 < n_edges <= MAX_FSD_EDGES)
         spp = spp or sensor.samples
         data = dataclasses.replace(
             built.data, spectral=built.spectral_per_sensor[sensor_index])
         W, H = sensor.width, sensor.height
         film = film_mod.make_film(W, H, sensor.response.channels,
                                   sensor.rfilter_sigma, device=device)
+        eps = 1e-4 * scene.world_radius()
+        if cfg.type == "plt_bdpt" and not trace_only:
+            return self._render_bdpt(data, sensor, spp, film, cfg, eps,
+                                     fsd_on, device)
         paths = spp * W * H
         lanes = min(paths, self.pool_lanes or (
             POOL_LANES_CUDA if device.type == "cuda" else POOL_LANES_CPU))
-        eps = 1e-4 * scene.world_radius()
 
         t0 = time.perf_counter()
         film, stats = render_pool(
             data, film, rng.make_base_key(self.seed), (0, paths),
             lanes, sensor=sensor, max_depth=cfg.max_depth, eps=eps,
-            mis=cfg.mis, wave=wave)
+            mis=cfg.mis, wave=fsd_on)
         img = film_mod.develop(film).cpu().numpy()   # waits for the device
         dt = time.perf_counter() - t0
-        vec = stats.cpu().numpy()
-        return img, dict(
-            seconds=dt, paths=paths, paths_per_sec=paths / max(dt, 1e-9),
-            mode="wave-compact" if wave else "ray-compact", spp_done=spp,
-            interrupted=False,
-            pool_lanes=lanes,
-            device_counters=dict(
-                {name: float(vec[i]) for name, i in _COUNTER_NAMES.items()},
-                tris_per_cone_hist=[float(x) for x in vec[
-                    path_mod.STAT_TRI_HIST0:path_mod.N_STATS]]))
+        return img, _stats(dt, paths, "wave-compact" if fsd_on
+                           else "ray-compact", spp, lanes, stats)
+
+    def _render_bdpt(self, data, sensor, spp, film, cfg, eps, fsd, device):
+        """The batched bdpt renderer: every (pixel, sample) pair once, in
+        batches of about `pool_lanes` lanes laid out pixel batch × spp
+        batch (pixel-major), with no padding lanes."""
+        W, H = sensor.width, sensor.height
+        npix = W * H
+        lanes = self.pool_lanes or (
+            BDPT_LANES_CUDA if device.type == "cuda" else BDPT_LANES_CPU)
+        pix_per_batch = min(max(lanes // max(spp, 1), 1), npix)
+        spp_per_batch = min(max(lanes // pix_per_batch, 1), spp)
+        base_key = rng.make_base_key(self.seed)
+        stats = torch.zeros((path_mod.N_STATS,), dtype=torch.float32,
+                            device=device)
+        t0 = time.perf_counter()
+        for s0 in range(0, spp, spp_per_batch):
+            sids = torch.arange(s0, min(s0 + spp_per_batch, spp),
+                                device=device)
+            for p0 in range(0, npix, pix_per_batch):
+                pix = torch.arange(p0, min(p0 + pix_per_batch, npix),
+                                   device=device)
+                pid = pix[:, None].expand(-1, sids.shape[0]).reshape(-1)
+                sid = sids[None, :].expand(pix.shape[0], -1).reshape(-1)
+                pxy = torch.stack([pid % W, pid // W], dim=-1)
+                jitter = rng.uniform(rng.sample_key(base_key, pid, sid),
+                                     rng.D_PIXEL_JITTER, 2)
+                pos, values, ok, (lt_pos, lt_val, lt_ok), st = trace_bdpt(
+                    data, pxy, jitter, base_key, sid, sensor=sensor,
+                    max_depth=min(cfg.max_depth, 16), eps=eps, fsd=fsd,
+                    with_stats=True)
+                film_mod.splat_direct(film, lt_pos, lt_val, lt_ok)
+                film_mod.splat(film, pos, values, ok)
+                stats += st
+        # the light-tracing splats are normalized per pixel sample
+        img = film_mod.develop(film, spp).cpu().numpy()  # waits for the device
+        dt = time.perf_counter() - t0
+        return img, _stats(dt, npix * spp, "bdpt", spp,
+                           pix_per_batch * spp_per_batch, stats)
+
+
+def _stats(dt, paths, mode, spp, lanes, stats):
+    vec = stats.cpu().numpy()
+    return dict(
+        seconds=dt, paths=paths, paths_per_sec=paths / max(dt, 1e-9),
+        mode=mode, spp_done=spp, interrupted=False, pool_lanes=lanes,
+        device_counters=dict(
+            {name: float(vec[i]) for name, i in _COUNTER_NAMES.items()},
+            tris_per_cone_hist=[float(x) for x in vec[
+                path_mod.STAT_TRI_HIST0:path_mod.N_STATS]]))
 
 
 def render_scene(built, sensor_index: int = 0, spp: int | None = None,

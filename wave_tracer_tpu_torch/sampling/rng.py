@@ -78,10 +78,8 @@ def uniform(stream, salt: int, n: int | None = None):
     salt_term = ((salt & M32) * 0x85EBCA6B) & M32
     seed0 = stream["strm"] ^ ((mul32(stream["d"], 0x9E3779B9) + salt_term)
                               & M32)
-    cols = []
-    for i in range(nn):
-        seed = (seed0 + (((i // 2) * 0xC2B2AE35) & M32)) & M32
-        cols.append(sobol.sample(stream["idx"], i % 2, seed))
-    if n is None:
-        return cols[0]
-    return torch.stack(cols, dim=-1)
+    offs = torch.tensor([((i // 2) * 0xC2B2AE35) & M32 for i in range(nn)],
+                        dtype=torch.int64, device=seed0.device)
+    u = sobol.sample_dims(stream["idx"], [i % 2 for i in range(nn)],
+                          (seed0[..., None] + offs) & M32)
+    return u[..., 0] if n is None else u

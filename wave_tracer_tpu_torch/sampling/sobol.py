@@ -60,14 +60,38 @@ def mul32(x, c: int):
     return (lo + hi) & M32
 
 
+def _byte_tables(dim: int) -> np.ndarray:
+    """(4·256,) XORs of dimension dim's direction numbers over every value
+    of each byte of the index: entry 256·p + v is the XOR of V[8p + b]
+    for the set bits b of v."""
+    tab = np.zeros((4, 256), np.int64)
+    for p in range(4):
+        for v in range(256):
+            for b in range(8):
+                if (v >> b) & 1:
+                    tab[p, v] ^= _V[dim][8 * p + b]
+    return tab.reshape(-1)
+
+
+_BYTE_TABLES = [None] + [_byte_tables(d) for d in range(1, N_DIMS)]
+_TABLE_CACHE = {}
+
+
 def sobol_raw(index, dim: int):
-    """Unscrambled Sobol sample bits of a static dimension (int64 u32)."""
+    """Unscrambled Sobol sample bits of a static dimension (int64 u32):
+    the XOR of the direction numbers of the index's set bits, looked up
+    one byte at a time."""
     idx = index & M32
     if dim == 0:
         return _reverse_bits(idx)        # van der Corput = bit reversal
-    out = torch.zeros_like(idx)
-    for b, vb in enumerate(_V[dim]):
-        out = out ^ (((idx >> b) & 1) * vb)
+    key = (dim, idx.device)
+    tab = _TABLE_CACHE.get(key)
+    if tab is None:
+        tab = _TABLE_CACHE[key] = torch.from_numpy(
+            _BYTE_TABLES[dim]).to(idx.device)
+    out = tab[idx & 0xFF]
+    for p in range(1, 4):
+        out = out ^ tab[256 * p + ((idx >> (8 * p)) & 0xFF)]
     return out
 
 
@@ -103,7 +127,17 @@ def _reverse_bits(x):
 def sample(index, dim: int, seed):
     """Owen-scrambled Sobol u ∈ [0,1): index (...,) sample index, dim a
     static dimension, seed (...,) u32 decorrelation stream (int64)."""
-    bits = sobol_raw(index, dim % N_DIMS)
-    seed = _hash(seed + ((dim * 0x9E3779B9) & M32))
-    s = _owen_scramble(bits, seed)
+    return sample_dims(index, [dim], seed[..., None])[..., 0]
+
+
+def sample_dims(index, dims, seed):
+    """`sample` for several static dimensions at once: index (...,),
+    dims a list of n ints, seed (..., n) one stream per column → (..., n).
+    Every column equals its own `sample` call bit for bit; the columns
+    share each torch op, so n columns cost the launches of one."""
+    raw = {d: sobol_raw(index, d % N_DIMS) for d in set(dims)}
+    bits = torch.stack([raw[d] for d in dims], dim=-1)
+    salt = torch.tensor([(d * 0x9E3779B9) & M32 for d in dims],
+                        dtype=torch.int64, device=seed.device)
+    s = _owen_scramble(bits, _hash(seed + salt))
     return s.to(torch.float32) * (1.0 / 4294967296.0)

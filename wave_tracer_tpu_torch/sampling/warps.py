@@ -1,7 +1,7 @@
 """Sampling warps: unit square -> disk / hemisphere / triangle.
 
-Port of wave_tracer_tpu/sampling/warps.py (the warps the classical bounce
-uses). All take u of shape (..., 2); directions are in the local frame
+Port of wave_tracer_tpu/sampling/warps.py (the warps the integrators
+use). All take u of shape (..., 2); directions are in the local frame
 (z = normal) and pdfs are solid-angle densities.
 """
 
@@ -12,6 +12,18 @@ import math
 import torch
 
 INV_PI = 1.0 / math.pi
+INV_4PI = 1.0 / (4.0 * math.pi)
+
+
+def uniform_sphere(u):
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_sphere_pdf():
+    return INV_4PI
 
 
 def concentric_disk(u):

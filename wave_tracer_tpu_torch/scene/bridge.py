@@ -38,7 +38,8 @@ MATERIAL_KEYS = ("pack", "comp_child")
 TEXTURE_KEYS = ("pack",)
 SPECTRA_KEYS = ("vals", "log_kmin", "log_kmax")
 EMITTER_KEYS = ("pack", "etype", "spec_id", "power", "area_total",
-                "etri_idx", "etri_cdf", "scene_radius")
+                "etri_idx", "etri_cdf", "scene_radius", "dir", "cos_cutoff",
+                "pse_scale")
 SPECTRAL_KEYS = ("e_w", "e_cdf", "x", "f", "cdf", "total", "line_k",
                  "line_w", "n_lines")
 
@@ -116,7 +117,9 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
         area_total=t("emitters.area_total", f32),
         etri_idx=t("emitters.etri_idx", i32),
         etri_cdf=t("emitters.etri_cdf", f32),
-        scene_radius=t("emitters.scene_radius", f32))
+        scene_radius=t("emitters.scene_radius", f32),
+        dir=t("emitters.dir", f32), cos_cutoff=t("emitters.cos_cutoff", f32),
+        pse_scale=t("emitters.pse_scale", f32))
     spectral = spectral_from_numpy(
         {k: a[f"spectral.{k}"] for k in SPECTRAL_KEYS}, device)
     edges = EdgeTable(**{k: t(f"edges.{k}", i32 if k in ("tri1", "tri2")

@@ -1,11 +1,13 @@
 """Film: 2D accumulation buffers with Gaussian reconstruction splats.
 
-Port of wave_tracer_tpu/sensor/film.py (make_film, splat, develop). Each
-sample splats into a (2r+1)² window with per-pixel Gaussian-integrated
-weights. Unlike the functional JAX film, `splat` updates the film's
-tensors in place (one `index_add_` per target) and returns the film. The
-light image of forward rendering (`direct`, `splat_direct`) is not ported
-yet.
+Port of wave_tracer_tpu/sensor/film.py (make_film, splat, splat_direct,
+develop). Each sample splats into a (2r+1)² window with per-pixel
+Gaussian-integrated weights; light-tracing samples splat into the
+nearest texel of a separate light image (`direct`), normalized by the
+samples per element at develop time. Unlike the functional JAX film, the
+splats update the film's tensors in place (`index_add_` / `index_put_`)
+and return the film. The Gaussian direct splat of virtual-plane sensors
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ class Film:
     weight: torch.Tensor     # (H, W) filter weight sum
     rfilter_sigma: float = 0.25
     radius: int = 1
+    direct: torch.Tensor | None = None   # (H, W, C) light image
 
     @property
     def shape(self):
@@ -34,6 +37,7 @@ def make_film(width: int, height: int, channels: int = 3,
     z = dict(dtype=torch.float32, device=device)
     return Film(value=torch.zeros((height, width, channels), **z),
                 weight=torch.zeros((height, width), **z),
+                direct=torch.zeros((height, width, channels), **z),
                 rfilter_sigma=rfilter_sigma, radius=radius)
 
 
@@ -79,6 +83,25 @@ def splat(film: Film, pos, values, mask) -> Film:
     return film
 
 
-def develop(film: Film):
-    """Final image: filtered value / filter weight."""
-    return film.value / film.weight.clamp_min(1e-12)[..., None]
+def splat_direct(film: Film, pos, values, mask) -> Film:
+    """Nearest-texel splat into the light image: pos (N, 2) [x, y]
+    continuous pixel positions, values (N, C), mask (N,). Samples outside
+    the film, masked off, or with a non-finite value deposit nothing."""
+    H, W, C = film.direct.shape
+    keep = mask & torch.isfinite(values).all(-1) \
+        & (pos[:, 0] >= 0) & (pos[:, 0] < W) \
+        & (pos[:, 1] >= 0) & (pos[:, 1] < H)
+    pos = pos[keep]
+    ix = pos[:, 0].to(torch.int64).clamp(0, W - 1)
+    iy = pos[:, 1].to(torch.int64).clamp(0, H - 1)
+    film.direct.view(H * W, C).index_add_(0, iy * W + ix, values[keep])
+    return film
+
+
+def develop(film: Film, total_samples_per_element: float = 0.0):
+    """Final image: filtered value / filter weight, plus the light image
+    divided by the samples per element when that is positive."""
+    img = film.value / film.weight.clamp_min(1e-12)[..., None]
+    if total_samples_per_element > 0:
+        img = img + film.direct / total_samples_per_element
+    return img

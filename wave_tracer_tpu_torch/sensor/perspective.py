@@ -1,7 +1,8 @@
 """Perspective (pinhole) sensor: batched camera rays.
 
-Port of wave_tracer_tpu/sensor/perspective.py (host model, generate_rays
-and lookat_matrix): rays through jittered pixel positions, importance
+Port of wave_tracer_tpu/sensor/perspective.py (host model, generate_rays,
+project and lookat_matrix): rays through jittered pixel positions, the
+projection of world points onto the film for light tracing, importance
 W = 1 per unit flux.
 """
 
@@ -56,6 +57,28 @@ class PerspectiveSensor:
         ro = o.expand(d.shape)
         tan_alpha = 2.0 * tan_half / W
         return ro, d, tan_alpha
+
+    def project(self, p_world):
+        """World points (N, 3) → (pixel_xy (N, 2), visible (N,),
+        cos_theta (N,), dir_to_p (N, 3), dist (N,))."""
+        o, r, u, f = [torch.as_tensor(np.asarray(v, np.float32),
+                                      device=p_world.device)
+                      for v in self.camera_basis()]
+        W, H = self.width, self.height
+        tan_half = math.tan(0.5 * self.fov)
+        v = p_world - o
+        dist = torch.linalg.vector_norm(v, dim=-1)
+        d = v / dist.clamp_min(1e-12)[..., None]
+        z = (d * f).sum(-1)
+        x = (d * r).sum(-1)
+        y = (d * u).sum(-1)
+        zs = z.clamp_min(1e-6)
+        ndc_x = x / zs / tan_half
+        ndc_y = y / zs / (tan_half * (H / W))
+        px = (ndc_x + 1.0) * 0.5 * W
+        py = (1.0 - ndc_y) * 0.5 * H
+        visible = (z > 1e-6) & (px >= 0) & (px < W) & (py >= 0) & (py < H)
+        return torch.stack([px, py], dim=-1), visible, z, d, dist
 
     def importance(self):
         """W — emitted importance per unit flux."""

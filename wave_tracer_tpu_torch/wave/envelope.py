@@ -34,6 +34,10 @@ class EnvState:
     def minor(self, z):
         return self.major(z) / self.e.clamp_min(1.0)
 
+    def area_radius(self, z):
+        """sqrt(major·minor): the isotropic-equivalent footprint radius."""
+        return torch.sqrt((self.major(z) * self.minor(z)).clamp_min(0.0))
+
 
 def initial(rd, x0, ta):
     """Isotropic sourcing envelope (sensor beams)."""
