@@ -40,7 +40,8 @@ Phases (each raises on failure; nothing is caught):
   5. the classical box at 64x64, 4 spp, max_depth 5 on the card and on the
      CPU (plain versions): image mean per channel within 1%, >= 98% of
      pixels within 1e-3·max(|ref|, mean|ref|), device counters within 0.5%
-  6. classical box + 81,920-triangle icosphere at 256x256, 4 spp, depth 8
+  6. classical box + 81,920-triangle icosphere at 256x256, 8 spp, depth 8
+     (bench.py's cell; two fills of the 2^18-lane pool)
   7. K3 (cone-triangle boundary sweep) against its plain version at the
      wave pool's width (262,144 seeded random cones inside the scene's
      bounds: ta 0.01-0.2, e 0.6-1.0, x0 0.01-0.3, boundaries of visible
@@ -86,14 +87,39 @@ Phases (each raises on failure; nothing is caught):
      1e-2·max(|ref|, mean|ref|), rays, surface and FSD interactions,
      depth sum and shadow rays within 2%, edge-sweep hits within 8%,
      null interactions within 18%
+ 14. the coverage main path: make_coverage_scene(256) (256x256 elements
+     × 8 samples = 524,288 paths, depth 4, 14 triangles, ITU concrete
+     SPM, a 10 GHz point transmitter), plt_path with FSD on, after a
+     warm-up, in batches of 2^18 lanes; counters zeroed just before and
+     read just after: K1 and K2 must have launched; the mode is
+     "forward-wave", the map finite, more than 20% of the elements lit,
+     and the building's shadow shows (tests/test_coverage.py's bar); its
+     paths/s as phase 12's; then once more with CUDA events around every
+     K1 and K2 call (launches, ms per launch, needed-row share, bound);
+     then the same scene as plt_bdpt (the Fraunhofer forward mode, the
+     t = 0 strategy) with the same checks: it launches K1 only, since the
+     Fraunhofer mode makes no shadow test (neither does the JAX module)
+ 14b. K2 against its plain version on the K2 call of phase 14's render
+     with the most needed rows: the forward's own width, 3·(2K+1) = 51
+     segments per lane × 2^18 lanes, its three exclusions and the
+     live-lane need mask that the render gave it; needed rows agree on
+     >= 99.9%, unneeded rows are False
+ 15. make_coverage_scene(32) at 4 samples per element, in batches of
+     4,096 lanes, plt_path and plt_bdpt, on the card and on the CPU
+     (plain versions), at the CPU tests' film-level bars
+     (tests/test_torch_coverage_render.py::film_stats): the median ratio
+     of the elements lit in both within 1e-3 of 1, the Pearson
+     correlation of the dB maps >= 0.95, >= 90% of the elements within
+     0.1 dB (the means' ratio is printed: single FSD-NEE splats of huge
+     weight dominate it)
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path", and K1's and K2's
-     timings in the bdpt render under "in_bdpt_render") and, last, the
-     result JSON line
+     timings in the bdpt and coverage renders under "in_bdpt_render" and
+     "in_coverage_render") and, last, the result JSON line
 
-Each paths/s reading (phases 4, 6, 8, 10, and 12 where a render takes
-under 30 s) is the median of three renders, the one whose launches are
-counted first; all three are printed.
+Each paths/s reading (phases 4, 6, 8, 10, and 12 and 14 where a render
+takes under 30 s) is the median of three renders, the one whose launches
+are counted first; all three are printed.
 """
 
 import json
@@ -826,6 +852,114 @@ def compare_images(img, ref, st, st_ref, tag, *, mean_rtol, px_tol, px_frac,
     return frac
 
 
+def coverage_scene(res, integrator="plt_path"):
+    from wave_tracer_tpu_torch.scene.procedural import make_coverage_scene
+    scene = make_coverage_scene(res)
+    scene.integrator.type = integrator
+    return scene
+
+
+def check_coverage(img, st, res, tag):
+    """tests/test_coverage.py's bar on the port's own map: finite, more
+    than 20% of the elements lit, the building's shadow over the far
+    third. Returns (lit share, mean near, mean far)."""
+    check(st["mode"] == "forward-wave", f"{tag}: mode {st['mode']}")
+    check(img.shape == (res, res, 1), f"{tag}: map shape {img.shape}")
+    cov = img[..., 0]
+    check(np.isfinite(cov).all(), f"{tag}: non-finite elements")
+    lit = (cov > 0).mean()
+    check(lit > 0.2, f"{tag}: {lit:.3f} of the elements lit")
+    H = cov.shape[0]
+    near, far = cov[: H // 3], cov[2 * H // 3:]
+    m_near = near[near > 0].mean() if (near > 0).any() else 0.0
+    m_far = far[far > 0].mean() if (far > 0).any() else m_near
+    check(m_far < 0.75 * m_near or (far > 0).mean() < 0.6 * (near > 0).mean(),
+          f"{tag}: no shadowing (near {m_near}, far {m_far})")
+    return lit, m_near, m_far
+
+
+def compare_maps(img, ref, tag):
+    """Coverage maps at the CPU tests' film-level bars
+    (tests/test_torch_coverage_render.py::film_stats): the median ratio
+    of the elements lit in both within 1e-3 of 1, the Pearson correlation
+    of the dB maps >= 0.95, >= 90% of the elements within 0.1 dB (a few
+    FSD-NEE point splats of huge weight dominate the mean, so it is
+    printed, not held). Returns the three numbers and the means' ratio."""
+    a, b = img[..., 0], ref[..., 0]
+    la = 10.0 * np.log10(np.maximum(a, 1e-30))
+    lb = 10.0 * np.log10(np.maximum(b, 1e-30))
+    both = (a > 0) & (b > 0)
+    median = float(np.median(a[both] / b[both]))
+    corr = np.corrcoef(la.ravel(), lb.ravel())[0, 1]
+    share = (np.abs(la - lb) <= 0.1).mean()
+    check(abs(median - 1.0) <= 1e-3, f"{tag}: median ratio {median}")
+    check(corr >= 0.95, f"{tag}: dB Pearson correlation {corr:.4f}")
+    check(share >= 0.90, f"{tag}: {share:.4f} of elements within 0.1 dB")
+    return median, corr, share, a.mean() / b.mean()
+
+
+def capture_anyhit(rk, built):
+    """One render of `built` on the card, keeping a copy of the arguments
+    of the K2 call with the most needed rows."""
+    from wave_tracer_tpu_torch.render import render_scene
+    real = rk.any_hit
+    best = {"n": -1}
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        need = args[7] if len(args) > 7 else kw.get("need")
+        n = args[2].shape[0] if need is None else int(need.sum())
+        if n > best["n"]:
+            best.update(n=n, args=[a.clone() for a in args[:7]],
+                        need=None if need is None else need.clone(),
+                        table=kw["table"])
+        return out
+
+    rk.any_hit = spy
+    try:
+        render_scene(built, device="cuda")
+    finally:
+        rk.any_hit = real
+    check(best["n"] > 0, "phase 14b: no K2 call with a needed row")
+    return best
+
+
+def check_anyhit_forward(rk, cap):
+    """K2 against its plain version on a captured forward call: needed
+    rows agree on >= 99.9%, unneeded rows are False."""
+    args, need, table = cap["args"], cap["need"], cap["table"]
+    N, T = args[2].shape[0], args[0].shape[0]
+    ok_k = rk.any_hit(*args, need, table=table)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    ok_r = anyhit_ref_chunked(rk, args, need)
+    b.record()
+    torch.cuda.synchronize()
+    ms_plain = a.elapsed_time(b)
+    if need is not None:
+        check(not ok_k[~need].any().item(),
+              "phase 14b: an unneeded row is occluded")
+        rows = need
+    else:
+        rows = torch.ones_like(ok_k)
+    frac = (ok_k[rows] == ok_r[rows]).float().mean().item()
+    check(frac >= 0.999, f"phase 14b: needed rows agree on {frac:.5f}")
+    ms = cuda_ms(lambda: rk.any_hit(*args, need, table=table), 3)
+    ops, kept = anyhit_need(rk, table, args, ok_k, need)
+    n_need = int(rows.sum().item())
+    bnd = bound(ops, T * rk.NF * 4 + n_need * 45)
+    print(f"phase 14b: N={N} T={T} (the forward's 51 segments per lane): "
+          f"K2 with the render's need mask of {n_need} rows "
+          f"({n_need / N:.4f}): needed rows agree {frac:.6f}, unneeded rows "
+          f"all False, occluded {ok_r[rows].float().mean().item():.4f}; "
+          f"{ms:.3f} ms (plain {ms_plain:.3f} ms, ray chunks of {POOL}), "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return dict(rows=N, needed_rows=n_need,
+                max_abs_err=float((ok_k != ok_r)[rows].float().max().item()),
+                ms=ms, plain_ms=ms_plain, bound_ms=bnd[0], bound_by=bnd[1])
+
+
 def zero(*counts):
     for c in counts:
         for k in c:
@@ -879,7 +1013,7 @@ def main():
     lanes4 = min(256 * 256 * 16, POOL)
     lanes6 = min(256 * 256 * 4, POOL)
     built = build_scene(box_scene(256, 16, 8), device="cuda")
-    big = build_scene(box_scene(256, 4, 8, icosphere=True), device="cuda")
+    big = build_scene(box_scene(256, 8, 8, icosphere=True), device="cuda")
     check(built.data.geo.num_tris == 12,
           f"box has {built.data.geo.num_tris} triangles")
     check(big.data.geo.num_tris == 81932,
@@ -937,7 +1071,7 @@ def main():
     check_render(img6, st6, (256, 256, 3), "phase 6")
     check(st6["pool_lanes"] == lanes6, f"phase 6 pool {st6['pool_lanes']}")
     print(f"phase 6: classical box + icosphere ({big.data.geo.num_tris} "
-          f"tris) 256x256 4 spp depth 8: {rate_line(big, st6)})", flush=True)
+          f"tris) 256x256 8 spp depth 8: {rate_line(big, st6)})", flush=True)
 
     # ---- phase 7: K3 at the wave pool's width
     wbox = build_scene(box_scene(256, 8, 8, fsd=True), device="cuda")
@@ -1060,6 +1194,74 @@ def main():
     print(f"phase 13: bdpt 32x32 4 spp depth 5: cuda vs cpu: {frac:.4f} of "
           f"pixels within the bar", flush=True)
 
+    # ---- phase 14: the coverage main path (forward transport, UTD FSD)
+    cov = build_scene(coverage_scene(256), device="cuda")
+    check(cov.data.geo.num_tris == 14,
+          f"coverage scene has {cov.data.geo.num_tris} triangles")
+    render_scene(cov, spp=1, device="cuda")            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    img14, st14 = render_scene(cov, device="cuda")
+    torch.cuda.synchronize()
+    cov_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(cov_launches["closest"] > 0 and cov_launches["anyhit"] > 0,
+          f"coverage main path launched {cov_launches}")
+    check(st14["paths"] == 256 * 256 * 8 and st14["pool_lanes"] == POOL,
+          f"phase 14: {st14['paths']} paths, batch {st14['pool_lanes']}")
+    lit, m_near, m_far = check_coverage(img14, st14, 256, "phase 14")
+    peak14 = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate14 = (rate_line(cov, st14) if st14["seconds"] < 30 else
+              f"{st14['paths_per_sec']:.1f} paths/s (one render of "
+              f"{st14['seconds']:.3f} s")
+    print(f"phase 14: coverage 256x256 8 spe depth 4 plt_path (UTD): "
+          f"{rate14}, batch {st14['pool_lanes']} x {st14['batches']}), "
+          f"launches {cov_launches}, lit {lit:.3f}, mean near {m_near:.4g} "
+          f"far {m_far:.4g}, peak memory {peak14:.2f} GiB", flush=True)
+    calls14, _, _ = timed_render(rk, ck, cov, anyhit_kind=lambda n: "anyhit")
+    in_cov = summarize_calls(rk, calls14, cov.data.geo.num_tris, "phase 14")
+    print("phase 14: in the render, anyhit: rows per call: " + ", ".join(
+        f"{c[2]}/{c[1]}" for c in calls14["anyhit"]), flush=True)
+
+    covb = build_scene(coverage_scene(256, "plt_bdpt"), device="cuda")
+    render_scene(covb, spp=1, device="cuda")           # warm-up
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    img14f, st14f = render_scene(covb, device="cuda")
+    torch.cuda.synchronize()
+    fr_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(fr_launches["closest"] > 0 and fr_launches["anyhit"] == 0
+          and fr_launches["cone_minz"] == 0,
+          f"Fraunhofer forward launched {fr_launches}")
+    lit, m_near, m_far = check_coverage(img14f, st14f, 256, "phase 14 bdpt")
+    rate14f = (rate_line(covb, st14f) if st14f["seconds"] < 30 else
+               f"{st14f['paths_per_sec']:.1f} paths/s (one render of "
+               f"{st14f['seconds']:.3f} s")
+    print(f"phase 14: coverage 256x256 8 spe depth 4 plt_bdpt (Fraunhofer "
+          f"forward): {rate14f}, batch {st14f['pool_lanes']}), launches "
+          f"{fr_launches}, lit {lit:.3f}, mean near {m_near:.4g} far "
+          f"{m_far:.4g}", flush=True)
+    calls14f, _, _ = timed_render(rk, ck, covb)
+    in_cov_fr = summarize_calls(rk, calls14f, covb.data.geo.num_tris,
+                                "phase 14 bdpt")
+
+    # ---- phase 14b: K2 at the forward's own width and need mask
+    k2_fwd = check_anyhit_forward(rk, capture_anyhit(rk, cov))
+    kstats["anyhit"]["max_abs_err"] = max(kstats["anyhit"]["max_abs_err"],
+                                          k2_fwd["max_abs_err"])
+
+    # ---- phase 15: coverage, card vs CPU
+    for integrator in ("plt_path", "plt_bdpt"):
+        csmall = build_scene(coverage_scene(32, integrator), device="cuda")
+        img_c, st_c = render_scene(csmall, spp=4, device="cuda",
+                                   pool_lanes=4096)
+        img_h, st_h = render_scene(csmall, spp=4, device="cpu",
+                                   pool_lanes=4096)
+        check(st_c["mode"] == st_h["mode"] == "forward-wave",
+              f"phase 15 {integrator}: mode")
+        m, c, f, r = compare_maps(img_c, img_h, f"phase 15 {integrator}")
+        print(f"phase 15: coverage 32x32 4 spe depth 4 {integrator}: cuda vs "
+              f"cpu: median ratio {m:.6f}, dB Pearson {c:.5f}, {f:.4f} of "
+              f"elements within 0.1 dB, means' ratio {r:.4f}", flush=True)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -1068,7 +1270,10 @@ def main():
                     replaces=replaces, launches=wave_launches[key],
                     launches_by_path={"wave": wave_launches[key],
                                       "classical": classical_launches[key],
-                                      "bdpt": bdpt_launches[key]},
+                                      "bdpt": bdpt_launches[key],
+                                      "coverage": cov_launches[key],
+                                      "coverage_fraunhofer":
+                                          fr_launches[key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)
@@ -1079,6 +1284,8 @@ def main():
             kstats["closest"], in_scale_render=in_render["closest"],
             need_mask_ms=k1_need[0], empty_mask_ms=k1_need[1],
             in_bdpt_render=in_bdpt["closest"],
+            in_coverage_render=in_cov["closest"],
+            in_coverage_fraunhofer_render=in_cov_fr["closest"],
             culls_off_ms=kstats["closest"]["culls_off_ms"],
             all_pairs_bound_ms=kstats["closest"]["all_pairs_bound_ms"]),
         row("any_hit", "ray_kernels.cu",
@@ -1087,6 +1294,7 @@ def main():
             in_scale_render={k: in_render[k]
                              for k in ("anyhit_legs", "anyhit_nee")},
             in_bdpt_render=in_bdpt["anyhit"],
+            in_coverage_render=in_cov["anyhit"], at_forward_width=k2_fwd,
             need_mask_ms=legs_need[0], empty_mask_ms=legs_need[1]),
         row("cone_minz", "cone_kernels.cu",
             "wave_tracer_tpu/accel/mxu_cone.py:309", "cone_minz", k3,

@@ -1,5 +1,6 @@
-"""K1/K2/K3 and the classical and wave renders on a CUDA card against the
-plain torch versions. Marked `gpu`: each test skips without a card. This file imports no
+"""K1/K2/K3 and the classical, wave and coverage renders on a CUDA card
+against the plain torch versions. Marked `gpu`: each test skips without a
+card. This file imports no
 jax, so it also runs on GPU hosts without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -289,3 +290,35 @@ def test_carried_hits_on_card(cuda, fsd):
         renderer_mod.render_pool = pool
     assert st["device_counters"] == st0["device_counters"]
     np.testing.assert_allclose(img, img0, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_anyhit_at_the_forward_layout(cuda):
+    """K2 on the calls of a forward render of the coverage scene (one
+    batch of 1,024 lanes: 51·N segments per call, three exclusions, the
+    live-lane need mask) against its plain version on the same
+    arguments: needed rows agree on >= 99.9%, unneeded rows are False."""
+    from wave_tracer_tpu_torch.scene.procedural import make_coverage_scene
+    built = build_scene(make_coverage_scene(16), device=cuda)
+    real, calls = rk.any_hit, []
+
+    def spy(*args, **kw):
+        need = args[7] if len(args) > 7 else kw["need"]
+        calls.append(([a.clone() for a in args[:7]], need.clone(),
+                      kw["table"]))
+        return real(*args, **kw)
+
+    rk.any_hit = spy
+    try:
+        img, st = render_scene(built, spp=4, device="cuda", pool_lanes=1024)
+    finally:
+        rk.any_hit = real
+    assert st["mode"] == "forward-wave" and np.isfinite(img).all()
+    assert len(calls) == 4 and sum(int(c[1].sum()) for c in calls) > 0
+    for args, need, table in calls:
+        assert args[2].shape[0] == 51 * 1024
+        ok = rk.any_hit(*args, need, table=table)
+        ref = rk._anyhit_ref(*args, need)
+        assert not ok[~need].any().item()
+        if need.any():
+            assert (ok[need] == ref[need]).float().mean().item() >= 0.999

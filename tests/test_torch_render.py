@@ -100,8 +100,7 @@ def test_pool_size_does_not_change_the_image(renders):
 
 
 class _PlaneSensor:
-    """Stands in for a virtual-plane sensor (forward coverage rendering,
-    not ported yet)."""
+    """Stands in for a sensor type the port does not render."""
     ray_trace_only = False
 
 

@@ -1,10 +1,11 @@
 """Triangle meshes as flat SoA numpy arrays (host-side, scene-build time).
 
 Port of wave_tracer_tpu/geometry/mesh.py for the shapes the procedural
-scenes use (rectangle, icosphere). Meshes are de-indexed into a flat world
-space triangle soup; vertices transform in float64; zero-area triangles are
-dropped; where all three shading normals oppose the geometric normal the
-winding is flipped; dpdu is the per-triangle surface differential.
+scenes use (rectangle, cube, icosphere). Meshes are de-indexed into a flat
+world space triangle soup; vertices transform in float64; zero-area
+triangles are dropped; where all three shading normals oppose the
+geometric normal the winding is flipped; dpdu is the per-triangle
+surface differential.
 """
 
 from __future__ import annotations
@@ -146,6 +147,30 @@ _ICO_IDX = np.array([
     [11, 10, 4], [10, 11, 6], [9, 5, 2], [5, 9, 11], [8, 7, 1], [7, 8, 10],
     [2, 5, 3], [8, 1, 3], [9, 2, 0], [1, 7, 0], [11, 9, 6], [7, 10, 6],
     [5, 11, 4], [10, 8, 4]], np.int64)
+
+
+_CUBE_POS = np.array([
+    [1, -1, -1], [1, -1, 1], [-1, -1, 1], [-1, -1, -1],
+    [1, 1, -1], [-1, 1, -1], [-1, 1, 1], [1, 1, 1],
+    [1, -1, -1], [1, 1, -1], [1, 1, 1], [1, -1, 1],
+    [1, -1, 1], [1, 1, 1], [-1, 1, 1], [-1, -1, 1],
+    [-1, -1, 1], [-1, 1, 1], [-1, 1, -1], [-1, -1, -1],
+    [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1]], np.float64)
+_CUBE_N = np.array([
+    [0, -1, 0]] * 4 + [[0, 1, 0]] * 4 + [[1, 0, 0]] * 4 +
+    [[0, 0, 1]] * 4 + [[-1, 0, 0]] * 4 + [[0, 0, -1]] * 4, np.float64)
+_CUBE_UV = np.array([[0, 1], [1, 1], [1, 0], [0, 0]] * 6, np.float64)
+_CUBE_IDX = np.array([
+    [0, 1, 2], [3, 0, 2], [4, 5, 6], [7, 4, 6], [8, 9, 10], [11, 8, 10],
+    [12, 13, 14], [15, 12, 14], [16, 17, 18], [19, 16, 18],
+    [20, 21, 22], [23, 20, 22]], np.int64)
+
+
+def cube(length: float, to_world: Transform | None = None) -> TriangleSoup:
+    """Axis-aligned cube of side `length` centred at the origin: 12
+    triangles, one flat-shaded face pair per side."""
+    return build_soup(_CUBE_POS * (length / 2.0), _CUBE_IDX, _CUBE_N,
+                      _CUBE_UV, to_world)
 
 
 def sphere(center, radius: float, to_world: Transform | None = None,

@@ -12,12 +12,15 @@ fsd=True, 256×256, 8 spp, max_depth 8) at 2^16, 2^17 and 2^18 lanes, in
 two passes of opposite order, and the box + icosphere at 4 spp once per
 width, printing paths/s. `profile` runs torch.profiler over one render
 of the wave box, the wave box + icosphere and the classical box +
-icosphere at the default pool width and prints the device time by op and
-kernel and the device's busy share of the wall time (and the bdpt box
-cell's). `cells` renders the wave box headline, the classical box
-(fsd=False, 256×256, 16 spp, max_depth 8), the classical box + icosphere
-(4 spp), the wave box + icosphere (4 spp) and the bdpt box cell at the
-default pool or batch width, in turn, CELL_READINGS times
+icosphere (8 spp) at the default pool width and prints the device time
+by op and kernel and the device's busy share of the wall time (and the
+bdpt box cell's and the two coverage cells'). `cells` renders the wave box
+headline, the classical box (fsd=False, 256×256, 16 spp, max_depth 8),
+the classical box + icosphere (8 spp, as bench.py times it), the wave
+box + icosphere (4 spp), the bdpt box cell and the two coverage cells
+(`make_coverage_scene(256)`: 256×256 elements × 8 samples, depth 4,
+plt_path with the UTD carry and plt_bdpt with the Fraunhofer forward
+mode) at the default pool or batch width, in turn, CELL_READINGS times
 each, printing every reading, for an A/B of two trees in one call (the
 cells' readings move from one to the next). Every line starts with the
 card's name and power limit. Needs a card: without one each mode exits
@@ -62,6 +65,19 @@ def bdpt_scene():
 BDPT_TAG = "bdpt box 256x256 4 spp depth 8"
 
 
+def coverage_cells():
+    """The coverage map at 256×256 elements × 8 samples, depth 4, by
+    plt_path (UTD FSD) and by plt_bdpt (Fraunhofer forward)."""
+    from wave_tracer_tpu_torch.scene.procedural import make_coverage_scene
+    out = []
+    for integrator, mode in (("plt_path", "utd"), ("plt_bdpt", "fraunhofer")):
+        scene = make_coverage_scene(256)
+        scene.integrator.type = integrator
+        out.append((f"coverage 256x256 8 spe depth 4 {integrator} ({mode})",
+                    scene))
+    return out
+
+
 def bdpt():
     from wave_tracer_tpu_torch.render import render_scene
     from wave_tracer_tpu_torch.scene import build_scene
@@ -103,15 +119,15 @@ def cells():
     from wave_tracer_tpu_torch.render import render_scene
     from wave_tracer_tpu_torch.scene import build_scene
     card = card_line()
-    built = [(tag, build_scene(scene, device="cuda")) for tag, scene in (
+    built = [(tag, build_scene(scene, device="cuda")) for tag, scene in [
         ("wave box 256x256 8 spp depth 8", wave_scene(256, 8, 8)),
         ("classical box 256x256 16 spp depth 8",
          wave_scene(256, 16, 8, fsd=False)),
-        ("classical box+icosphere 256x256 4 spp depth 8",
-         wave_scene(256, 4, 8, icosphere=True, fsd=False)),
+        ("classical box+icosphere 256x256 8 spp depth 8",
+         wave_scene(256, 8, 8, icosphere=True, fsd=False)),
         ("wave box+icosphere 256x256 4 spp depth 8",
          wave_scene(256, 4, 8, icosphere=True)),
-        (BDPT_TAG, bdpt_scene()))]
+        (BDPT_TAG, bdpt_scene())] + coverage_cells()]
     for _, b in built:
         render_scene(b, spp=1, device="cuda")              # warm-up
     for _ in range(CELL_READINGS):
@@ -139,13 +155,13 @@ def profile():
     from wave_tracer_tpu_torch.render import render_scene
     from wave_tracer_tpu_torch.scene import build_scene
     card = card_line()
-    for tag, scene in (("wave box 256x256 8 spp depth 8",
+    for tag, scene in [("wave box 256x256 8 spp depth 8",
                         wave_scene(256, 8, 8)),
                        ("wave box+icosphere 256x256 4 spp depth 8",
                         wave_scene(256, 4, 8, icosphere=True)),
-                       ("classical box+icosphere 256x256 4 spp depth 8",
-                        wave_scene(256, 4, 8, icosphere=True, fsd=False)),
-                       (BDPT_TAG, bdpt_scene())):
+                       ("classical box+icosphere 256x256 8 spp depth 8",
+                        wave_scene(256, 8, 8, icosphere=True, fsd=False)),
+                       (BDPT_TAG, bdpt_scene())] + coverage_cells():
         built = build_scene(scene, device="cuda")
         render_scene(built, spp=1, device="cuda")          # warm-up
         torch.cuda.synchronize()

@@ -1,6 +1,7 @@
-"""Render orchestration: backward rendering of a perspective sensor.
+"""Render orchestration: backward rendering of a perspective sensor, forward
+rendering of a virtual-plane coverage sensor.
 
-Port of wave_tracer_tpu/render/renderer.py for backward rendering. The
+Port of wave_tracer_tpu/render/renderer.py. For a perspective sensor the
 integrator `plt_path` — with free-space diffraction on (the wave bounce,
 when the scene has wedge edges) or off (the classical bounce), or in
 ray-trace-only mode — runs through the compacted pool
@@ -8,8 +9,13 @@ ray-trace-only mode — runs through the compacted pool
 runs the batched renderer (`Renderer._render_backward`): lanes are pixel
 batch × spp batch, each batch one `trace_bdpt` call whose camera values
 splat into the film and whose light-tracing values splat into its light
-image, developed by the samples per pixel. Virtual-plane sensors raise
-NotImplementedError.
+image, developed by the samples per pixel. A virtual-plane sensor renders
+by forward light tracing (`Renderer._render_forward` of the JAX package),
+whatever the integrator: batches of `pool_lanes` lanes, lane ids 0..n−1
+and sample id = the batch index, each batch one `trace_forward` call
+(UTD FSD under plt_path, Fraunhofer under plt_bdpt) whose crossings and
+FSD-NEE connections splat into the light image, developed by the samples
+per element. Other sensors raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import torch
 from wave_tracer_tpu_torch.integrator import path as path_mod
 from wave_tracer_tpu_torch.integrator.path_compact import render_pool
 from wave_tracer_tpu_torch.integrator.plt_bdpt import trace_bdpt
+from wave_tracer_tpu_torch.integrator.plt_path_forward import trace_forward
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
 from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
+from wave_tracer_tpu_torch.sensor.virtual_plane import VirtualPlaneSensor
 
 # default lane-pool sizes. On the card a pool step costs a few thousand
 # small torch launches whatever its width (most of them the int64 Sobol
@@ -41,7 +49,9 @@ POOL_LANES_CPU = 1 << 13
 # default lanes per bdpt batch. A lane holds two stored subpaths of up to
 # max_depth vertices, each with its Fraunhofer aperture slots (about 15 KB
 # at depth 8); every draw is keyed by (pixel, sample), so the batch width
-# changes no pixel. On the CPU the JAX package's test-sized batches.
+# changes no pixel. On the CPU the JAX package's test-sized batches. The
+# forward renderer takes the same widths: there a draw is keyed by (lane,
+# batch), so the width does change the image, as in the JAX package.
 BDPT_LANES_CUDA = 1 << 18
 BDPT_LANES_CPU = 1 << 12
 # the JAX renderer's ceiling on the edge count for FSD. Above 2048 edges
@@ -70,7 +80,8 @@ class Renderer:
     seed: int = 0
     device: str = "cuda"           # never falls back to the CPU by itself
     # lanes per launch: the pool width of plt_path, the batch width of
-    # plt_bdpt. None: POOL_LANES_* / BDPT_LANES_* for the device
+    # plt_bdpt and of forward rendering. None: POOL_LANES_* /
+    # BDPT_LANES_* for the device
     pool_lanes: int | None = None
 
     def render_sensor(self, sensor_index: int = 0, spp: int | None = None):
@@ -82,10 +93,21 @@ class Renderer:
             built = built.on(device)
         scene = built.scene
         sensor = scene.sensors[sensor_index]
-        if not isinstance(sensor, PerspectiveSensor):
+        if not isinstance(sensor, (PerspectiveSensor, VirtualPlaneSensor)):
             raise NotImplementedError(
                 f"{type(sensor).__name__} sensors are not ported yet")
         cfg = scene.integrator
+        spp = spp or sensor.samples
+        data = dataclasses.replace(
+            built.data, spectral=built.spectral_per_sensor[sensor_index])
+        if isinstance(sensor, VirtualPlaneSensor):
+            return self._render_forward(data, sensor, spp, cfg,
+                                        1e-4 * scene.world_radius(), device)
+        if built.data.tables.materials.has_spm:
+            raise NotImplementedError(
+                "surface_spm materials render through forward transport "
+                "(virtual-plane sensors) only: their backward transport is "
+                "not ported yet")
         trace_only = sensor.ray_trace_only or cfg.ray_trace_only
         if cfg.type not in ("plt_path", "plt_bdpt") and not trace_only:
             raise NotImplementedError(f"{cfg.type} is not ported yet")
@@ -94,9 +116,6 @@ class Renderer:
         n_edges = built.data.edges.count
         fsd_on = (cfg.fsd and not trace_only
                   and 0 < n_edges <= MAX_FSD_EDGES)
-        spp = spp or sensor.samples
-        data = dataclasses.replace(
-            built.data, spectral=built.spectral_per_sensor[sensor_index])
         W, H = sensor.width, sensor.height
         film = film_mod.make_film(W, H, sensor.response.channels,
                                   sensor.rfilter_sigma, device=device)
@@ -155,6 +174,48 @@ class Renderer:
         dt = time.perf_counter() - t0
         return img, _stats(dt, npix * spp, "bdpt", spp,
                            pix_per_batch * spp_per_batch, stats)
+
+    def _render_forward(self, data, sensor, spp, cfg, eps, device):
+        """Forward light tracing onto a virtual-plane sensor: spp·W·H
+        paths in batches of `pool_lanes` lanes (lane ids 0..n−1, sample
+        id the batch index, as the JAX package's forward kernel draws
+        them; its lanes past the end, masked off there, are not traced
+        here). Crossings splat as Gaussian beams and FSD-NEE connections
+        as points into the light image, developed by the samples per
+        element."""
+        W, H = sensor.width, sensor.height
+        C = sensor.response.channels \
+            * (4 if getattr(sensor, "polarimetric", False) else 1)
+        film = film_mod.make_film(W, H, C, sensor.rfilter_sigma,
+                                  device=device)
+        wave = cfg.fsd and 0 < data.edges.count <= MAX_FSD_EDGES
+        fsd_mode = "fraunhofer" if cfg.type == "plt_bdpt" else "utd"
+        lanes = self.pool_lanes or (
+            BDPT_LANES_CUDA if device.type == "cuda" else BDPT_LANES_CPU)
+        base_key = rng.make_base_key(self.seed)
+        total = spp * W * H
+        t0 = time.perf_counter()
+        done = batch = 0
+        while done < total:
+            n = min(lanes, total - done)
+            ids = torch.arange(n, dtype=torch.int32, device=device)
+            pos, values, ok, sig, (nee_pos, nee_val, nee_ok) = trace_forward(
+                data, ids, base_key, torch.full_like(ids, batch),
+                sensor=sensor, edge_table=data.edges,
+                max_depth=cfg.max_depth, eps=eps, fsd=wave,
+                fsd_mode=fsd_mode)
+            film_mod.splat_direct_gaussian(film, pos, sig, values, ok)
+            film_mod.splat_direct(film, nee_pos, nee_val, nee_ok)
+            done += n
+            batch += 1
+        spe = done / float(W * H)
+        img = film_mod.develop(film, spe).cpu().numpy()  # waits for the device
+        dt = time.perf_counter() - t0
+        return img, dict(seconds=dt, paths=done,
+                         paths_per_sec=done / max(dt, 1e-9),
+                         mode="forward-wave" if wave else "forward",
+                         spp_done=spe, interrupted=False, pool_lanes=lanes,
+                         batches=batch)
 
 
 def _stats(dt, paths, mode, spp, lanes, stats):

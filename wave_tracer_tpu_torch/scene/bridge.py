@@ -10,10 +10,11 @@ Keys the port does not read (BVH nodes, Pallas feature layouts, edge and
 triangle clusters) are ignored: the kernel rows are rebuilt here from
 p0/e1/e2/mxu_center.
 
-Rows the port cannot render (materials other than diffuse/null, opacity
-masks, normal maps, composite materials, bitmap/checker textures, spot or
-directional emitters) raise NotImplementedError here rather than render
-wrongly.
+Rows the port cannot render (dielectric and composite materials, opacity
+masks, normal maps, bitmap/checker textures, spot or directional
+emitters) raise NotImplementedError here rather than render wrongly;
+diffuse, surface_spm and null rows load, with the complex-IOR table
+(`tables.cspectra.*`) that SPM rows read.
 """
 
 from __future__ import annotations
@@ -30,13 +31,15 @@ from wave_tracer_tpu_torch.bsdf import table as mtab
 from wave_tracer_tpu_torch.bsdf.device import Tables
 from wave_tracer_tpu_torch.emitter import table as etab
 from wave_tracer_tpu_torch.scene.spectral import SpectralSampler
-from wave_tracer_tpu_torch.spectrum.bake import SpectrumTable
+from wave_tracer_tpu_torch.spectrum.bake import (ComplexSpectrumTable,
+                                                 SpectrumTable)
 from wave_tracer_tpu_torch.texture import texture as tex
 
 GEO_KEYS = ("p0", "e1", "e2", "tri_geom", "tri_attr", "mxu_center")
 MATERIAL_KEYS = ("pack", "comp_child")
 TEXTURE_KEYS = ("pack",)
 SPECTRA_KEYS = ("vals", "log_kmin", "log_kmax")
+CSPECTRA_KEYS = ("n", "kappa", "log_kmin", "log_kmax")
 EMITTER_KEYS = ("pack", "etype", "spec_id", "power", "area_total",
                 "etri_idx", "etri_cdf", "scene_radius", "dir", "cos_cutoff",
                 "pse_scale")
@@ -47,6 +50,7 @@ KEYS = tuple([f"geo.{k}" for k in GEO_KEYS]
              + [f"tables.materials.{k}" for k in MATERIAL_KEYS]
              + [f"tables.textures.{k}" for k in TEXTURE_KEYS]
              + [f"tables.spectra.{k}" for k in SPECTRA_KEYS]
+             + [f"tables.cspectra.{k}" for k in CSPECTRA_KEYS]
              + [f"emitters.{k}" for k in EMITTER_KEYS]
              + [f"spectral.{k}" for k in SPECTRAL_KEYS]
              + [f"edges.{k}" for k in EDGE_KEYS])
@@ -65,9 +69,11 @@ class SceneData:
 def _check_ported(a):
     pack = a["tables.materials.pack"]
     mtype = pack[:, mtab.C_MTYPE].astype(np.int32)
-    if not np.isin(mtype, (mtab.MT_DIFFUSE, mtab.MT_NULL)).all():
+    if not np.isin(mtype, (mtab.MT_DIFFUSE, mtab.MT_SPM,
+                           mtab.MT_NULL)).all():
         raise NotImplementedError(
-            "dielectric and surface_spm materials are not ported yet")
+            "dielectric materials are not ported yet (the port renders "
+            "diffuse, surface_spm and null materials)")
     if (pack[:, mtab.C_OPACITY_TEX] >= 0).any() \
             or (pack[:, mtab.C_NORMALMAP_TEX] >= 0).any():
         raise NotImplementedError(
@@ -104,13 +110,18 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
                     tri_feat=ray_kernels.tri_features(p0, e1, e2, center))
     tpack = a["tables.textures.pack"]
     tables = Tables(
-        materials=mtab.MaterialTable(pack=t("tables.materials.pack", f32)),
+        materials=mtab.MaterialTable(
+            pack=t("tables.materials.pack", f32),
+            has_spm=bool((a["tables.materials.pack"][:, mtab.C_MTYPE]
+                          == mtab.MT_SPM).any())),
         textures=tex.TextureTable(
             pack=t("tables.textures.pack", f32),
             has_rgb=bool((tpack[:, tex.C_TYPE] == tex.TYPE_CONST_RGB).any())),
         spectra=SpectrumTable(vals=t("tables.spectra.vals", f32),
                               log_kmin=t("tables.spectra.log_kmin", f32),
-                              log_kmax=t("tables.spectra.log_kmax", f32)))
+                              log_kmax=t("tables.spectra.log_kmax", f32)),
+        cspectra=ComplexSpectrumTable(
+            **{k: t(f"tables.cspectra.{k}", f32) for k in CSPECTRA_KEYS}))
     emitters = etab.EmitterTable(
         pack=t("emitters.pack", f32), etype=t("emitters.etype", i32),
         spec_id=t("emitters.spec_id", i32), power=t("emitters.power", f32),

@@ -1,11 +1,13 @@
 """Scene → device bake: one flat dict of numpy arrays, then SceneData.
 
 Port of wave_tracer_tpu/scene/build.py for the ported subset. Collects
-every spectrum, texture and material reachable from the host scene,
-assigns table rows, merges all shapes into one triangle soup (kept in soup
-order: the all-pairs kernels need no BVH), classifies its wedge edges for
-free-space diffraction, and bakes the emitter and spectral-sampling tables into a dict keyed like the JAX SceneData
-(scene/bridge.py), which `scene_data_from_numpy` uploads.
+every spectrum, complex spectrum, texture and material reachable from the
+host scene (and the sensors' response spectra), assigns table rows,
+merges all shapes into one triangle soup (kept in soup order: the
+all-pairs kernels need no BVH), classifies its wedge edges for free-space
+diffraction, and bakes the emitter and spectral-sampling tables into a
+dict keyed like the JAX SceneData (scene/bridge.py), which
+`scene_data_from_numpy` uploads.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from wave_tracer_tpu_torch.scene.bridge import (SceneData,
                                                 spectral_from_numpy)
 from wave_tracer_tpu_torch.scene.model import Scene
 from wave_tracer_tpu_torch.scene.spectral import build_spectral_sampler
-from wave_tracer_tpu_torch.spectrum.bake import bake_spectra
+from wave_tracer_tpu_torch.spectrum.bake import bake_complex, bake_spectra
 from wave_tracer_tpu_torch.texture.texture import bake_textures
 
 
@@ -56,14 +58,20 @@ class BuiltScene:
 
 
 def _collect(scene: Scene):
-    """Register spectra, textures and materials (first-seen order)."""
-    spectra, textures, materials = [], [], []
-    sp_ids, tex_ids = {}, {}
+    """Register spectra, complex spectra, textures and materials
+    (first-seen order, as the JAX package registers them)."""
+    spectra, cspectra, textures, materials = [], [], [], []
+    sp_ids, csp_ids, tex_ids = {}, {}, {}
 
     def add_spec(s):
         if s is not None and id(s) not in sp_ids:
             sp_ids[id(s)] = len(spectra)
             spectra.append(s)
+
+    def add_cspec(s):
+        if s is not None and id(s) not in csp_ids:
+            csp_ids[id(s)] = len(cspectra)
+            cspectra.append(s)
 
     def add_tex(t):
         if t is not None and id(t) not in tex_ids:
@@ -78,20 +86,32 @@ def _collect(scene: Scene):
         materials.append(m)
         add_tex(m.opacity)
         add_tex(m.normalmap)
-        if isinstance(m.bsdf, bmodel.DiffuseBSDF):
-            add_tex(m.bsdf.reflectance)
+        b = m.bsdf
+        if isinstance(b, bmodel.DiffuseBSDF):
+            add_tex(b.reflectance)
+        elif isinstance(b, bmodel.SpmBSDF):
+            add_cspec(b.ior)
+            add_cspec(b.ext_ior)
+            add_spec(b.reflection_scale)
+            add_spec(b.transmission_scale)
+            add_tex(b.profile.roughness)
 
     for shape in scene.shapes:
         add_mat(shape.material)
     for em in scene.emitters:
         add_spec(em.spectrum)
-    return spectra, sp_ids, textures, tex_ids, materials
+    for sensor in scene.sensors:
+        add_spec(sensor.response.spectrum)
+        for cs in sensor.response.channel_spectra:
+            add_spec(cs)
+    return spectra, sp_ids, cspectra, csp_ids, textures, tex_ids, materials
 
 
 def bake_scene_arrays(scene: Scene):
     """Host bake → (flat dict of numpy arrays keyed as in scene/bridge.py,
     list of per-sensor spectral-sampler dicts)."""
-    spectra, sp_ids, textures, tex_ids, materials = _collect(scene)
+    (spectra, sp_ids, cspectra, csp_ids, textures, tex_ids,
+     materials) = _collect(scene)
     mat_row = {id(m): i for i, m in enumerate(materials)}
 
     soups, mat_id, shape_id, emitter_id = [], [], [], []
@@ -122,7 +142,9 @@ def bake_scene_arrays(scene: Scene):
                                    np.concatenate(shape_id), emitter_id))
     put("tables.spectra", bake_spectra(spectra))
     put("tables.textures", bake_textures(textures, sp_ids))
-    put("tables.materials", bake_materials(materials, tex_ids))
+    put("tables.cspectra", bake_complex(cspectra))
+    put("tables.materials", bake_materials(materials, tex_ids, sp_ids,
+                                           csp_ids))
     put("emitters", bake_emitters(scene.emitters, sp_ids, emitter_id,
                                   soup.areas(),
                                   scene_radius=scene.world_radius()))

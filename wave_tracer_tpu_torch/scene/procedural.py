@@ -1,5 +1,12 @@
 """Procedural scenes built from code alone (no scene files needed).
 
+`make_coverage_scene` is the port's copy of the JAX package's GHz
+coverage test scene (tests/test_coverage.py::make_coverage_scene): a
+10 GHz point transmitter 8 m up, an 8×6×8 m building of ITU-R P.2040
+concrete (surface_spm with a fractal profile) and a 60 m concrete ground,
+seen by a 50×50 m virtual-plane sensor 1 m above the ground with a
+monochromatic response and a dB tonemap, rendered by plt_path at depth 4.
+
 `make_box_scene` is the port's twin of the test scene
 tests/test_render.py::make_box_scene of the JAX package: a 2 m diffuse box
 open at +z (white floor, ceiling and back wall, red left and green right
@@ -15,7 +22,8 @@ import math
 
 import numpy as np
 
-from wave_tracer_tpu_torch.bsdf.model import DiffuseBSDF, Material
+from wave_tracer_tpu_torch.bsdf.model import (DiffuseBSDF, Material,
+                                              SpmBSDF, SurfaceProfile)
 from wave_tracer_tpu_torch.core.transform import Transform
 from wave_tracer_tpu_torch.emitter.model import AreaEmitter, PointEmitter
 from wave_tracer_tpu_torch.geometry import mesh
@@ -23,7 +31,11 @@ from wave_tracer_tpu_torch.scene.model import IntegratorConfig, Scene, Shape
 from wave_tracer_tpu_torch.sensor.perspective import (PerspectiveSensor,
                                                       lookat_matrix)
 from wave_tracer_tpu_torch.sensor.response import Response
+from wave_tracer_tpu_torch.sensor.tonemap import Tonemap
+from wave_tracer_tpu_torch.sensor.virtual_plane import VirtualPlaneSensor
+from wave_tracer_tpu_torch.spectrum.ior import C_LIGHT, ITUComplexSpectrum
 from wave_tracer_tpu_torch.spectrum.spectra import (BlackbodySpectrum,
+                                                    DiscreteSpectrum,
                                                     RGBSpectrum,
                                                     UniformSpectrum)
 from wave_tracer_tpu_torch.texture.texture import ConstantSpectrumTexture
@@ -84,3 +96,35 @@ def make_box_scene(res=32, spp=8, emitter="area", icosphere=False):
                                        white_point="D65"))
     return Scene(shapes=shapes, emitters=emitters, sensors=[sensor],
                  integrator=IntegratorConfig(max_depth=5))
+
+
+def make_coverage_scene(res=64):
+    """A street-canyon coverage map at 10 GHz: res×res sensing elements
+    over 50×50 m, 8 samples per element."""
+    k0 = 2 * np.pi / (C_LIGHT / 10e9)       # 10 GHz → λ = 3 cm
+    concrete = Material(
+        bsdf=SpmBSDF(ior=ITUComplexSpectrum("concrete"),
+                     profile=SurfaceProfile(type="fractal", gamma=3.0,
+                                            T=400.0, sigma=0.02)),
+        twosided=True, name="concrete")
+    # a building slab between the transmitter and half the map
+    building = Shape(mesh.cube(1.0, Transform.from_rows(
+        [8, 0, 0, 0, 0, 6, 0, 3, 0, 0, 8, -10, 0, 0, 0, 1])), concrete)
+    ground = Shape(mesh.rectangle(60.0, Transform.from_rows(
+        [1, 0, 0, 0, 0, 0, 1, -0.01, 0, -1, 0, 0, 0, 0, 0, 1])), concrete)
+    tx = PointEmitter(
+        spectrum=DiscreteSpectrum(np.array([k0]), np.array([100.0])),
+        position=np.array([0.0, 8.0, 10.0]))
+    sensor = VirtualPlaneSensor(
+        width=res, height=res, extent=(50.0, 50.0),
+        # the plane faces the transmitter (sensing accepts cos_in > 0)
+        to_world=lookat_matrix([0, 1.0, 0], [0, 10.0, 0], up=[0, 0, 1]),
+        samples=8,
+        response=Response(type="monochromatic",
+                          spectrum=DiscreteSpectrum(np.array([k0]),
+                                                    np.array([1.0])),
+                          tonemap=Tonemap(type="dB", db_min=-120,
+                                          db_max=-40)))
+    return Scene(shapes=[building, ground], emitters=[tx],
+                 sensors=[sensor],
+                 integrator=IntegratorConfig(type="plt_path", max_depth=4))

@@ -147,14 +147,32 @@ def build_spectral_sampler(emitters, sensitivity: Spectrum) -> dict:
     n_lines = np.zeros(E, np.int32)
 
     s_lo, s_hi = sensitivity.krange()
-    if getattr(sensitivity, "is_discrete", False):
-        raise NotImplementedError(
-            "discrete sensor sensitivities are not ported yet")
+    sens_discrete = getattr(sensitivity, "is_discrete", False)
     for i, em in enumerate(emitters):
         spec = em.spectrum
+        if sens_discrete and not spec.is_discrete:
+            # line sensitivity × continuous emitter → lines at the
+            # sensitivity's wavenumbers weighted by the emitter density
+            sk, sw = sensitivity.lines()
+            w = np.asarray(spec.eval(sk)) * sw
+            n = min(len(sk), LMAX)
+            line_k[i, :n] = sk[:n]
+            line_w[i, :n] = np.maximum(w[:n], 0.0)
+            n_lines[i] = n
+            e_w[i] = max(line_w[i, :n].sum(), 1e-30)
+            continue
         if spec.is_discrete:
-            raise NotImplementedError(
-                "discrete emitter spectra are not ported yet")
+            ks, ws = spec.lines()
+            sens = sensitivity.eval(ks)
+            # lines outside the sensitivity keep their power: a discrete
+            # monochromatic response accepts exactly these lines
+            w = ws * np.where(sens > 0, sens, 1.0)
+            n = min(len(ks), LMAX)
+            line_k[i, :n] = ks[:n]
+            line_w[i, :n] = np.maximum(w[:n], 1e-30)
+            n_lines[i] = n
+            e_w[i] = line_w[i, :n].sum()
+            continue
         e_lo, e_hi = spec.krange()
         lo = max(e_lo, s_lo)
         hi = min(e_hi, s_hi)

@@ -1,13 +1,14 @@
 """Film: 2D accumulation buffers with Gaussian reconstruction splats.
 
 Port of wave_tracer_tpu/sensor/film.py (make_film, splat, splat_direct,
-develop). Each sample splats into a (2r+1)² window with per-pixel
-Gaussian-integrated weights; light-tracing samples splat into the
-nearest texel of a separate light image (`direct`), normalized by the
-samples per element at develop time. Unlike the functional JAX film, the
-splats update the film's tensors in place (`index_add_` / `index_put_`)
-and return the film. The Gaussian direct splat of virtual-plane sensors
-is not ported yet.
+splat_direct_gaussian, develop). Each sample splats into a (2r+1)² window
+with per-pixel Gaussian-integrated weights; light-tracing samples splat
+into a separate light image (`direct`): the nearest texel, or, for the
+beams that reach a virtual-plane sensor, a renormalized 5×5 Gaussian
+window. The light image is normalized by the samples per element at
+develop time. Unlike the functional JAX film, the splats update the
+film's tensors in place with one flat `index_add_` each and return the
+film.
 """
 
 from __future__ import annotations
@@ -95,6 +96,39 @@ def splat_direct(film: Film, pos, values, mask) -> Film:
     ix = pos[:, 0].to(torch.int64).clamp(0, W - 1)
     iy = pos[:, 1].to(torch.int64).clamp(0, H - 1)
     film.direct.view(H * W, C).index_add_(0, iy * W + ix, values[keep])
+    return film
+
+
+def splat_direct_gaussian(film: Film, pos, sigma_px, values, mask,
+                          radius: int = 2) -> Film:
+    """Gaussian-weighted direct splat: each beam's wavefront over the
+    (2·radius+1)² elements around pos (N, 2), σ (N,) in element units
+    (clipped to [0.05, radius]); the weights renormalize over the window
+    (the part inside the film), so the deposited power is conserved.
+    Lanes masked off or with a non-finite value deposit nothing."""
+    H, W, C = film.direct.shape
+    keep = mask & torch.isfinite(values).all(-1)
+    pos, vals = pos[keep], values[keep]
+    sig = sigma_px[keep].clamp(0.05, float(radius))
+    px = pos[:, 0] - 0.5
+    py = pos[:, 1] - 0.5
+    ix = torch.floor(px).long()
+    iy = torch.floor(py).long()
+    offs = torch.arange(-radius, radius + 1, device=pos.device)
+    yy = iy[:, None] + offs[None, :]
+    xx = ix[:, None] + offs[None, :]
+    d2 = (xx.to(torch.float32)[:, None, :] - px[:, None, None]) ** 2 \
+        + (yy.to(torch.float32)[:, :, None] - py[:, None, None]) ** 2
+    w = torch.exp(-0.5 * d2 / (sig * sig)[:, None, None])
+    inside = (yy[:, :, None] >= 0) & (yy[:, :, None] < H) \
+        & (xx[:, None, :] >= 0) & (xx[:, None, :] < W)
+    w = torch.where(inside, w, 0.0)
+    w = w / w.sum((1, 2)).clamp_min(1e-12)[:, None, None]
+    fidx = (yy.clamp(0, H - 1)[:, :, None] * W
+            + xx.clamp(0, W - 1)[:, None, :]).reshape(-1)
+    K2 = offs.shape[0] ** 2
+    film.direct.view(H * W, C).index_add_(
+        0, fidx, w.reshape(-1)[:, None] * vals.repeat_interleave(K2, dim=0))
     return film
 
 

@@ -2,9 +2,13 @@
 
 Port of wave_tracer_tpu/spectrum/bake.py. Host `Spectrum` objects bake at
 scene-build time into flat numpy arrays (one log-spaced wavenumber grid
-per spectrum); on the device a lookup is one gather pair plus a lerp.
-Also the device evaluation of response sensitivities (CIE CMFs, Smits RGB
-uplift) as elementwise torch math.
+per spectrum); on the device a lookup is one gather pair plus a lerp. A
+discrete spectrum bakes its line weights into the grid cells around each
+line, so a lookup at a sampled line returns its weight. Complex spectra
+(refractive indices) bake n and κ the same way (`bake_complex`), and
+`ComplexSpectrumTable.eval` returns η = n + iκ as complex64. Also the
+device evaluation of response sensitivities (CIE CMFs, Smits RGB uplift)
+as elementwise torch math.
 """
 
 from __future__ import annotations
@@ -15,8 +19,9 @@ import numpy as np
 import torch
 
 from wave_tracer_tpu_torch.spectrum import cie
-from wave_tracer_tpu_torch.spectrum.spectra import (Spectrum, _SMITS,
-                                                    _SMITS_LAM, TWO_PI)
+from wave_tracer_tpu_torch.spectrum.spectra import (ComplexSpectrum, Spectrum,
+                                                    _SMITS, _SMITS_LAM,
+                                                    TWO_PI)
 
 K_RES = 192   # grid points per baked spectrum
 
@@ -45,6 +50,37 @@ class SpectrumTable:
                            torch.zeros_like(t))
 
 
+def _grid_index(log_kmin, log_kmax, cid, k):
+    """(row, cell, frac) of wavenumber k (...,) in row cid's log grid,
+    clamped to the grid's ends."""
+    cid = cid.clamp_min(0).long()
+    lk = torch.log(k.clamp_min(1e-30))
+    lo = log_kmin[cid]
+    hi = log_kmax[cid]
+    t = ((lk - lo) / (hi - lo).clamp_min(1e-12) * (K_RES - 1)).clamp(
+        0.0, K_RES - 1.0)
+    i0 = t.to(torch.int32).clamp(0, K_RES - 2).long()
+    return cid, i0, t - i0.to(t.dtype)
+
+
+@dataclass
+class ComplexSpectrumTable:
+    """Baked complex IOR spectra η(k) = n + iκ, row c log-spaced over
+    [kmin[c], kmax[c]] and clamped to its ends."""
+    n: torch.Tensor         # (C, K_RES)
+    kappa: torch.Tensor     # (C, K_RES)
+    log_kmin: torch.Tensor  # (C,)
+    log_kmax: torch.Tensor  # (C,)
+
+    def eval(self, cid, k):
+        """η of row cid (...,) int at wavenumber k (...,) → complex64."""
+        cid, i0, frac = _grid_index(self.log_kmin, self.log_kmax, cid, k)
+        n = self.n[cid, i0] * (1 - frac) + self.n[cid, i0 + 1] * frac
+        kap = self.kappa[cid, i0] * (1 - frac) \
+            + self.kappa[cid, i0 + 1] * frac
+        return torch.complex(n, kap)
+
+
 def bake_spectra(specs: list[Spectrum]) -> dict:
     """Host bake → {"vals", "log_kmin", "log_kmax"} numpy arrays."""
     S = max(len(specs), 1)
@@ -52,17 +88,51 @@ def bake_spectra(specs: list[Spectrum]) -> dict:
     lo = np.zeros(S, np.float32)
     hi = np.ones(S, np.float32)
     for i, s in enumerate(specs):
-        if s.is_discrete:
-            raise NotImplementedError(
-                "discrete spectra are not ported yet")
         kmin, kmax = s.krange()
         kmin = max(kmin, 1e-9)
         kmax = max(kmax, kmin * (1 + 1e-6))
-        grid = np.geomspace(kmin, kmax, K_RES)
-        vals[i] = s.eval(grid)
+        if s.is_discrete:
+            # line WEIGHTS, not densities: a lookup at a sampled line
+            # returns w_i, which the line pmf of the sampler cancels
+            kmin = kmin * (1.0 - 1e-3)
+            kmax = kmax * (1.0 + 1e-3)
+            grid = np.geomspace(kmin, kmax, K_RES)
+            row = np.zeros(K_RES)
+            for kl, wl in zip(*s.lines()):
+                j = np.searchsorted(grid, kl)
+                row[max(j - 1, 0)] = max(row[max(j - 1, 0)], wl)
+                row[min(j, K_RES - 1)] = max(row[min(j, K_RES - 1)], wl)
+            vals[i] = row
+        else:
+            grid = np.geomspace(kmin, kmax, K_RES)
+            vals[i] = s.eval(grid)
         lo[i] = np.log(kmin)
         hi[i] = np.log(kmax)
     return dict(vals=vals, log_kmin=lo, log_kmax=hi)
+
+
+def bake_complex(specs: list[ComplexSpectrum],
+                 k_hint: tuple[float, float] = (1.0, 3e7)) -> dict:
+    """Host bake of complex spectra → {"n", "kappa", "log_kmin",
+    "log_kmax"} numpy arrays: a tabulated spectrum over its own nodes'
+    range, any other over `k_hint` (radio to optical wavenumbers)."""
+    C = max(len(specs), 1)
+    n = np.ones((C, K_RES), np.float32)
+    kap = np.zeros((C, K_RES), np.float32)
+    lo = np.zeros(C, np.float32)
+    hi = np.ones(C, np.float32)
+    for i, s in enumerate(specs):
+        kmin, kmax = k_hint
+        if hasattr(s, "k_nodes"):
+            kmin, kmax = float(s.k_nodes[0]), float(s.k_nodes[-1])
+        kmin = max(kmin, 1e-9)
+        grid = np.geomspace(kmin, kmax, K_RES)
+        eta = s.eval(grid)
+        n[i] = np.real(eta)
+        kap[i] = np.imag(eta)
+        lo[i] = np.log(kmin)
+        hi[i] = np.log(kmax)
+    return dict(n=n, kappa=kap, log_kmin=lo, log_kmax=hi)
 
 
 _SMITS_NP = np.stack([

@@ -1,9 +1,11 @@
 """Host-side spectrum models (numpy, scene-build time).
 
 Port of wave_tracer_tpu/spectrum/spectra.py for the spectra the ported
-scenes use: uniform, blackbody and RGB (Smits-basis uplift). The spectral
-variable is the wavenumber k = 2π/λ in rad/m; real spectra are densities
-over k whose integral is the total power.
+scenes use: uniform, blackbody, RGB (Smits-basis uplift) and discrete
+(weighted Dirac combs), and the complex spectra of refractive indices
+(uniform and tabulated; spectrum/ior.py adds the ITU-R P.2040 materials).
+The spectral variable is the wavenumber k = 2π/λ in rad/m; real spectra
+are densities over k whose integral is the total power.
 """
 
 from __future__ import annotations
@@ -145,3 +147,71 @@ class RGBSpectrum(Spectrum):
     def krange(self):
         return (TWO_PI / (_SMITS_LAM[1] * 1e-9),
                 TWO_PI / (_SMITS_LAM[0] * 1e-9))
+
+
+@dataclass
+class DiscreteSpectrum(Spectrum):
+    """Weighted Dirac comb: lines at k_i with per-line power w_i."""
+    k_lines: np.ndarray
+    weights: np.ndarray
+    is_discrete = True
+
+    def __post_init__(self):
+        self.k_lines = np.atleast_1d(np.asarray(self.k_lines, np.float64))
+        self.weights = np.atleast_1d(np.asarray(self.weights, np.float64))
+
+    def eval(self, k):
+        return np.zeros_like(np.asarray(k, np.float64))
+
+    def lines(self):
+        return self.k_lines, self.weights
+
+    def krange(self):
+        return (float(self.k_lines.min()), float(self.k_lines.max()))
+
+    def power(self):
+        return float(self.weights.sum())
+
+    def mean_wavenumber(self):
+        return float(np.sum(self.k_lines * self.weights)
+                     / max(self.weights.sum(), 1e-300))
+
+
+# ---------------------------------------------------------------------------
+# complex spectra (refractive indices)
+# ---------------------------------------------------------------------------
+
+class ComplexSpectrum:
+    """A complex-valued function of wavenumber (IOR η = n + iκ)."""
+
+    def eval(self, k: np.ndarray) -> np.ndarray:  # complex128
+        raise NotImplementedError
+
+
+@dataclass
+class ComplexUniformSpectrum(ComplexSpectrum):
+    """Constant complex IOR."""
+    value: complex
+
+    def eval(self, k):
+        return np.full(np.shape(np.asarray(k)), self.value, np.complex128)
+
+
+@dataclass
+class ComplexTabulatedSpectrum(ComplexSpectrum):
+    """Tabulated n, κ against wavenumber, linearly interpolated."""
+    k_nodes: np.ndarray    # sorted ascending
+    n: np.ndarray
+    kappa: np.ndarray
+
+    def __post_init__(self):
+        order = np.argsort(self.k_nodes)
+        self.k_nodes = np.asarray(self.k_nodes, np.float64)[order]
+        self.n = np.asarray(self.n, np.float64)[order]
+        self.kappa = np.asarray(self.kappa, np.float64)[order]
+
+    def eval(self, k):
+        k = np.asarray(k, np.float64)
+        n = np.interp(k, self.k_nodes, self.n)
+        kap = np.interp(k, self.k_nodes, self.kappa)
+        return n + 1j * kap

@@ -443,7 +443,7 @@ def wo_to_xi(wol, scale):
 # ---------------------------------------------------------------------------
 
 def build_aperture_3d(edges, idx, origin, rd, fx, fy, sigma_m, r_env, k,
-                      subdiv: int = 4):
+                      subdiv: int = 4, curv=None):
     """Project queried edges into the beam cross-section and assemble the
     canonical aperture.
 
@@ -454,6 +454,10 @@ def build_aperture_3d(edges, idx, origin, rd, fx, fy, sigma_m, r_env, k,
     filter dot(d,n1)·dot(d,n2) < 0 → projection onto the cross-section →
     clip to the envelope circle → `subdiv` segments with Gaussian-
     wavefront amplitudes at the split points → canonical mm units.
+    curv (N,) optional [rad/m²]: a quadratic wavefront phase, the
+    amplitudes gain e^{i·curv·|u|²} with u the cross-section offset [m]
+    (k/2·(1/R_src + 1/L_det) pins the fringes of every beam of a source
+    cone to one place on a detector at distance L_det).
     Returns (aperture with K·subdiv slots, scale = k·fsd_unit)."""
     N, K = idx.shape
     ok = idx >= 0
@@ -493,6 +497,9 @@ def build_aperture_3d(edges, idx, origin, rd, fx, fy, sigma_m, r_env, k,
     q = uu / s2.clamp_min(1e-30)
     dens = torch.exp(-0.5 * q) / (2.0 * math.pi * s2).clamp_min(1e-30)
     amp = torch.sqrt(dens).to(torch.complex64)
+    if curv is not None:
+        amp = amp * torch.exp(1j * (curv[:, None, None] * uu).to(
+            torch.complex64))
 
     seg_p1 = pts[..., :-1, :].reshape(N, K * subdiv, 2) / FSD_UNIT_M
     seg_p2 = pts[..., 1:, :].reshape(N, K * subdiv, 2) / FSD_UNIT_M

@@ -1,9 +1,11 @@
-"""Beam sourcing geometry for restart vertices.
+"""Beam sourcing geometry: how restart vertices and emitters decide a new
+beam's phase-space extents.
 
-Port of wave_tracer_tpu/wave/sourcing.py without `emitter_envelope`
-(forward tracing, not ported yet): the isotropic-footprint sourcing of
-FSD restart vertices, and the minimum-uncertainty emission beam of an
-emitter row (bdpt light subpaths).
+Port of wave_tracer_tpu/wave/sourcing.py: the isotropic-footprint
+sourcing of FSD restart vertices, the minimum-uncertainty emission beam
+of an emitter row (bdpt light subpaths, forward transport) and its full
+elliptic envelope (`emitter_envelope`, which, as in the JAX package, no
+integrator calls: forward transport forms the same envelope inline).
 """
 
 from __future__ import annotations
@@ -43,3 +45,12 @@ def source_emitter_mub(et, e0, k):
     emitter's extents enlarged to SBP ≥ 1/4."""
     ta0 = emitter_tan_alpha(et, e0)
     return beam_geo.make_mub(torch.zeros_like(ta0), ta0, k)
+
+
+def emitter_envelope(et, e0, k, wo):
+    """Full elliptic EnvState for freshly sourced emission beams along wo."""
+    se_mub, ta_mub = source_emitter_mub(et, e0, k)
+    return env_mod.EnvState(
+        x=frame_mod.build_orthogonal_frame(wo).t,
+        x0=torch.sqrt(se_mub.clamp_min(0.0)), ta=ta_mub,
+        e=torch.ones(e0.shape, dtype=torch.float32, device=wo.device))
