@@ -1,12 +1,13 @@
 """On-card smoke test of the PyTorch/CUDA port (wave_tracer_tpu_torch).
 
-Drives the port's three main paths through the entry points a user calls
+Drives the port's main paths through the entry points a user calls
 (`scene.build_scene`, `render.render_scene`) on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
-the persistent compacted wavefront, and plt_bdpt with Fraunhofer FSD
-through its batched renderer — and holds every hand-written kernel of those
-paths against its plain torch version.
+the persistent compacted wavefront, plt_bdpt with Fraunhofer FSD through
+its batched renderer, forward coverage, and the materials box under the
+wave path and polarimetric bdpt — and holds every hand-written kernel of
+those paths against its plain torch version.
 
     python3 chip_smoke.py                # needs one card
 
@@ -112,13 +113,42 @@ Phases (each raises on failure; nothing is caught):
      correlation of the dB maps >= 0.95, >= 90% of the elements within
      0.1 dB (the means' ratio is printed: single FSD-NEE splats of huge
      weight dominate it)
+ 16. the materials box (make_materials_box_scene: glass and rough-
+     conductor spheres, bitmap, checkerboard, composite, normal-mapped and
+     masked surfaces, an area lamp and a spot light; 10,254 triangles,
+     its classified edge count printed) through the wave main path at
+     256x256, 8 spp, depth 8, after a warm-up; counters zeroed just
+     before and read just after: K1, K2 and K3 must all have launched,
+     with the checks of phase 8; its paths/s as phase 4's; then once
+     more with CUDA events around every K1, K2 and K3 call (launches, ms
+     per launch, needed-row share, bound)
+ 16b. one more render of the materials box keeping each kernel's call
+     with the most needed rows (K1: of those that carry some rows), held
+     against its plain version on the
+     same inputs: K1's ids on >= 99.9% of the needed rows (t within rtol
+     1e-4 / atol 1e-5 where they agree) and its other rows' carried hits
+     bit for bit, K2's needed rows on >= 99.9% (the others False), K3's
+     minima and counts bit-equal
+ 17. the materials box through plt_bdpt (Fraunhofer FSD) with a
+     polarimetric sensor at 256x256, 4 spp, depth 8 (bench.py's bdpt
+     width); counters zeroed just before and read just after: K1 and K2
+     must have launched; a (256, 256, 12) film of finite values whose
+     every Stokes vector is physical; its paths/s as phase 12's; then
+     timed per K1/K2 call as phase 12
+ 18. the materials box at 32x32, 4 spp, on the card and on the CPU, at
+     the bars of tests/test_torch_materials_render.py: classical (depth
+     5) per pixel, the wave path (depth 5) and polarimetric bdpt (depth
+     4, the intensity planes, Stokes physicality on the card)
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path", and K1's and K2's
-     timings in the bdpt and coverage renders under "in_bdpt_render" and
-     "in_coverage_render") and, last, the result JSON line
+     timings in the bdpt, coverage and materials renders under
+     "in_bdpt_render", "in_coverage_render", "in_materials_render" and
+     "in_materials_bdpt_render", and the materials calls' agreement with
+     the plain versions under "materials_call_vs_plain") and, last, the
+     result JSON line
 
-Each paths/s reading (phases 4, 6, 8, 10, and 12 and 14 where a render
-takes under 30 s) is the median of three renders, the one whose launches
+Each paths/s reading (phases 4, 6, 8, 10 and 16, and 12, 14 and 17 where
+a render takes under 30 s) is the median of three renders, the one whose launches
 are counted first; all three are printed.
 """
 
@@ -960,6 +990,131 @@ def check_anyhit_forward(rk, cap):
                 ms=ms, plain_ms=ms_plain, bound_ms=bnd[0], bound_by=bnd[1])
 
 
+def materials_scene(res, spp, depth, integrator="plt_path",
+                    polarimetric=False):
+    from wave_tracer_tpu_torch.scene.procedural import \
+        make_materials_box_scene
+    scene = make_materials_box_scene(res=res, spp=spp)
+    scene.integrator.type = integrator
+    scene.integrator.fsd = True
+    scene.integrator.max_depth = depth
+    scene.sensors[0].polarimetric = polarimetric
+    return scene
+
+
+def check_stokes(img, tag):
+    """Every pixel's Stokes vector is physical: |(Q, U, V)| <= I (to
+    rounding), and some light is polarized."""
+    s = img.reshape(img.shape[0], img.shape[1], -1, 4)
+    pol = np.linalg.norm(s[..., 1:], axis=-1)
+    excess = (pol - s[..., 0] * (1 + 1e-5)).max() / s[..., 0].max()
+    check(excess <= 1e-6, f"{tag}: unphysical Stokes vectors ({excess})")
+    check(pol.max() > 0, f"{tag}: no polarized light")
+    return float((pol.sum() / s[..., 0].sum()))
+
+
+def capture_calls(rk, ck, built):
+    """One render of `built` on the card, keeping per kernel (closest,
+    anyhit, cone_minz) a copy of the arguments and the result of its call
+    with the most needed rows (K1: of those that carry some rows, if
+    any)."""
+    from wave_tracer_tpu_torch.render import render_scene
+    real = {"closest": rk.closest_hit, "anyhit": rk.any_hit,
+            "cone_minz": ck.cone_minz}
+    best = {}
+
+    def copy(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple):
+            return tuple(copy(y) for y in x)
+        return x
+
+    def spy(kind):
+        fn = real[kind]
+
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            if kind == "cone_minz":
+                n = args[1].shape[0]
+                score = (True, n)
+            else:
+                need = args[7] if len(args) > 7 else kw.get("need")
+                n = args[2].shape[0] if need is None else int(need.sum())
+                # K1: a call that carries some rows first, so that the
+                # carry is held too
+                score = (kind == "anyhit" or n < args[2].shape[0], n)
+            if score > best.get(kind, {"score": (False, -1)})["score"]:
+                best[kind] = dict(n=n, score=score, args=copy(args),
+                                  out=copy(out),
+                                  kw={k: copy(v) for k, v in kw.items()})
+            return out
+        return wrapper
+
+    rk.closest_hit, rk.any_hit = spy("closest"), spy("anyhit")
+    ck.cone_minz = spy("cone_minz")
+    try:
+        render_scene(built, device="cuda")
+    finally:
+        rk.closest_hit, rk.any_hit = real["closest"], real["anyhit"]
+        ck.cone_minz = real["cone_minz"]
+    torch.cuda.synchronize()
+    for kind in real:
+        check(best.get(kind, {"n": 0})["n"] > 0,
+              f"phase 16b: no {kind} call with a needed row")
+    return best
+
+
+def check_calls_vs_plain(rk, ck, cap):
+    """Each kernel's captured render call against its plain version on
+    the same inputs, at the bars of phases 3, 3b and 7: K1's ids agree on
+    >= 99.9% of the needed rows and t within rtol 1e-4 / atol 1e-5 where
+    they agree, the other rows hold their carried hit bit for bit; K2's
+    needed rows agree on >= 99.9% and the others are False; K3's minima
+    and counts are bit-equal. Returns per kernel (rows, needed rows,
+    share of needed rows that disagree)."""
+    out = {}
+    c = cap["closest"]
+    args, kw = c["args"], c["kw"]
+    need = args[7] if len(args) > 7 else kw.get("need")
+    carry = args[8] if len(args) > 8 else kw.get("carry")
+    t_k, i_k = c["out"]
+    t_r, i_r = rk._closest_ref(*args[:7], need, carry)
+    rows = torch.ones_like(i_k, dtype=torch.bool) if need is None else need
+    agree = (i_k == i_r)[rows].float().mean().item()
+    check(agree >= 0.999, f"phase 16b: K1 ids agree on {agree:.6f}")
+    both = rows & (i_k == i_r) & (i_r >= 0)
+    check(bool(((t_k - t_r).abs() <= 1e-5 + 1e-4 * t_r.abs())[both].all()),
+          "phase 16b: K1 t beyond rtol 1e-4 / atol 1e-5")
+    if need is not None and carry is not None:
+        check(torch.equal(t_k[~need], carry[0][~need])
+              and torch.equal(i_k[~need], carry[1][~need]),
+              "phase 16b: K1 rows off the need mask lost their carried hit")
+    out["closest"] = (i_k.shape[0], int(rows.sum()), 1.0 - agree)
+    c = cap["anyhit"]
+    args, kw = c["args"], c["kw"]
+    need = args[7] if len(args) > 7 else kw.get("need")
+    occ_r = anyhit_ref_chunked(rk, args[:7], need)
+    rows = torch.ones_like(occ_r) if need is None else need
+    agree = (c["out"] == occ_r)[rows].float().mean().item()
+    check(agree >= 0.999, f"phase 16b: K2 needed rows agree on {agree:.6f}")
+    if need is not None:
+        check(not c["out"][~need].any().item(),
+              "phase 16b: K2 occluded a row off its need mask")
+    out["anyhit"] = (occ_r.shape[0], int(rows.sum()), 1.0 - agree)
+    c = cap["cone_minz"]
+    zr, cr = minz_ref_chunked(ck, c["args"])
+    check(torch.equal(c["out"][0], zr) and torch.equal(c["out"][1], cr),
+          "phase 16b: K3 not bit-equal to its plain version")
+    out["cone_minz"] = (cr.shape[0], cr.shape[0], 0.0)
+    for kind, (n, n_need, bad) in out.items():
+        print(f"phase 16b: {kind}: the render's call of {n_need} needed "
+              f"rows of {n} against its plain version: "
+              f"{'bit-equal' if kind == 'cone_minz' else f'disagree on {bad:.6f} of the needed rows'}",
+              flush=True)
+    return out
+
+
 def zero(*counts):
     for c in counts:
         for k in c:
@@ -967,6 +1122,7 @@ def zero(*counts):
 
 
 def main():
+    t_start = time.perf_counter()
     # ---- phase 1
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1262,6 +1418,99 @@ def main():
               f"cpu: median ratio {m:.6f}, dB Pearson {c:.5f}, {f:.4f} of "
               f"elements within 0.1 dB, means' ratio {r:.4f}", flush=True)
 
+    # ---- phase 16: the materials box through the wave main path
+    mat = build_scene(materials_scene(256, 8, 8), device="cuda")
+    n_edges = mat.data.edges.count
+    check(mat.data.geo.num_tris == 10254,
+          f"materials box has {mat.data.geo.num_tris} triangles")
+    check(0 < n_edges <= 2048, f"materials box has {n_edges} edges")
+    render_scene(mat, spp=1, device="cuda")            # warm-up
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    img16, st16 = render_scene(mat, device="cuda")
+    torch.cuda.synchronize()
+    mat_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(all(v > 0 for v in mat_launches.values()),
+          f"materials wave path launched {mat_launches}")
+    check_wave_render(img16, st16, (256, 256, 3), "phase 16")
+    check(st16["pool_lanes"] == POOL, f"phase 16 pool {st16['pool_lanes']}")
+    dc = st16["device_counters"]
+    print(f"phase 16: materials box ({mat.data.geo.num_tris} tris, "
+          f"{n_edges} classified edges) 256x256 8 spp depth 8 wave: "
+          f"{rate_line(mat, st16)}, pool {st16['pool_lanes']}), launches "
+          f"{mat_launches}, fsd {dc['fsd_interactions']:.0f}, diffusive "
+          f"{dc['diffusive_traversals']:.0f}, edge hits "
+          f"{dc['edge_sweep_hits']:.0f}", flush=True)
+    calls16, cull16, kept16 = timed_render(rk, ck, mat)
+    T16 = mat.data.geo.num_tris
+    in_mat = summarize_calls(rk, calls16, T16, "phase 16")
+    print(f"phase 16: in the render, K3: "
+          f"{cull_line(cull16, in_mat['cone_minz']['rows'], T16, kept16)}"
+          f" (over {len(calls16['cone_minz'])} launches)", flush=True)
+
+    # ---- phase 16b: K1, K2 and K3 on the materials render's own calls
+    mat_calls = check_calls_vs_plain(rk, ck, capture_calls(rk, ck, mat))
+
+    # ---- phase 17: polarimetric plt_bdpt over the materials box
+    matb = build_scene(materials_scene(256, 4, 8, "plt_bdpt", True),
+                       device="cuda")
+    render_scene(matb, spp=1, device="cuda")           # warm-up
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    img17, st17 = render_scene(matb, device="cuda")
+    torch.cuda.synchronize()
+    matb_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(matb_launches["closest"] > 0 and matb_launches["anyhit"] > 0,
+          f"materials bdpt launched {matb_launches}")
+    check_render(img17, st17, (256, 256, 12), "phase 17")
+    check(st17["mode"] == "bdpt", f"phase 17: mode {st17['mode']}")
+    dop = check_stokes(img17, "phase 17")
+    dc = st17["device_counters"]
+    check(dc["fsd_interactions"] > 0, f"phase 17: no FSD interactions {dc}")
+    rate17 = (rate_line(matb, st17) if st17["seconds"] < 30 else
+              f"{st17['paths_per_sec']:.1f} paths/s (one render of "
+              f"{st17['seconds']:.3f} s")
+    print(f"phase 17: materials box 256x256 4 spp depth 8 polarimetric "
+          f"bdpt: {rate17}, batch {st17['pool_lanes']}), launches "
+          f"{matb_launches}, fsd {dc['fsd_interactions']:.0f}, polarized "
+          f"share |(Q,U,V)|/I {dop:.4f}", flush=True)
+    calls17, _, _ = timed_render(rk, ck, matb,
+                                 anyhit_kind=lambda n: "anyhit")
+    in_matb = summarize_calls(rk, calls17, matb.data.geo.num_tris,
+                              "phase 17")
+
+    # ---- phase 18: the materials box, card vs CPU, at the CPU tests' bars
+    for integrator, fsd, depth, pol in (("plt_path", False, 5, False),
+                                        ("plt_path", True, 5, False),
+                                        ("plt_bdpt", True, 4, True)):
+        scene = materials_scene(32, 4, depth, integrator, pol)
+        scene.integrator.fsd = fsd
+        msmall = build_scene(scene, device="cuda")
+        img_c, st_c = render_scene(msmall, device="cuda")
+        img_h, st_h = render_scene(msmall, device="cpu")
+        tag = f"phase 18 {integrator} fsd={fsd}"
+        check(st_c["mode"] == st_h["mode"], f"{tag}: mode")
+        if not fsd:
+            frac = compare_images(
+                img_c, img_h, st_c, st_h, tag, mean_rtol=0.01, px_tol=1e-3,
+                px_frac=0.98, counter_rtol=0.005,
+                counters=("rays_cast", "shadow_rays", "surface_interactions",
+                          "rr_terminations", "sum_path_depth"))
+        elif integrator == "plt_path":
+            frac = compare_images(
+                img_c, img_h, st_c, st_h, tag, mean_rtol=0.02, px_tol=1e-2,
+                px_frac=0.90, counter_rtol=0.02, corr=0.999,
+                counters=("rays_cast", "rr_terminations", "sum_path_depth",
+                          "ballistic_traversals", "diffusive_traversals"))
+        else:
+            check_stokes(img_c, tag)
+            frac = compare_images(
+                img_c[..., 0::4], img_h[..., 0::4], st_c, st_h, tag,
+                mean_rtol=0.02, px_tol=1e-2, px_frac=0.90, counter_rtol=0.02,
+                corr=0.999, counters=("rays_cast", "surface_interactions",
+                                      "fsd_interactions", "sum_path_depth",
+                                      "shadow_rays"))
+        print(f"{tag}: 32x32 4 spp depth {depth}: cuda vs cpu: {frac:.4f} "
+              f"of pixels within the bar", flush=True)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -1273,7 +1522,10 @@ def main():
                                       "bdpt": bdpt_launches[key],
                                       "coverage": cov_launches[key],
                                       "coverage_fraunhofer":
-                                          fr_launches[key]},
+                                          fr_launches[key],
+                                      "materials_wave": mat_launches[key],
+                                      "materials_bdpt_pol":
+                                          matb_launches[key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)
@@ -1286,6 +1538,9 @@ def main():
             in_bdpt_render=in_bdpt["closest"],
             in_coverage_render=in_cov["closest"],
             in_coverage_fraunhofer_render=in_cov_fr["closest"],
+            in_materials_render=in_mat["closest"],
+            in_materials_bdpt_render=in_matb["closest"],
+            materials_call_vs_plain=mat_calls["closest"],
             culls_off_ms=kstats["closest"]["culls_off_ms"],
             all_pairs_bound_ms=kstats["closest"]["all_pairs_bound_ms"]),
         row("any_hit", "ray_kernels.cu",
@@ -1295,12 +1550,20 @@ def main():
                              for k in ("anyhit_legs", "anyhit_nee")},
             in_bdpt_render=in_bdpt["anyhit"],
             in_coverage_render=in_cov["anyhit"], at_forward_width=k2_fwd,
+            in_materials_render={k: in_mat[k]
+                                 for k in ("anyhit_legs", "anyhit_nee")},
+            in_materials_bdpt_render=in_matb["anyhit"],
+            materials_call_vs_plain=mat_calls["anyhit"],
             need_mask_ms=legs_need[0], empty_mask_ms=legs_need[1]),
         row("cone_minz", "cone_kernels.cu",
             "wave_tracer_tpu/accel/mxu_cone.py:309", "cone_minz", k3,
             narrow_cones=k3_narrow,
-            in_scale_render=in_render["cone_minz"]),
+            in_scale_render=in_render["cone_minz"],
+            in_materials_render=in_mat["cone_minz"],
+            materials_call_vs_plain=mat_calls["cone_minz"]),
     ]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,14 @@ import pytest
 import torch
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.scene import build_scene as jbuild
 from wave_tracer_tpu_torch.scene import bridge
 from wave_tracer_tpu_torch.scene.build import bake_scene_arrays, build_scene
 from wave_tracer_tpu_torch.scene.procedural import \
     make_box_scene as tmake_box_scene
+
+cap_torch_threads()
 
 TRI_KEYS = ("geo.p0", "geo.e1", "geo.e2", "geo.tri_geom", "geo.tri_attr")
 
@@ -136,16 +139,32 @@ def test_bridge_round_trip(bakes):
 
 
 def test_bridge_refuses_unported_rows(bakes):
+    """Material, texture and emitter type codes the port does not know
+    raise at the bridge; dielectric rows, bitmap textures and spot
+    emitters (ported) load and set their tables' flags."""
     _, _, ta, _ = bakes
-    bad = dict(ta)
-    pack = np.array(ta["tables.materials.pack"])
-    pack[0, 0] = 1                          # a dielectric row
-    bad["tables.materials.pack"] = pack
-    with pytest.raises(NotImplementedError):
-        bridge.scene_data_from_numpy(bad, "cpu")
-    bad = dict(ta)
-    tex = np.array(ta["tables.textures.pack"])
-    tex[0, 0] = 2                           # a bitmap texture
-    bad["tables.textures.pack"] = tex
-    with pytest.raises(NotImplementedError):
-        bridge.scene_data_from_numpy(bad, "cpu")
+    for key, col, code, flag in (
+            ("tables.materials.pack", 0, 1, "materials.has_dielectric"),
+            ("tables.textures.pack", 0, 2, "textures.has_bitmap"),
+            ("emitters.etype", None, 2, "has_spot")):
+        ok = dict(ta)
+        arr = np.array(ta[key])
+        if col is None:
+            arr[0] = code
+        else:
+            arr[0, col] = code
+        ok[key] = arr
+        data = bridge.scene_data_from_numpy(ok, "cpu")
+        obj = data.emitters if key.startswith("emitters") else data.tables
+        for part in flag.split("."):
+            obj = getattr(obj, part)
+        assert obj is True, flag
+        bad = dict(ta)
+        arr = arr.copy()
+        if col is None:
+            arr[0] = 9
+        else:
+            arr[0, col] = 9
+        bad[key] = arr
+        with pytest.raises(NotImplementedError, match="type"):
+            bridge.scene_data_from_numpy(bad, "cpu")

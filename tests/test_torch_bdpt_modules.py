@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.accel import trace as jtrace
 from wave_tracer_tpu.emitter import table as jetab
 from wave_tracer_tpu.integrator import plt_bdpt as jbdpt
@@ -44,6 +45,8 @@ from wave_tracer_tpu_torch.scene.procedural import \
 from wave_tracer_tpu_torch.sensor import film as tfilm
 from wave_tracer_tpu_torch.wave import fraunhofer as tfr
 from wave_tracer_tpu_torch.wave import sourcing as tsourcing
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 512

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.render import render_scene as jrender
 from wave_tracer_tpu.scene import build_scene as jbuild
 from wave_tracer_tpu_torch.accel import ray_kernels
@@ -41,6 +42,8 @@ from wave_tracer_tpu_torch.scene.build import BuiltScene, build_scene
 from wave_tracer_tpu_torch.scene.bridge import SPECTRAL_KEYS
 from wave_tracer_tpu_torch.scene.procedural import \
     make_box_scene as tmake_box_scene
+
+cap_torch_threads()
 
 RES, SPP, DEPTH, LANES = 16, 4, 4, 1024
 COUNTERS = ("rays_cast", "surface_interactions", "fsd_interactions",

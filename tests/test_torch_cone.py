@@ -17,12 +17,15 @@ import pytest
 import torch
 
 from test_mxu_cone import _Geo, _lanes, _random_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.accel import mxu_cone
 from wave_tracer_tpu.accel import trace as jtrace
 from wave_tracer_tpu.integrator import traversal as jtraversal
 from wave_tracer_tpu_torch.accel import cone_kernels
 from wave_tracer_tpu_torch.accel import trace as ttrace
 from wave_tracer_tpu_torch.wave.envelope import EnvState
+
+cap_torch_threads()
 
 
 def _t(x):

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from test_coverage import make_coverage_scene as jmake_coverage
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.bsdf import device as jbsdf
 from wave_tracer_tpu.bsdf import model as jmodel
 from wave_tracer_tpu.bsdf import profiles as jprof
@@ -64,6 +65,8 @@ from wave_tracer_tpu_torch.spectrum import ior as tior
 from wave_tracer_tpu_torch.spectrum import spectra as tspectra
 from wave_tracer_tpu_torch.wave import fraunhofer as tfr
 from wave_tracer_tpu_torch.wave import sourcing as tsourcing
+
+cap_torch_threads()
 
 RTOL = 1e-4
 N = 2048
@@ -483,7 +486,8 @@ def test_bridge_and_own_bake_of_the_coverage_scene(tables):
     """The port's own bake of its coverage scene equals the JAX bake in
     every table the BVH order does not permute (materials, spectra,
     complex spectra, emitters, the spectral sampler); the geometry holds
-    the same triangles; dielectric rows still raise at the bridge."""
+    the same triangles; a dielectric row now loads (its lobe is ported)
+    and a material type the port does not know raises at the bridge."""
     jb = jbuild(jmake_coverage(16))
     ja = _flatten(jb.data)
     ta, per_sensor = bake_scene_arrays(make_coverage_scene(16))
@@ -501,12 +505,17 @@ def test_bridge_and_own_bake_of_the_coverage_scene(tables):
     np.testing.assert_array_equal(
         tmesh.cube(2.0).positions,
         np.asarray(jmesh.cube(2.0).positions))
-    bad = dict(tables[2])
-    pack = np.array(bad["tables.materials.pack"])
+    glass = dict(tables[2])
+    pack = np.array(glass["tables.materials.pack"])
     pack[0, 0] = 1                          # a dielectric row
-    bad["tables.materials.pack"] = pack
-    with pytest.raises(NotImplementedError, match="dielectric"):
-        scene_data_from_numpy(bad, "cpu")
+    glass["tables.materials.pack"] = pack
+    assert scene_data_from_numpy(glass, "cpu").tables.materials \
+        .has_dielectric
+    pack = pack.copy()
+    pack[0, 0] = 7                          # no such material type
+    glass["tables.materials.pack"] = pack
+    with pytest.raises(NotImplementedError, match="material type"):
+        scene_data_from_numpy(glass, "cpu")
 
 
 # ------------------------------------------------------ sensor and film

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from test_coverage import make_coverage_scene as jmake_coverage
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.integrator.plt_path_forward import \
     trace_forward as jtrace_forward
 from wave_tracer_tpu.render import render_scene as jrender
@@ -43,6 +44,8 @@ from wave_tracer_tpu_torch.scene.bridge import SPECTRAL_KEYS
 from wave_tracer_tpu_torch.scene.build import BuiltScene, build_scene
 from wave_tracer_tpu_torch.scene.procedural import make_coverage_scene
 from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
+
+cap_torch_threads()
 
 RES, N, DEPTH, SEED = 16, 256, 4, 7
 RTOL = 1e-4
@@ -243,15 +246,16 @@ def test_coverage_map_shadowing():
 
 
 def test_unported_and_no_fallback():
-    """A perspective sensor on an SPM scene raises (backward transport of
-    surface_spm is not ported); without a card, rendering on "cuda"
-    raises rather than running on the CPU."""
+    """A perspective sensor on an SPM scene renders by backward transport
+    (the surface_spm lobe draws its lobe pair there too); without a card,
+    rendering on "cuda" raises rather than running on the CPU."""
     built = build_scene(make_coverage_scene(8), device="cpu")
     plane = built.scene.sensors[0]
     built.scene.sensors = [PerspectiveSensor(width=8, height=8)]
     try:
-        with pytest.raises(NotImplementedError, match="surface_spm"):
-            render_scene(built, device="cpu")
+        img, st = render_scene(built, spp=1, device="cpu")
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+        assert st["mode"] in ("wave-compact", "ray-compact")
     finally:
         built.scene.sensors = [plane]
     if not torch.cuda.is_available():

@@ -1,5 +1,5 @@
-"""K1/K2/K3 and the classical, wave and coverage renders on a CUDA card
-against the plain torch versions. Marked `gpu`: each test skips without a
+"""K1/K2/K3 and the classical, wave, coverage and materials-box renders on
+a CUDA card against the plain torch versions. Marked `gpu`: each test skips without a
 card. This file imports no
 jax, so it also runs on GPU hosts without JAX:
 
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu_torch.accel import cone_kernels as ck
 from wave_tracer_tpu_torch.accel import ray_kernels as rk
 from wave_tracer_tpu_torch.integrator.traversal import segment_boundaries
@@ -17,6 +18,8 @@ from wave_tracer_tpu_torch.render import render_scene
 from wave_tracer_tpu_torch.scene import build_scene
 from wave_tracer_tpu_torch.scene.procedural import make_box_scene
 from test_torch_cull import tie_rays, tie_soup
+
+cap_torch_threads()
 
 
 @pytest.fixture
@@ -322,3 +325,76 @@ def test_anyhit_at_the_forward_layout(cuda):
         assert not ok[~need].any().item()
         if need.any():
             assert (ok[need] == ref[need]).float().mean().item() >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integrator", ["plt_path", "plt_bdpt"])
+def test_kernels_on_the_materials_box_calls(cuda, integrator):
+    """Every K1, K2 and K3 call of a render of the materials box (32×32,
+    2 spp, FSD on: the wave path, or polarimetric bdpt) against its plain
+    version on the same inputs: K1's ids agree on >= 99.9% of the needed
+    rows, t within rtol 1e-4 / atol 1e-5 where they agree, the other rows
+    hold their carried hit bit for bit; K2's needed rows agree on >= 99.9%
+    and the others are False; K3's minima and counts are bit-equal. The
+    card's image is finite and, under bdpt, every Stokes vector physical."""
+    from wave_tracer_tpu_torch.scene.procedural import \
+        make_materials_box_scene
+    scene = make_materials_box_scene(res=32, spp=2)
+    scene.integrator.type = integrator
+    scene.integrator.max_depth = 5
+    scene.sensors[0].polarimetric = integrator == "plt_bdpt"
+    built = build_scene(scene, device=cuda)
+    calls = {"closest": [], "anyhit": [], "cone_minz": []}
+    real = {"closest": rk.closest_hit, "anyhit": rk.any_hit,
+            "cone_minz": ck.cone_minz}
+
+    def copy(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        return tuple(copy(y) for y in x) if isinstance(x, tuple) else x
+
+    def spy(kind):
+        def wrapper(*args, **kw):
+            out = real[kind](*args, **kw)
+            calls[kind].append((copy(args), copy(out)))
+            return out
+        return wrapper
+
+    rk.closest_hit, rk.any_hit = spy("closest"), spy("anyhit")
+    ck.cone_minz = spy("cone_minz")
+    try:
+        img, st = render_scene(built, device="cuda", pool_lanes=1024)
+    finally:
+        rk.closest_hit, rk.any_hit = real["closest"], real["anyhit"]
+        ck.cone_minz = real["cone_minz"]
+    assert np.isfinite(img).all() and img.mean() > 0
+    if integrator == "plt_bdpt":
+        s = img.reshape(32, 32, 3, 4)
+        assert (np.linalg.norm(s[..., 1:], axis=-1)
+                <= s[..., 0] * (1 + 1e-5) + 1e-6 * s[..., 0].max()).all()
+    assert calls["closest"] and calls["anyhit"]
+    assert bool(calls["cone_minz"]) == (integrator == "plt_path")
+    for args, (t_k, i_k) in calls["closest"]:
+        need, carry = args[7], args[8]
+        t_r, i_r = rk._closest_ref(*args[:7], need, carry)
+        rows = torch.ones_like(i_k, dtype=torch.bool) if need is None \
+            else need
+        if rows.any():
+            assert (i_k == i_r)[rows].float().mean().item() >= 0.999
+        both = rows & (i_k == i_r) & (i_r >= 0)
+        torch.testing.assert_close(t_k[both], t_r[both], rtol=1e-4,
+                                   atol=1e-5)
+        if need is not None and carry is not None:
+            assert torch.equal(t_k[~need], carry[0][~need])
+            assert torch.equal(i_k[~need], carry[1][~need])
+    for args, occ in calls["anyhit"]:
+        need = args[7] if len(args) > 7 else None
+        ref = rk._anyhit_ref(*args[:7], need)
+        rows = torch.ones_like(ref) if need is None else need
+        if rows.any():
+            assert (occ == ref)[rows].float().mean().item() >= 0.999
+        if need is not None:
+            assert not occ[~need].any().item()
+    for args, (zc, cnt) in calls["cone_minz"]:
+        zr, cr = ck._minz_ref(*args)
+        assert torch.equal(zc, zr) and torch.equal(cnt, cr)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu_torch.accel import cone_kernels as ck
 from wave_tracer_tpu_torch.accel import ray_kernels as rk
 from wave_tracer_tpu_torch.geometry import mesh
@@ -31,6 +32,8 @@ from wave_tracer_tpu_torch.scene.model import Shape
 from wave_tracer_tpu_torch.scene.procedural import make_box_scene
 from wave_tracer_tpu_torch.wave import envelope as env_mod
 from wave_tracer_tpu_torch.wave import sourcing
+
+cap_torch_threads()
 
 ZMIN = 1e-7
 

@@ -6,6 +6,10 @@ import os
 import subprocess
 import sys
 
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.bsdf import device as jbsdf
 from wave_tracer_tpu.emitter import table as jetab
 from wave_tracer_tpu.integrator import path as jpath
@@ -28,6 +29,8 @@ from wave_tracer_tpu_torch.scene.bridge import scene_data_from_numpy
 from wave_tracer_tpu_torch.scene.procedural import \
     make_box_scene as tmake_box_scene
 from wave_tracer_tpu_torch.sensor import film as tfilm
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 512

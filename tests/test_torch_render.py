@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.render import render_scene as jrender
 from wave_tracer_tpu.scene import build_scene as jbuild
 from wave_tracer_tpu_torch.accel import ray_kernels
@@ -30,6 +31,8 @@ from wave_tracer_tpu_torch.scene.build import BuiltScene, build_scene
 from wave_tracer_tpu_torch.scene.bridge import SPECTRAL_KEYS
 from wave_tracer_tpu_torch.scene.procedural import \
     make_box_scene as tmake_box_scene
+
+cap_torch_threads()
 
 RES, SPP, DEPTH, LANES = 24, 4, 5, 1024
 COUNTERS = ("rays_cast", "shadow_rays", "surface_interactions",
@@ -121,9 +124,9 @@ def test_unported_configurations_raise(renders, monkeypatch):
     built.scene.integrator.type = "plt_bdpt"
     sensor = built.scene.sensors[0]
     try:
-        sensor.polarimetric = True
-        with pytest.raises(NotImplementedError, match="polarimetric"):
-            render_scene(built, spp=1, device="cpu", pool_lanes=256)
+        sensor.polarimetric = True          # ported: I/Q/U/V per channel
+        img, st = render_scene(built, spp=1, device="cpu", pool_lanes=256)
+        assert img.shape == (RES, RES, 12) and st["mode"] == "bdpt"
         sensor.polarimetric = False
         built.scene.integrator.ray_trace_only = True   # classical again
         img, st = render_scene(built, spp=1, device="cpu", pool_lanes=256)

@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.sampling import rng as jrng
 from wave_tracer_tpu.sampling import sobol as jsobol
 from wave_tracer_tpu_torch.sampling import rng as trng
 from wave_tracer_tpu_torch.sampling import sobol as tsobol
+
+cap_torch_threads()
 
 
 def _grid(seed=0):

@@ -16,12 +16,15 @@ import pytest
 import torch
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.accel import mxu_trace
 from wave_tracer_tpu.accel import trace as jtrace
 from wave_tracer_tpu.scene import build_scene as jbuild
 from wave_tracer_tpu_torch.accel import ray_kernels
 from wave_tracer_tpu_torch.accel import trace as ttrace
 from wave_tracer_tpu_torch.scene.bridge import scene_data_from_numpy
+
+cap_torch_threads()
 
 
 def _soup(T=700, seed=0):

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_render import make_box_scene
+from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.accel import edges as jedges
 from wave_tracer_tpu.integrator import traversal as jtrav
 from wave_tracer_tpu.math import special as jspecial
@@ -44,6 +45,8 @@ from wave_tracer_tpu_torch.wave import envelope as tenv
 from wave_tracer_tpu_torch.wave import fsd as tfsd
 from wave_tracer_tpu_torch.wave import sourcing as tsourcing
 from wave_tracer_tpu_torch.wave import utd as tutd
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 256

@@ -1,14 +1,17 @@
 """Device BSDF dispatch: batched sample / eval over the material table.
 
-Port of wave_tracer_tpu/bsdf/device.py for the diffuse, surface_spm and
-null lobes, including the `twosided` back-face flip. Directions are in the
+Port of wave_tracer_tpu/bsdf/device.py: the diffuse, dielectric,
+surface_spm and null lobes, composite materials (resolved to the child
+row of the lane's wavenumber before the row gather), the `twosided`
+back-face flip, opacity masks and normal maps. Directions are in the
 local shading frame (z = shading normal), pointing away from the surface:
 * `eval_f` returns the Mueller-valued BSDF including the |wo.z| cosine;
 * `sample` returns wo, its density and the weighted bsdf Mw = M/pdf.
-Dispatch is compute-all-select by material type, in the JAX module's
-order; a table without surface_spm rows (`MaterialTable.has_spm`) skips
-that lobe's arithmetic. Dielectric rows never reach here: baking or
-bridging one raises.
+`duv`, where given, is the uv-space footprint diameter that selects the
+mip level of bitmap reflectances. Dispatch is compute-all-select by
+material type; a lobe or wrapper that no row of the table uses
+(`MaterialTable.has_*`) makes no launch, and every result equals that of
+the JAX module's full selection.
 """
 
 from __future__ import annotations
@@ -16,19 +19,23 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from wave_tracer_tpu_torch.bsdf import profiles
 from wave_tracer_tpu_torch.bsdf.table import (
-    C_EXT_IOR, C_IOR, C_MTYPE, C_PROF_GAMMA, C_PROF_ROUGH_TEX, C_PROF_SIGMAH,
-    C_PROF_T, C_PROF_TYPE, C_REFL_TEX, C_RSCALE, C_SCALE, C_TSCALE,
-    C_TWOSIDED, MT_DIFFUSE, MT_NULL, MT_SPM, MaterialTable)
+    C_EXT_IOR, C_IOR, C_MTYPE, C_NORMALMAP_TEX, C_OPACITY_TEX, C_PROF_GAMMA,
+    C_PROF_ROUGH_TEX, C_PROF_SIGMAH, C_PROF_T, C_PROF_TYPE, C_REFL_TEX,
+    C_RSCALE, C_SCALE, C_TSCALE, C_TWOSIDED, MT_DIELECTRIC, MT_DIFFUSE,
+    MT_NULL, MT_SPM, MaterialTable)
+from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.polarization import fresnel as fr
 from wave_tracer_tpu_torch.polarization import mueller
 from wave_tracer_tpu_torch.sampling import warps
 from wave_tracer_tpu_torch.spectrum.bake import (ComplexSpectrumTable,
                                                  SpectrumTable)
 from wave_tracer_tpu_torch.texture.texture import (TextureTable,
+                                                   eval_texture_rgb,
                                                    eval_texture_scalar)
 
 INV_PI = 1.0 / math.pi
@@ -59,22 +66,35 @@ def _mtype(row, mat_id):
                        torch.full_like(mat_id, MT_NULL, dtype=torch.int32))
 
 
-def _row_and_frame(tables: Tables, mat_id, wi):
-    """Material row, effective type and the twosided sign flip."""
-    row = tables.materials.pack[mat_id.clamp_min(0).long()]
+def _row(tables: Tables, mat_id, k):
+    """The material row of each lane at its wavenumber (composites
+    resolved to their child) and its effective type."""
+    eff = tables.materials.resolve(mat_id, k)
+    row = tables.materials.pack[eff.clamp_min(0).long()]
+    return row, _mtype(row, mat_id)
+
+
+def _twosided_sign(row, wi):
     flip = (row[:, C_TWOSIDED] > 0.5) & (wi[..., 2] < 0.0)
-    sgn = torch.where(flip, -1.0, 1.0).to(wi.dtype)
-    return row, _mtype(row, mat_id), sgn
+    return torch.where(flip, -1.0, 1.0).to(wi.dtype)
 
 
 def _flip_z(w, sgn):
     return torch.cat([w[..., :2], (w[..., 2] * sgn)[..., None]], dim=-1)
 
 
-def _reflectance(tables, row, uv, k):
+def _reflectance(tables, row, uv, k, duv=None):
     return eval_texture_scalar(tables.textures, tables.spectra,
                                row[:, C_REFL_TEX].to(torch.int32), uv,
-                               k).clamp(0.0, 1.0)
+                               k, duv).clamp(0.0, 1.0)
+
+
+def _opacity(tables, row, uv, k):
+    """The mask's opacity in [0, 1] (1 on rows without a mask)."""
+    tex = row[:, C_OPACITY_TEX].to(torch.int32)
+    op = eval_texture_scalar(tables.textures, tables.spectra, tex, uv,
+                             k).clamp(0.0, 1.0)
+    return torch.where(tex >= 0, op, 1.0)
 
 
 def _local_z(like):
@@ -145,21 +165,49 @@ def _half_vector(wi_l, wo_l):
                                         keepdim=True).clamp_min(1e-12)
 
 
-def _spm_sample(tables: Tables, row, wi_l, uv, k, u4, scale):
-    """The surface_spm lobe of `sample`: (wo, pdf, Mw, specular,
-    refracted, real oriented η, valid), all lanes."""
+def _interface(tables: Tables, row, wi_l, k, scale):
+    """What the dielectric and surface_spm lobes of `sample` share: the
+    Fresnel terms at the shading normal, the scale spectra and the
+    mirror direction, all lanes."""
     i32 = torch.int32
     eta12 = _ior_ratio(tables, row[:, C_IOR].to(i32),
                        row[:, C_EXT_IOR].to(i32), k)
     n = _local_z(wi_l)
     fres = fr.fresnel(eta12, wi_l, n)
-    T = 0.5 * (fres["Ts"] + fres["Tp"])
-    rs_c, rp_c = fr.fresnel_reflection_conductor(eta12, wi_l, n)
-    rscale = _spec_or_one(tables, row[:, C_RSCALE].to(i32), k) * scale
-    tscale = _spec_or_one(tables, row[:, C_TSCALE].to(i32), k) * scale
     eta_r = fres["eta"].real
-    J_bwd = eta_r ** 2     # backward-transport radiance compression
-    wo_refl = torch.cat([-wi_l[..., :2], wi_l[..., 2:3]], dim=-1)
+    return dict(
+        eta12=eta12, n=n, fres=fres, T=0.5 * (fres["Ts"] + fres["Tp"]),
+        rscale=_spec_or_one(tables, row[:, C_RSCALE].to(i32), k) * scale,
+        tscale=_spec_or_one(tables, row[:, C_TSCALE].to(i32), k) * scale,
+        eta_r=eta_r,
+        J_bwd=eta_r ** 2,     # backward-transport radiance compression
+        wo_refl=torch.cat([-wi_l[..., :2], wi_l[..., 2:3]], dim=-1))
+
+
+def _dielectric_sample(it, u4):
+    """The dielectric lobe of `sample`, a delta: Fresnel-weighted choice
+    between the mirror and the refracted direction (full reflection under
+    total internal reflection), all lanes."""
+    fres, T = it["fres"], it["T"]
+    is_refl = u4[..., 0] >= T
+    pdf = torch.where(is_refl, 1.0 - T, T)
+    M_refl = mueller.from_jones_sp(fres["rs"], fres["rp"], it["rscale"])
+    M_trans = mueller.from_jones_sp(fres["ts"], fres["tp"],
+                                    fres["Z"] * it["tscale"] * it["J_bwd"])
+    Mw = torch.where(is_refl[..., None, None], M_refl, M_trans) \
+        / pdf.clamp_min(1e-9)[..., None, None]
+    return dict(wo=torch.where(is_refl[..., None], it["wo_refl"], fres["t"]),
+                pdf=pdf, Mw=Mw, specular=torch.ones_like(is_refl),
+                refracted=~is_refl, valid=pdf > 1e-7)
+
+
+def _spm_sample(tables: Tables, row, wi_l, uv, k, u4, it):
+    """The surface_spm lobe of `sample`: (wo, pdf, Mw, specular,
+    refracted, valid), all lanes."""
+    eta12, fres, T = it["eta12"], it["fres"], it["T"]
+    rs_c, rp_c = fr.fresnel_reflection_conductor(eta12, wi_l, it["n"])
+    rscale, tscale = it["rscale"], it["tscale"]
+    eta_r, J_bwd, wo_refl = it["eta_r"], it["J_bwd"], it["wo_refl"]
 
     prof = _profile_params(tables, row, uv, k)
     alpha = profiles.alpha_specular(prof, wi_l[..., 2], wi_l[..., 2], k)
@@ -202,19 +250,38 @@ def _spm_sample(tables: Tables, row, wi_l, uv, k, u4, scale):
     valid = (pdf > 1e-12) & (is_spec | ok_sc) & (wi_l[..., 2].abs() > 0)
     return dict(wo=torch.where(is_spec[..., None], wo_spec, wo_sc), pdf=pdf,
                 Mw=M / pdf.clamp_min(1e-12)[..., None, None],
-                specular=is_spec, refracted=~is_refl, eta_r=eta_r,
-                valid=valid)
+                specular=is_spec, refracted=~is_refl, valid=valid)
 
 
-def sample(tables: Tables, mat_id, wi, uv, k, u4):
-    """Sample all lanes' BSDFs. u4 (N, 4) uniforms: lobe pick (T/R),
-    specular pick, direction pair. Returns BsdfSample."""
-    row, mtype, sgn = _row_and_frame(tables, mat_id, wi)
+# f32 constants of the mask's golden-ratio mix
+_MIX0 = float(np.float32(0.618034))
+_MIX1 = float(np.float32(0.381966))
+
+
+def mask_uniform(u4):
+    """The opacity mask's uniform: a golden-ratio mix of two draws,
+    decorrelated from the lobe picks, (u0·0.618034 + u3·0.381966) mod 1,
+    rounded as the JAX package's compiled kernel rounds it: XLA contracts
+    the sum into one fused multiply-add, u0·c0 + f32(u3·c1) rounded once.
+    Here it is formed in float64, where u0·c0 is exact; the float64 sum
+    can round differently from the fused one only at an f32 tie."""
+    prod = (u4[..., 3] * _MIX1).to(torch.float64)
+    mix = (u4[..., 0].to(torch.float64) * _MIX0 + prod).to(torch.float32)
+    return mix % 1.0
+
+
+def sample(tables: Tables, mat_id, wi, uv, k, u4, duv=None):
+    """Sample all lanes' BSDFs. u4 (N, 4) uniforms: the lobe pair (T/R
+    pick, specular pick), then the direction pair; the mask's uniform
+    mixes u4[0] and u4[3]. Returns BsdfSample."""
+    mat = tables.materials
+    row, mtype = _row(tables, mat_id, k)
+    sgn = _twosided_sign(row, wi)
     wi_l = _flip_z(wi, sgn)
     scale = row[:, C_SCALE]
 
     # diffuse
-    refl = _reflectance(tables, row, uv, k)
+    refl = _reflectance(tables, row, uv, k, duv)
     wo_d = warps.cosine_hemisphere(u4[..., 2:4])
     pdf_d = warps.cosine_hemisphere_pdf(wo_d[..., 2])
     Mw_d = mueller.depolarizer(refl * scale)
@@ -233,16 +300,38 @@ def sample(tables: Tables, mat_id, wi, uv, k, u4):
     valid = torch.where(is_d, valid_d, mat_id >= 0)
     refracted = torch.zeros_like(valid)
     eta = one
-    if tables.materials.has_spm:
-        spm = _spm_sample(tables, row, wi_l, uv, k, u4, scale)
-        is_s = mtype == MT_SPM
-        wo = torch.where(is_s[..., None], spm["wo"], wo)
-        Mw = torch.where(is_s[..., None, None], spm["Mw"], Mw)
-        pdf = torch.where(is_s, spm["pdf"], pdf)
-        specular = torch.where(is_s, spm["specular"], specular)
-        refracted = is_s & spm["refracted"]
-        eta = torch.where(refracted, spm["eta_r"], one)
-        valid = torch.where(is_s, spm["valid"], valid)
+    if mat.has_dielectric or mat.has_spm:
+        it = _interface(tables, row, wi_l, k, scale)
+        lobes = []
+        if mat.has_dielectric:
+            lobes.append((mtype == MT_DIELECTRIC,
+                          _dielectric_sample(it, u4)))
+        if mat.has_spm:
+            lobes.append((mtype == MT_SPM,
+                          _spm_sample(tables, row, wi_l, uv, k, u4, it)))
+        for is_l, lobe in lobes:
+            wo = torch.where(is_l[..., None], lobe["wo"], wo)
+            Mw = torch.where(is_l[..., None, None], lobe["Mw"], Mw)
+            pdf = torch.where(is_l, lobe["pdf"], pdf)
+            specular = torch.where(is_l, lobe["specular"], specular)
+            refracted = torch.where(is_l, lobe["refracted"], refracted)
+            valid = torch.where(is_l, lobe["valid"], valid)
+        eta = torch.where(refracted, it["eta_r"], one)
+    if mat.has_mask:
+        # with probability 1 − opacity the surface is passed through
+        # (weight 1, a delta lobe); otherwise the inner sample stands, its
+        # pdf scaled by the opacity
+        opacity = _opacity(tables, row, uv, k)
+        u_mask = mask_uniform(u4)
+        has_mask = row[:, C_OPACITY_TEX] >= 0
+        through = (u_mask >= opacity) & has_mask
+        wo = torch.where(through[..., None], wo_null, wo)
+        Mw = torch.where(through[..., None, None], Mw_null, Mw)
+        pdf = torch.where(through, (1.0 - opacity).clamp_min(1e-6),
+                          torch.where(has_mask, pdf * opacity, pdf))
+        specular = specular | through
+        refracted = refracted & ~through
+        valid = valid | through
     return BsdfSample(wo=_flip_z(wo, sgn), pdf=pdf, Mw=Mw,
                       specular=specular, eta=eta, refracted=refracted,
                       valid=valid)
@@ -253,15 +342,18 @@ class MaterialAt:
     """What `eval_f` reads of a material at one surface point and
     wavenumber, whatever the directions: formed once by `material_at` for
     a vertex that many directions are evaluated at."""
-    row: torch.Tensor        # (N, C) material row
+    row: torch.Tensor        # (N, C) material row (composites resolved)
     mtype: torch.Tensor      # (N,) i32 effective type
     refl: torch.Tensor       # (N,) diffuse reflectance at (uv, k)
+    opacity: torch.Tensor | None   # (N,) mask opacity (None: no masks)
 
 
-def material_at(tables: Tables, mat_id, uv, k) -> MaterialAt:
-    row = tables.materials.pack[mat_id.clamp_min(0).long()]
-    return MaterialAt(row=row, mtype=_mtype(row, mat_id),
-                      refl=_reflectance(tables, row, uv, k))
+def material_at(tables: Tables, mat_id, uv, k, duv=None) -> MaterialAt:
+    row, mtype = _row(tables, mat_id, k)
+    return MaterialAt(row=row, mtype=mtype,
+                      refl=_reflectance(tables, row, uv, k, duv),
+                      opacity=_opacity(tables, row, uv, k)
+                      if tables.materials.has_mask else None)
 
 
 def _spm_eval(tables: Tables, row, wi_l, wo_l, uv, k, scale):
@@ -306,16 +398,17 @@ def _spm_eval(tables: Tables, row, wi_l, wo_l, uv, k, scale):
     return M, pdf
 
 
-def eval_f(tables: Tables, mat_id, wi, wo, uv, k, at: MaterialAt = None):
+def eval_f(tables: Tables, mat_id, wi, wo, uv, k, duv=None,
+           at: MaterialAt = None):
     """Evaluate the non-delta lobes: returns (M (N,4,4), pdf (N,)). M
     includes the |wo.z| cosine; pdf is the density `sample` would have for
-    (wi → wo), for MIS. The null lobe is a delta: M = 0, pdf = 0. `at`:
-    the material at (mat_id, uv, k) from `material_at`, if formed."""
+    (wi → wo), for MIS. The null and dielectric lobes are deltas: M = 0,
+    pdf = 0. A mask scales both by its opacity. `at`: the material at
+    (mat_id, uv, k, duv) from `material_at`, if formed."""
     if at is None:
-        at = material_at(tables, mat_id, uv, k)
+        at = material_at(tables, mat_id, uv, k, duv)
     row, mtype, refl = at.row, at.mtype, at.refl
-    flip = (row[:, C_TWOSIDED] > 0.5) & (wi[..., 2] < 0.0)
-    sgn = torch.where(flip, -1.0, 1.0).to(wi.dtype)
+    sgn = _twosided_sign(row, wi)
     wi_l = _flip_z(wi, sgn)
     wo_l = _flip_z(wo, sgn)
     scale = row[:, C_SCALE]
@@ -330,10 +423,25 @@ def eval_f(tables: Tables, mat_id, wi, wo, uv, k, at: MaterialAt = None):
         is_s = mtype == MT_SPM
         M = torch.where(is_s[..., None, None], M_spm, M)
         pdf = torch.where(is_s, pdf_spm, pdf)
+    if at.opacity is not None:
+        M = M * at.opacity[..., None, None]
+        pdf = pdf * at.opacity
     return M, pdf
 
 
-def apply_normalmap(tables: Tables, mat_id, uv, k, sf):
-    """Normal maps are not ported yet (baking one raises), so the shading
-    frame passes through unchanged."""
-    return sf
+def apply_normalmap(tables: Tables, mat_id, uv, k, sf, duv=None):
+    """Perturb a shading frame by the material's normal map (tangent-space
+    RGB in [0, 1] → normal); lanes whose material has none keep `sf`."""
+    if not tables.materials.has_normalmap:
+        return sf
+    eff = tables.materials.resolve(mat_id, k).clamp_min(0).long()
+    tex = tables.materials.pack[eff, C_NORMALMAP_TEX].to(torch.int32)
+    rgb = eval_texture_rgb(tables.textures, tables.spectra, tex, uv, duv)
+    n_local = 2.0 * rgb - 1.0
+    n_local = n_local / torch.linalg.vector_norm(
+        n_local, dim=-1, keepdim=True).clamp_min(1e-6)
+    perturbed = frame_mod.build_shading_frame(sf.to_world(n_local), sf.t)
+    use = (tex >= 0)[..., None]
+    return frame_mod.Frame(t=torch.where(use, perturbed.t, sf.t),
+                           b=torch.where(use, perturbed.b, sf.b),
+                           n=torch.where(use, perturbed.n, sf.n))

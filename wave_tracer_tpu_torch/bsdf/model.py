@@ -1,11 +1,9 @@
 """Host-side material model (flattened BSDF trees).
 
-Port of wave_tracer_tpu/bsdf/model.py for the lobes the port renders: a
-`Material` is a base lobe (diffuse, surface_spm, or None for a
-null/passthrough surface) plus wrapper attributes. The dielectric and
-composite lobes, opacity masks and normal maps are not ported yet; the
-latter two are kept as fields so a scene that sets them fails loudly at
-bake time.
+Port of wave_tracer_tpu/bsdf/model.py: a `Material` is a base lobe
+(diffuse, dielectric, surface_spm, a composite of child materials by
+wavenumber band, or None for a null/passthrough surface) plus wrapper
+attributes (twosided, scale, an opacity mask and a normal map).
 """
 
 from __future__ import annotations
@@ -34,6 +32,15 @@ class DiffuseBSDF:
 
 
 @dataclass
+class DielectricBSDF:
+    """Smooth dielectric interface: Fresnel reflection or refraction."""
+    ior: ComplexSpectrum = None            # material η(k)
+    ext_ior: Optional[ComplexSpectrum] = None
+    reflection_scale: Optional[Spectrum] = None
+    transmission_scale: Optional[Spectrum] = None
+
+
+@dataclass
 class SpmBSDF:
     """surface_spm: the wave BSDF (first-order small-perturbation scatter
     plus a Rayleigh-attenuated specular lobe)."""
@@ -45,11 +52,19 @@ class SpmBSDF:
 
 
 @dataclass
+class CompositeBSDF:
+    """Wavelength-binned BSDF switch: the first bin [kmin, kmax) that
+    holds k selects its child material; outside every bin, no
+    interaction (null)."""
+    bins: list = field(default_factory=list)   # [(kmin, kmax, Material)]
+
+
+@dataclass
 class Material:
     """A flattened BSDF tree: base lobe + wrapper attributes."""
-    bsdf: object = None                   # DiffuseBSDF, SpmBSDF or None
+    bsdf: object = None                   # Diffuse/Dielectric/Spm/Composite
     twosided: bool = False
     scale: float = 1.0
-    opacity: Optional[Texture] = None     # mask wrapper (not ported yet)
-    normalmap: Optional[Texture] = None   # normalmap wrapper (not ported)
+    opacity: Optional[Texture] = None     # mask wrapper
+    normalmap: Optional[Texture] = None   # normalmap wrapper
     name: str = ""

@@ -96,6 +96,20 @@ def _sample_emitter_by_power(et, u):
     return e.to(torch.int32), et.power[e] / tot
 
 
+def bsdf_uniforms(tables, dkeys, u_dir):
+    """The four uniforms of `bsdf.sample`: the lobe pair (D_BSDF_LOBE),
+    then the direction pair. The lobe pair is drawn only for a table whose
+    rows read it (dielectric, surface_spm or masked rows): the diffuse and
+    null lobes read only the direction pair, and the sampler is stateless
+    per dimension, so leaving it undrawn shifts no other draw."""
+    mat = tables.materials
+    if mat.has_dielectric or mat.has_spm or mat.has_mask:
+        lobe = rng.uniform(dkeys, rng.D_BSDF_LOBE, 2)
+    else:
+        lobe = torch.zeros_like(u_dir)
+    return torch.cat([lobe, u_dir], dim=-1)
+
+
 def carried_hit(st):
     """The need/carry arguments of a bounce's trace: a lane whose ray is
     still the one its carried hit (hit_t, hit_tri) was traced for
@@ -177,11 +191,8 @@ def classical_bounce(data, st, dkeys, k, depth, *, eps, mis, rr_depth,
         & (f_nee[:, 0, 0] > 0)
     L = L + torch.where(ok_nee[:, None], w_mis_n[:, None] * c_nee, zero4)
 
-    # --- BSDF sampling / continuation. The ported lobes (diffuse, null)
-    # read only the direction pair u4[2:4]; the sampler is stateless, so
-    # the unread lobe pair (D_BSDF_LOBE) need not be drawn.
-    u_b = torch.cat([torch.zeros((N, 2), dtype=torch.float32, device=dev),
-                     rng.uniform(dkeys, rng.D_BSDF_DIR, 2)], dim=-1)
+    # --- BSDF sampling / continuation
+    u_b = bsdf_uniforms(tables, dkeys, rng.uniform(dkeys, rng.D_BSDF_DIR, 2))
     bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k, u_b)
     wo_w = sf.to_world(bs.wo)
     M_next, xf_next = compose_scatter(st["M"], st["xf"], -st["rd"], bs.Mw,

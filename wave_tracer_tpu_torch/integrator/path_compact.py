@@ -52,8 +52,7 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
     one-step body, over (data, base_key, id_end)."""
     W, H = sensor.width, sensor.height
     npix = W * H
-    if getattr(sensor, "polarimetric", False):
-        raise NotImplementedError("polarimetric sensors are not ported yet")
+    polarimetric = bool(getattr(sensor, "polarimetric", False))
 
     def fresh(data, base_key, ids):
         """Camera-ray lane state for (pixel, sample) ids (int64 (n,))."""
@@ -108,7 +107,13 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
         return ps, meta
 
     def to_values(ps, meta):
-        return (ps["L"] * meta["w_spectral"][:, None])[:, 0:1] * meta["sens"]
+        """Response-weighted channel values; a polarimetric sensor gets
+        all four Stokes components per channel (I/Q/U/V interleaved)."""
+        Lw = ps["L"] * meta["w_spectral"][:, None]
+        if polarimetric:
+            return (Lw[:, None, :] * meta["sens"][..., None]).reshape(
+                Lw.shape[0], -1)
+        return Lw[:, 0:1] * meta["sens"]
 
     def init_state(data, film, base_key, id_start, N, device):
         """An empty pool (all dead, nothing pending); the first step

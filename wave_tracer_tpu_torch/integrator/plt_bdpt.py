@@ -15,6 +15,8 @@ unbiased RIS draw redirects the beam. FSD vertices serve as connection
 endpoints through their stored aperture. The camera subpath composes
 frame-aware Mueller operators, the light subpath carries Stokes vectors;
 light-tracing (t = 1) splats are returned separately for the light image.
+A polarimetric sensor's values are all four Stokes components per
+response channel (I/Q/U/V interleaved).
 
 The JAX module's fori_loops over walk steps, s = 0 strategies, the
 S·(T+1) connections and the t = 1 splats are Python loops over static
@@ -41,7 +43,7 @@ from wave_tracer_tpu_torch.emitter import table as etab
 from wave_tracer_tpu_torch.integrator.path import (
     N_STATS, STAT_DEPTH_SUM, STAT_EDGE_HIT, STAT_FSD, STAT_NULL, STAT_RAYS,
     STAT_SHADOW, STAT_SURFACE, _perp_axis, _sample_emitter_by_power,
-    compose_scatter)
+    bsdf_uniforms, compose_scatter)
 from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.math import gaussian2d as g2d
 from wave_tracer_tpu_torch.math import vec
@@ -309,11 +311,10 @@ def _walk(data, keys, k, ro, rd, beta0, pdf_dir0, max_verts, eps,
         _emit_at(st["fsd_v"], cur, fsd_lane, store)
         _emit_at(st["valid"], cur, store, store)
 
-        # ---- continue the walk. The ported lobes (diffuse, null) read
-        # only the direction pair u4[2:4], so the lobe pair is not drawn
-        u_dir = rng.uniform(dkeys, rng.D_BSDF_DIR, 2)
+        # ---- continue the walk
         bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k,
-                             torch.cat([torch.zeros_like(u_dir), u_dir], -1))
+                             bsdf_uniforms(tables, dkeys, rng.uniform(
+                                 dkeys, rng.D_BSDF_DIR, 2)))
         wo_w = sf.to_world(bs.wo)
 
         # reverse pdf of the PREVIOUS vertex from here (for MIS)
@@ -483,8 +484,6 @@ def trace_bdpt(data, pixel_xy, jitter, base_key, sample_ids, *, sensor,
     S = max_depth          # camera subpath vertices
     T = max_depth          # light subpath vertices
     use_fsd = bool(fsd) and data.edges.count > 0
-    if getattr(sensor, "polarimetric", False):
-        raise NotImplementedError("polarimetric sensors are not ported yet")
     f32 = torch.float32
 
     def full(val, dtype=f32):
@@ -817,9 +816,16 @@ def trace_bdpt(data, pixel_xy, jitter, base_key, sample_ids, *, sensor,
     lt_val = torch.stack(lt_val, dim=1)                 # (N, T, 4)
     lt_ok = torch.stack(lt_ok, dim=1)
     splat_pos = pixel_xy.to(f32) + jitter
-    values = (L * w_spectral[:, None])[:, 0:1] * sens
-    lt_values = (lt_val * w_spectral[:, None, None])[..., 0:1] \
-        * sens[:, None, :]
+    Lw = L * w_spectral[:, None]
+    ltw = lt_val * w_spectral[:, None, None]
+    if getattr(sensor, "polarimetric", False):
+        # all four Stokes components per channel (I/Q/U/V interleaved)
+        values = (Lw[:, None, :] * sens[..., None]).reshape(N, -1)
+        lt_values = (ltw[:, :, None, :]
+                     * sens[:, None, :, None]).reshape(N, T, -1)
+    else:
+        values = Lw[:, 0:1] * sens
+        lt_values = ltw[..., 0:1] * sens[:, None, :]
     C = lt_values.shape[-1]
     out = (splat_pos, values, torch.ones((N,), dtype=torch.bool, device=dev),
            (lt_pos.reshape(N * T, 2), lt_values.reshape(N * T, C),

@@ -31,8 +31,8 @@ from wave_tracer_tpu_torch.emitter import table as etab
 from wave_tracer_tpu_torch.integrator import traversal as traversal_mod
 from wave_tracer_tpu_torch.integrator.path import (
     N_TRI_HIST, _contribution, _emitter_pmf,
-    _perp_axis, _power_heuristic, _sample_emitter_by_power, carried_hit,
-    compose_scatter, next_carried_hit, tri_hist_bin)
+    _perp_axis, _power_heuristic, _sample_emitter_by_power, bsdf_uniforms,
+    carried_hit, compose_scatter, next_carried_hit, tri_hist_bin)
 from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.math import vec
 from wave_tracer_tpu_torch.sampling import rng
@@ -184,15 +184,18 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
                               w_mis_e[:, None] * _contribution(M_cur, Le),
                               zero4)
 
-    # ---- NEE (surface lanes). The ported diffuse lobe reads no
-    # footprint, so the mip footprint (duv) of the JAX module is not formed.
+    # ---- NEE (surface lanes)
     u_pick = rng.uniform(dkeys, rng.D_EMITTER_PICK)
     e_n, pmf_n = _sample_emitter_by_power(et, u_pick)
     u_nee = rng.uniform(dkeys, rng.D_NEE, 3)
     nee = etab.sample_direct(et, geo, tables.spectra, e_n, hit.p, k, u_nee)
     wo_nee_l = sf.to_local(nee["wo"])
+    # uv-space footprint diameter of the beam for mip-filtered bitmap
+    # lookups (read by bitmap rows only)
+    duv = 2.0 * fp_int / vec.length(hit.dpdu).clamp_min(1e-9) \
+        if tables.textures.has_bitmap else None
     f_nee, pdf_b_nee = bsdf_dev.eval_f(tables, hit.mat_id, wi_l, wo_nee_l,
-                                       hit.uv, k)
+                                       hit.uv, k, duv)
     # read only through ok_nee
     occ = trace_mod.occluded(geo, hit.p, nee["wo"], full(N, eps),
                              nee["dist"] - 2.0 * eps, hit.tri, nee["tri"],
@@ -207,12 +210,10 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
         & (f_nee[:, 0, 0] > 0)
     L = L + torch.where(ok_nee[:, None], w_mis_n[:, None] * c_nee, zero4)
 
-    # ---- surface interaction. The ported lobes (diffuse, null) read only
-    # the direction pair u4[2:4]; the sampler is stateless, so the unread
-    # lobe pair (D_BSDF_LOBE) need not be drawn.
+    # ---- surface interaction
     u_dir = rng.uniform(dkeys, rng.D_BSDF_DIR, 2)
-    u_b = torch.cat([torch.zeros_like(u_dir), u_dir], dim=-1)
-    bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k, u_b)
+    bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k,
+                         bsdf_uniforms(tables, dkeys, u_dir), duv)
     wo_surface = sf.to_world(bs.wo)
     M_surf, xf_surf = compose_scatter(M_cur, st["xf"], -rd, bs.Mw,
                                       -wo_surface)

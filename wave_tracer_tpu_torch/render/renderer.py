@@ -1,7 +1,8 @@
 """Render orchestration: backward rendering of a perspective sensor, forward
 rendering of a virtual-plane coverage sensor.
 
-Port of wave_tracer_tpu/render/renderer.py. For a perspective sensor the
+Port of wave_tracer_tpu/render/renderer.py. For a perspective sensor
+(RGB or polarimetric, whose film holds I/Q/U/V per channel) the
 integrator `plt_path` — with free-space diffraction on (the wave bounce,
 when the scene has wedge edges) or off (the classical bounce), or in
 ray-trace-only mode — runs through the compacted pool
@@ -103,11 +104,6 @@ class Renderer:
         if isinstance(sensor, VirtualPlaneSensor):
             return self._render_forward(data, sensor, spp, cfg,
                                         1e-4 * scene.world_radius(), device)
-        if built.data.tables.materials.has_spm:
-            raise NotImplementedError(
-                "surface_spm materials render through forward transport "
-                "(virtual-plane sensors) only: their backward transport is "
-                "not ported yet")
         trace_only = sensor.ray_trace_only or cfg.ray_trace_only
         if cfg.type not in ("plt_path", "plt_bdpt") and not trace_only:
             raise NotImplementedError(f"{cfg.type} is not ported yet")
@@ -117,7 +113,7 @@ class Renderer:
         fsd_on = (cfg.fsd and not trace_only
                   and 0 < n_edges <= MAX_FSD_EDGES)
         W, H = sensor.width, sensor.height
-        film = film_mod.make_film(W, H, sensor.response.channels,
+        film = film_mod.make_film(W, H, _film_channels(sensor),
                                   sensor.rfilter_sigma, device=device)
         eps = 1e-4 * scene.world_radius()
         if cfg.type == "plt_bdpt" and not trace_only:
@@ -184,10 +180,8 @@ class Renderer:
         as points into the light image, developed by the samples per
         element."""
         W, H = sensor.width, sensor.height
-        C = sensor.response.channels \
-            * (4 if getattr(sensor, "polarimetric", False) else 1)
-        film = film_mod.make_film(W, H, C, sensor.rfilter_sigma,
-                                  device=device)
+        film = film_mod.make_film(W, H, _film_channels(sensor),
+                                  sensor.rfilter_sigma, device=device)
         wave = cfg.fsd and 0 < data.edges.count <= MAX_FSD_EDGES
         fsd_mode = "fraunhofer" if cfg.type == "plt_bdpt" else "utd"
         lanes = self.pool_lanes or (
@@ -216,6 +210,12 @@ class Renderer:
                          mode="forward-wave" if wave else "forward",
                          spp_done=spe, interrupted=False, pool_lanes=lanes,
                          batches=batch)
+
+
+def _film_channels(sensor):
+    """A polarimetric sensor's film holds I/Q/U/V per response channel."""
+    return sensor.response.channels \
+        * (4 if getattr(sensor, "polarimetric", False) else 1)
 
 
 def _stats(dt, paths, mode, spp, lanes, stats):

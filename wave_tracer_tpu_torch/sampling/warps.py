@@ -12,6 +12,7 @@ import math
 import torch
 
 INV_PI = 1.0 / math.pi
+INV_2PI = 1.0 / (2.0 * math.pi)
 INV_4PI = 1.0 / (4.0 * math.pi)
 
 
@@ -51,6 +52,16 @@ def cosine_hemisphere(u):
 
 def cosine_hemisphere_pdf(cos_theta):
     return cos_theta.clamp_min(0.0) * INV_PI
+
+
+def uniform_cone(solid_angle, u):
+    """Uniform direction in a cone of the given solid angle around +z:
+    cos θ in [1 − sa/2π, 1]."""
+    cos_theta = 1.0 - u[..., 0] * solid_angle * INV_2PI
+    sin_theta = torch.sqrt((1.0 - cos_theta * cos_theta).clamp_min(0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)
 
 
 def uniform_triangle(u):

@@ -10,11 +10,11 @@ Keys the port does not read (BVH nodes, Pallas feature layouts, edge and
 triangle clusters) are ignored: the kernel rows are rebuilt here from
 p0/e1/e2/mxu_center.
 
-Rows the port cannot render (dielectric and composite materials, opacity
-masks, normal maps, bitmap/checker textures, spot or directional
-emitters) raise NotImplementedError here rather than render wrongly;
-diffuse, surface_spm and null rows load, with the complex-IOR table
-(`tables.cspectra.*`) that SPM rows read.
+The tables learn here which row types and features they hold (the
+`has_*` flags of the material, texture and emitter tables), so that the
+device code forms no term that no row selects. A material, texture or
+emitter type code the port does not know raises NotImplementedError
+rather than render wrongly.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ from wave_tracer_tpu_torch.spectrum.bake import (ComplexSpectrumTable,
 from wave_tracer_tpu_torch.texture import texture as tex
 
 GEO_KEYS = ("p0", "e1", "e2", "tri_geom", "tri_attr", "mxu_center")
-MATERIAL_KEYS = ("pack", "comp_child")
-TEXTURE_KEYS = ("pack",)
+MATERIAL_KEYS = ("pack", "comp_child", "comp_kmin", "comp_kmax")
+TEXTURE_KEYS = ("pack", "atlas", "atlas_size", "mip_info", "n_mips")
 SPECTRA_KEYS = ("vals", "log_kmin", "log_kmax")
 CSPECTRA_KEYS = ("n", "kappa", "log_kmin", "log_kmax")
 EMITTER_KEYS = ("pack", "etype", "spec_id", "power", "area_total",
@@ -67,27 +67,19 @@ class SceneData:
 
 
 def _check_ported(a):
-    pack = a["tables.materials.pack"]
-    mtype = pack[:, mtab.C_MTYPE].astype(np.int32)
-    if not np.isin(mtype, (mtab.MT_DIFFUSE, mtab.MT_SPM,
-                           mtab.MT_NULL)).all():
-        raise NotImplementedError(
-            "dielectric materials are not ported yet (the port renders "
-            "diffuse, surface_spm and null materials)")
-    if (pack[:, mtab.C_OPACITY_TEX] >= 0).any() \
-            or (pack[:, mtab.C_NORMALMAP_TEX] >= 0).any():
-        raise NotImplementedError(
-            "opacity masks and normal maps are not ported yet")
-    if (a["tables.materials.comp_child"] >= 0).any():
-        raise NotImplementedError("composite materials are not ported yet")
-    ttype = a["tables.textures.pack"][:, tex.C_TYPE].astype(np.int32)
-    if not np.isin(ttype, (tex.TYPE_CONST_SPECTRUM,
-                           tex.TYPE_CONST_RGB)).all():
-        raise NotImplementedError(
-            "bitmap and checkerboard textures are not ported yet")
-    if not np.isin(a["emitters.etype"], (etab.ET_AREA, etab.ET_POINT)).all():
-        raise NotImplementedError(
-            "spot and directional emitters are not ported yet")
+    codes = (
+        ("material type", a["tables.materials.pack"][:, mtab.C_MTYPE],
+         (mtab.MT_DIFFUSE, mtab.MT_DIELECTRIC, mtab.MT_SPM, mtab.MT_NULL)),
+        ("texture type", a["tables.textures.pack"][:, tex.C_TYPE],
+         (tex.TYPE_CONST_SPECTRUM, tex.TYPE_CONST_RGB, tex.TYPE_BITMAP,
+          tex.TYPE_CHECKERBOARD)),
+        ("emitter type", a["emitters.etype"],
+         (etab.ET_AREA, etab.ET_POINT, etab.ET_SPOT, etab.ET_DIRECTIONAL)))
+    for what, col, known in codes:
+        unknown = np.setdiff1d(col.astype(np.int32), known)
+        if unknown.size:
+            raise NotImplementedError(
+                f"{what} {unknown.tolist()} is not ported")
 
 
 def scene_data_from_numpy(arrays: dict, device) -> SceneData:
@@ -108,15 +100,25 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     geo = GeoArrays(p0=p0, e1=e1, e2=e2, tri_geom=t("geo.tri_geom", f32),
                     tri_attr=t("geo.tri_attr", f32), mxu_center=center,
                     tri_feat=ray_kernels.tri_features(p0, e1, e2, center))
-    tpack = a["tables.textures.pack"]
+    mpack = a["tables.materials.pack"]
+    mtype = mpack[:, mtab.C_MTYPE]
+    ttype = a["tables.textures.pack"][:, tex.C_TYPE]
     tables = Tables(
         materials=mtab.MaterialTable(
-            pack=t("tables.materials.pack", f32),
-            has_spm=bool((a["tables.materials.pack"][:, mtab.C_MTYPE]
-                          == mtab.MT_SPM).any())),
+            **{k: t(f"tables.materials.{k}", i32 if k == "comp_child"
+                    else f32) for k in MATERIAL_KEYS},
+            has_spm=bool((mtype == mtab.MT_SPM).any()),
+            has_dielectric=bool((mtype == mtab.MT_DIELECTRIC).any()),
+            has_mask=bool((mpack[:, mtab.C_OPACITY_TEX] >= 0).any()),
+            has_normalmap=bool((mpack[:, mtab.C_NORMALMAP_TEX] >= 0).any()),
+            has_composite=bool((a["tables.materials.comp_child"]
+                                >= 0).any())),
         textures=tex.TextureTable(
-            pack=t("tables.textures.pack", f32),
-            has_rgb=bool((tpack[:, tex.C_TYPE] == tex.TYPE_CONST_RGB).any())),
+            **{k: t(f"tables.textures.{k}", f32 if k in ("pack", "atlas")
+                    else i32) for k in TEXTURE_KEYS},
+            has_rgb=bool((ttype != tex.TYPE_CONST_SPECTRUM).any()),
+            has_bitmap=bool((ttype == tex.TYPE_BITMAP).any()),
+            has_checker=bool((ttype == tex.TYPE_CHECKERBOARD).any())),
         spectra=SpectrumTable(vals=t("tables.spectra.vals", f32),
                               log_kmin=t("tables.spectra.log_kmin", f32),
                               log_kmax=t("tables.spectra.log_kmax", f32)),
@@ -130,7 +132,10 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
         etri_cdf=t("emitters.etri_cdf", f32),
         scene_radius=t("emitters.scene_radius", f32),
         dir=t("emitters.dir", f32), cos_cutoff=t("emitters.cos_cutoff", f32),
-        pse_scale=t("emitters.pse_scale", f32))
+        pse_scale=t("emitters.pse_scale", f32),
+        has_spot=bool((a["emitters.etype"] == etab.ET_SPOT).any()),
+        has_directional=bool((a["emitters.etype"]
+                              == etab.ET_DIRECTIONAL).any()))
     spectral = spectral_from_numpy(
         {k: a[f"spectral.{k}"] for k in SPECTRAL_KEYS}, device)
     edges = EdgeTable(**{k: t(f"edges.{k}", i32 if k in ("tri1", "tri2")

@@ -59,7 +59,8 @@ class BuiltScene:
 
 def _collect(scene: Scene):
     """Register spectra, complex spectra, textures and materials
-    (first-seen order, as the JAX package registers them)."""
+    (first-seen order, as the JAX package registers them; composite
+    children get rows of their own)."""
     spectra, cspectra, textures, materials = [], [], [], []
     sp_ids, csp_ids, tex_ids = {}, {}, {}
 
@@ -89,12 +90,16 @@ def _collect(scene: Scene):
         b = m.bsdf
         if isinstance(b, bmodel.DiffuseBSDF):
             add_tex(b.reflectance)
-        elif isinstance(b, bmodel.SpmBSDF):
+        elif isinstance(b, (bmodel.DielectricBSDF, bmodel.SpmBSDF)):
             add_cspec(b.ior)
             add_cspec(b.ext_ior)
             add_spec(b.reflection_scale)
             add_spec(b.transmission_scale)
-            add_tex(b.profile.roughness)
+            if isinstance(b, bmodel.SpmBSDF):
+                add_tex(b.profile.roughness)
+        elif isinstance(b, bmodel.CompositeBSDF):
+            for _, _, child in b.bins:
+                add_mat(child)
 
     for shape in scene.shapes:
         add_mat(shape.material)

@@ -14,6 +14,15 @@ walls) lit by a 5000 K blackbody area panel under the ceiling (or a point
 light), seen by an sRGB pinhole camera. `icosphere=True` adds the
 benchmark's scale case: a tessellation-192 icosphere of 81,920 triangles
 with the white material, placed as bench.py places it.
+
+`make_materials_box_scene` is that box with every material, texture and
+emitter type of the backward integrators in it (10,254 triangles): a
+glass sphere and a rough-conductor (surface_spm) sphere of 5,120
+triangles each, a seeded 256×256 bitmap on the back wall, a checkerboard
+floor, a composite right wall (a normal-mapped diffuse child over the
+long visible wavelengths, a rough-conductor child over the short ones),
+a masked panel with a checkerboard opacity, and a spot light with a
+piecewise-linear spectrum aimed at the glass sphere.
 """
 
 from __future__ import annotations
@@ -22,10 +31,12 @@ import math
 
 import numpy as np
 
-from wave_tracer_tpu_torch.bsdf.model import (DiffuseBSDF, Material,
+from wave_tracer_tpu_torch.bsdf.model import (CompositeBSDF, DielectricBSDF,
+                                              DiffuseBSDF, Material,
                                               SpmBSDF, SurfaceProfile)
 from wave_tracer_tpu_torch.core.transform import Transform
-from wave_tracer_tpu_torch.emitter.model import AreaEmitter, PointEmitter
+from wave_tracer_tpu_torch.emitter.model import (AreaEmitter, PointEmitter,
+                                                 SpotEmitter)
 from wave_tracer_tpu_torch.geometry import mesh
 from wave_tracer_tpu_torch.scene.model import IntegratorConfig, Scene, Shape
 from wave_tracer_tpu_torch.sensor.perspective import (PerspectiveSensor,
@@ -34,11 +45,13 @@ from wave_tracer_tpu_torch.sensor.response import Response
 from wave_tracer_tpu_torch.sensor.tonemap import Tonemap
 from wave_tracer_tpu_torch.sensor.virtual_plane import VirtualPlaneSensor
 from wave_tracer_tpu_torch.spectrum.ior import C_LIGHT, ITUComplexSpectrum
-from wave_tracer_tpu_torch.spectrum.spectra import (BlackbodySpectrum,
-                                                    DiscreteSpectrum,
-                                                    RGBSpectrum,
-                                                    UniformSpectrum)
-from wave_tracer_tpu_torch.texture.texture import ConstantSpectrumTexture
+from wave_tracer_tpu_torch.spectrum.spectra import (
+    K_VISIBLE_MAX, K_VISIBLE_MIN, BlackbodySpectrum, ComplexUniformSpectrum,
+    DiscreteSpectrum, PiecewiseLinearSpectrum, RGBSpectrum, UniformSpectrum)
+from wave_tracer_tpu_torch.texture.texture import (BitmapTexture,
+                                                   CheckerboardTexture,
+                                                   ConstantRGBTexture,
+                                                   ConstantSpectrumTexture)
 
 
 def make_box_scene(res=32, spp=8, emitter="area", icosphere=False):
@@ -96,6 +109,60 @@ def make_box_scene(res=32, spp=8, emitter="area", icosphere=False):
                                        white_point="D65"))
     return Scene(shapes=shapes, emitters=emitters, sensors=[sensor],
                  integrator=IntegratorConfig(max_depth=5))
+
+
+def make_materials_box_scene(res=32, spp=8, seed=7):
+    """The box of `make_box_scene` with glass, a rough conductor, bitmap,
+    checkerboard, composite, normal-mapped and masked surfaces and a spot
+    light (module doc). `seed` makes the bitmap and the normal map."""
+    scene = make_box_scene(res=res, spp=spp)
+    floor, _, back, _, right = scene.shapes[:5]
+    rng = np.random.default_rng(seed)
+    floor.material = Material(bsdf=DiffuseBSDF(reflectance=CheckerboardTexture(
+        rgb_a=(0.8, 0.8, 0.8), rgb_b=(0.2, 0.2, 0.2), uv_scale=(8.0, 8.0))),
+        name="checker")
+    back.material = Material(bsdf=DiffuseBSDF(reflectance=BitmapTexture(
+        data=rng.uniform(0.1, 0.9, (256, 256, 3)).astype(np.float32))),
+        name="bitmap")
+    # tangent-space normals tilted up to ~17° off the surface normal
+    nmap = np.concatenate([rng.uniform(0.35, 0.65, (64, 64, 2)),
+                           np.ones((64, 64, 1))], axis=-1)
+    conductor = SpmBSDF(
+        ior=ComplexUniformSpectrum(0.27 + 2.9j),
+        profile=SurfaceProfile(type="gaussian", roughness=(
+            ConstantSpectrumTexture(UniformSpectrum(0.3, 1.0, 1e9)))))
+    k_mid = 2 * math.pi / 550e-9
+    right.material = Material(bsdf=CompositeBSDF(bins=[
+        (K_VISIBLE_MIN, k_mid, Material(
+            bsdf=DiffuseBSDF(reflectance=ConstantRGBTexture((0.1, 0.7, 0.2))),
+            normalmap=BitmapTexture(data=nmap.astype(np.float32)),
+            name="green_bumpy")),
+        (k_mid, K_VISIBLE_MAX, Material(bsdf=conductor, twosided=True,
+                                        name="rough_metal"))]),
+        name="composite")
+    scene.shapes += [
+        # glass sphere under the lamp, rough-conductor sphere on the left
+        Shape(mesh.sphere([0.35, 0.45, 0.1], 0.42, tessellation=48),
+              Material(bsdf=DielectricBSDF(ior=ComplexUniformSpectrum(1.5)),
+                       name="glass")),
+        Shape(mesh.sphere([-0.5, 0.35, -0.45], 0.34, tessellation=48),
+              Material(bsdf=conductor, name="rough_metal_sphere")),
+        # a 0.6 m panel facing the camera, half its checker cells cut out
+        Shape(mesh.rectangle(0.6, Transform.from_rows(
+            [1, 0, 0, -0.45, 0, 1, 0, 1.25, 0, 0, 1, 0.3, 0, 0, 0, 1])),
+            Material(bsdf=DiffuseBSDF(reflectance=ConstantRGBTexture(
+                (0.6, 0.5, 0.3))), twosided=True,
+                opacity=CheckerboardTexture(
+                    rgb_a=(1.0, 1.0, 1.0), rgb_b=(0.0, 0.0, 0.0),
+                    uv_scale=(4.0, 4.0)), name="masked"))]
+    k_nodes = 2 * math.pi / np.array([700e-9, 600e-9, 500e-9, 400e-9])
+    src, dst = np.array([-0.6, 1.75, 0.7]), np.array([0.35, 0.45, 0.1])
+    scene.emitters.append(SpotEmitter(
+        spectrum=PiecewiseLinearSpectrum(k_nodes,
+                                         np.array([1.0, 3.0, 2.0, 0.5]) * 2e-13),
+        position=src, direction=(dst - src) / np.linalg.norm(dst - src),
+        beam_width=math.radians(12.0), cutoff=math.radians(20.0)))
+    return scene
 
 
 def make_coverage_scene(res=64):

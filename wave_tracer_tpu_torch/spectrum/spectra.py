@@ -1,9 +1,11 @@
 """Host-side spectrum models (numpy, scene-build time).
 
-Port of wave_tracer_tpu/spectrum/spectra.py for the spectra the ported
-scenes use: uniform, blackbody, RGB (Smits-basis uplift) and discrete
-(weighted Dirac combs), and the complex spectra of refractive indices
-(uniform and tabulated; spectrum/ior.py adds the ITU-R P.2040 materials).
+Port of wave_tracer_tpu/spectrum/spectra.py: uniform, piecewise-linear,
+binned, blackbody, Gaussian, analytic (an expression of k, λ or f),
+RGB (Smits-basis uplift), discrete (weighted Dirac combs), scaled and
+composite (wavenumber-binned) spectra, and the complex spectra of
+refractive indices (uniform and tabulated; spectrum/ior.py adds the
+ITU-R P.2040 materials).
 The spectral variable is the wavenumber k = 2π/λ in rad/m; real spectra
 are densities over k whose integral is the total power.
 """
@@ -11,11 +13,12 @@ are densities over k whose integral is the total power.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
 
+from wave_tracer_tpu_torch.core.expr import evaluate
 from wave_tracer_tpu_torch.spectrum import cie
 
 TWO_PI = 2.0 * math.pi
@@ -41,6 +44,20 @@ class Spectrum:
         k = _sample_grid(lo, hi)
         return float(np.trapezoid(self.eval(k), k))
 
+    def mean_wavenumber(self) -> float:
+        lo, hi = self.krange()
+        k = _sample_grid(lo, hi)
+        f = self.eval(k)
+        tot = np.trapezoid(f, k)
+        if tot <= 0:
+            return 0.5 * (lo + hi)
+        return float(np.trapezoid(f * k, k) / tot)
+
+    def scaled(self, s: float) -> "Spectrum":
+        if s == 1.0:
+            return self
+        return ScaledSpectrum(self, s)
+
 
 def _sample_grid(lo: float, hi: float, n: int = 2048) -> np.ndarray:
     """Log-spaced k grid (spectra can span radio..optical decades)."""
@@ -48,6 +65,26 @@ def _sample_grid(lo: float, hi: float, n: int = 2048) -> np.ndarray:
     if hi / lo < 4.0:
         return np.linspace(lo, hi, n)
     return np.geomspace(lo, hi, n)
+
+
+@dataclass
+class ScaledSpectrum(Spectrum):
+    base: Spectrum
+    scale: float
+
+    @property
+    def is_discrete(self):
+        return self.base.is_discrete
+
+    def eval(self, k):
+        return self.scale * self.base.eval(k)
+
+    def krange(self):
+        return self.base.krange()
+
+    def lines(self):
+        k, w = self.base.lines()
+        return k, self.scale * w
 
 
 @dataclass
@@ -69,6 +106,52 @@ class UniformSpectrum(Spectrum):
 
 
 @dataclass
+class PiecewiseLinearSpectrum(Spectrum):
+    """Nodes (k, value), linearly interpolated, zero outside."""
+    k_nodes: np.ndarray
+    values: np.ndarray
+
+    def __post_init__(self):
+        order = np.argsort(self.k_nodes)
+        self.k_nodes = np.asarray(self.k_nodes, np.float64)[order]
+        self.values = np.asarray(self.values, np.float64)[order]
+
+    def eval(self, k):
+        return np.interp(np.asarray(k), self.k_nodes, self.values,
+                         left=0.0, right=0.0)
+
+    def krange(self):
+        return (float(self.k_nodes[0]), float(self.k_nodes[-1]))
+
+    def power(self):
+        return float(np.trapezoid(self.values, self.k_nodes))
+
+
+@dataclass
+class BinnedSpectrum(Spectrum):
+    """Piecewise-constant over wavenumber bin edges."""
+    k_edges: np.ndarray   # (B+1,) sorted
+    values: np.ndarray    # (B,)
+
+    def __post_init__(self):
+        self.k_edges = np.asarray(self.k_edges, np.float64)
+        self.values = np.asarray(self.values, np.float64)
+
+    def eval(self, k):
+        k = np.asarray(k)
+        i = np.clip(np.searchsorted(self.k_edges, k, side="right") - 1,
+                    0, len(self.values) - 1)
+        inside = (k >= self.k_edges[0]) & (k <= self.k_edges[-1])
+        return np.where(inside, self.values[i], 0.0)
+
+    def krange(self):
+        return (float(self.k_edges[0]), float(self.k_edges[-1]))
+
+    def power(self):
+        return float(np.sum(self.values * np.diff(self.k_edges)))
+
+
+@dataclass
 class BlackbodySpectrum(Spectrum):
     """Planck radiator at temperature T [K] with a scale factor."""
     T: float
@@ -81,6 +164,50 @@ class BlackbodySpectrum(Spectrum):
         v = cie.planck_spectral_radiance_wavenumber(k, self.T)
         return self.scale * np.where((k >= self.kmin) & (k <= self.kmax),
                                      v, 0.0)
+
+    def krange(self):
+        return (self.kmin, self.kmax)
+
+
+@dataclass
+class GaussianSpectrum(Spectrum):
+    """Gaussian line centred at k0 with std-dev sigma_k (both rad/m) and
+    peak value val0 = eval(k0)."""
+    k0: float
+    sigma_k: float
+    val0: float = 1.0
+
+    def eval(self, k):
+        k = np.asarray(k)
+        return self.val0 * np.exp(-0.5 * ((k - self.k0) / self.sigma_k) ** 2)
+
+    def krange(self):
+        return (max(self.k0 - 5 * self.sigma_k, 1e-9),
+                self.k0 + 5 * self.sigma_k)
+
+    def power(self):
+        return self.val0 * self.sigma_k * math.sqrt(2 * math.pi)
+
+
+@dataclass
+class AnalyticSpectrum(Spectrum):
+    """Expression-defined spectrum over [kmin, kmax]; variables: k
+    [rad/m], lambda/lam [m], lambda_nm, f [Hz]."""
+    expr: str
+    kmin: float = K_VISIBLE_MIN
+    kmax: float = K_VISIBLE_MAX
+
+    def eval(self, k):
+        k = np.atleast_1d(np.asarray(k, np.float64))
+        out = np.zeros_like(k)
+        for i, kk in enumerate(k.ravel()):
+            lam = TWO_PI / kk
+            out.ravel()[i] = evaluate(self.expr, {
+                "k": kk, "lambda": lam, "lam": lam,
+                "lambda_nm": lam * 1e9,
+                "f": cie.C_LIGHT / lam})
+        inside = (k >= self.kmin) & (k <= self.kmax)
+        return np.where(inside, out, 0.0)
 
     def krange(self):
         return (self.kmin, self.kmax)
@@ -175,6 +302,41 @@ class DiscreteSpectrum(Spectrum):
     def mean_wavenumber(self):
         return float(np.sum(self.k_lines * self.weights)
                      / max(self.weights.sum(), 1e-300))
+
+
+@dataclass
+class CompositeSpectrum(Spectrum):
+    """Switch between child spectra by wavenumber bin [kmin, kmax)."""
+    bins: list = field(default_factory=list)  # [(kmin, kmax, Spectrum)]
+
+    @property
+    def is_discrete(self):
+        return all(s.is_discrete for _, _, s in self.bins) and bool(self.bins)
+
+    def eval(self, k):
+        k = np.asarray(k, np.float64)
+        out = np.zeros_like(k, np.float64)
+        for kmin, kmax, s in self.bins:
+            m = (k >= kmin) & (k < kmax)
+            if m.any():
+                out = np.where(m, s.eval(k), out)
+        return out
+
+    def lines(self):
+        ks, ws = [], []
+        for kmin, kmax, s in self.bins:
+            if s.is_discrete:
+                k, w = s.lines()
+                sel = (k >= kmin) & (k < kmax)
+                ks.append(k[sel])
+                ws.append(w[sel])
+        return (np.concatenate(ks) if ks else np.zeros(0),
+                np.concatenate(ws) if ws else np.zeros(0))
+
+    def krange(self):
+        lo = min(max(kmin, s.krange()[0]) for kmin, kmax, s in self.bins)
+        hi = max(min(kmax, s.krange()[1]) for kmin, kmax, s in self.bins)
+        return (lo, hi)
 
 
 # ---------------------------------------------------------------------------
