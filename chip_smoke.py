@@ -1,7 +1,9 @@
 """On-card smoke test of the PyTorch/CUDA port (wave_tracer_tpu_torch).
 
 Drives the port's main paths through the entry points a user calls
-(`scene.build_scene`, `render.render_scene`) on one CUDA card — the
+(`scene.build_scene`, `render.render_scene`, and for pixel gradients
+`integrator.path.trace_paths` / `integrator.plt_path.trace_paths_wave`)
+on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
 the persistent compacted wavefront, plt_bdpt with Fraunhofer FSD through
@@ -139,8 +141,34 @@ Phases (each raises on failure; nothing is caught):
      the bars of tests/test_torch_materials_render.py: classical (depth
      5) per pixel, the wave path (depth 5) and polarimetric bdpt (depth
      4, the intensity planes, Stokes physicality on the card)
+ 19. pixel gradients at full width through trace_paths_wave and
+     trace_paths (`torch.autograd.forward_ad` and `.backward()`), counters
+     zeroed just before each mode and read just after: K1, K2 and K3 must
+     have launched under each. (a) The bench wave box (256x256 lanes, 1
+     spp, depth 8, FSD on): the forward-mode pixel map w.r.t. the
+     emitters' spectra scale equals the image (the image is linear in
+     it) within rtol 1e-4; (b) the gradient of the image mean w.r.t.
+     every spectra row by reverse mode in lane batches of GRAD_BATCH,
+     the two largest against central differences (h 0.05) at rtol 0.2;
+     (c) the classical box (depth 2): the forward-mode map w.r.t. a
+     back-wall translation against central differences (h 5e-3), > 97%
+     of pixels at rtol 0.15, atol 0.03·max|fd|. Prints each mode's
+     paths/s against the plain forward's, the batch width and the peak
+     memory
+ 20. the maps of phase 19 (spectra rows classical and wave, the wall
+     translation) at 16x16, depth 3, on the card and on the CPU (plain
+     versions) at the image bars: classical >= 98% of pixels within
+     1e-3·max(|ref|, mean|ref|), wave Pearson >= 0.999 and >= 90% within
+     1e-2·max
+ 21. the batched renderer (`Renderer(compact=False)`: trace_paths_wave /
+     trace_paths over pixel batch × spp batch lanes) renders the wave box
+     of phase 8 and the classical box of phase 4, each held against the
+     pool's image at the wave and classical bars; its paths/s and
+     launches
  11. (last) prints the kernels' JSON line (each kernel's launches on the
-     wave main path, per path under "launches_by_path", and K1's and K2's
+     wave main path, per path under "launches_by_path" (the gradient
+     modes of phase 19 and the batched renders of phase 21 included),
+     and K1's and K2's
      timings in the bdpt, coverage and materials renders under
      "in_bdpt_render", "in_coverage_render", "in_materials_render" and
      "in_materials_bdpt_render", and the materials calls' agreement with
@@ -1114,6 +1142,264 @@ def check_calls_vs_plain(rk, ck, cap):
               flush=True)
     return out
 
+GRAD_BATCH = 1 << 14        # lanes per reverse-mode batch (phase 19b)
+
+
+def grad_lanes(res, dev):
+    """One lane per pixel of a res² film at sample 0, jittered as the
+    renderers jitter it: (pixel_xy, jitter, sample ids)."""
+    from wave_tracer_tpu_torch.sampling import rng
+    pix = torch.arange(res * res, device=dev)
+    sid = torch.zeros_like(pix)
+    jit = rng.uniform(rng.sample_key(0, pix, sid), rng.D_PIXEL_JITTER, 2)
+    return torch.stack([pix % res, pix // res], -1), jit, sid
+
+
+def scaled_rows(data, rs):
+    """data with every spectra row i scaled by rs[i]."""
+    import dataclasses
+    st = data.tables.spectra
+    return dataclasses.replace(data, tables=dataclasses.replace(
+        data.tables, spectra=dataclasses.replace(
+            st, vals=st.vals * rs[:, None])))
+
+
+def translated(data, shape_id, delta):
+    """data with one shape moved rigidly by delta (3,): p0 and the packed
+    tri_geom rows, as the JAX package's gradient tests move a wall."""
+    import dataclasses
+    mask = (data.geo.tri_attr[:, 22] == shape_id).float()[:, None]
+    d3 = mask * delta[None, :]
+    geo = dataclasses.replace(
+        data.geo, p0=data.geo.p0 + d3,
+        tri_geom=data.geo.tri_geom + torch.nn.functional.pad(d3, (0, 9)))
+    return dataclasses.replace(data, geo=geo)
+
+
+def path_values(data, sensor, lanes, wave, depth, sl=slice(None)):
+    """The (lanes, C) values of trace_paths_wave (wave) or trace_paths over
+    the lanes `sl` of `lanes` (pixel_xy, jitter, sample ids), seed 0."""
+    from wave_tracer_tpu_torch.integrator.path import trace_paths
+    from wave_tracer_tpu_torch.integrator.plt_path import trace_paths_wave
+    pxy, jit, sid = (x[sl] for x in lanes)
+    if wave:
+        return trace_paths_wave(data, pxy, jit, 0, sid, sensor=sensor,
+                                edge_table=data.edges, max_depth=depth,
+                                eps=1e-4)[1]
+    return trace_paths(data, pxy, jit, 0, sid, sensor=sensor,
+                       max_depth=depth, eps=1e-4)[1]
+
+
+def forward_map(f, x, dx):
+    """(f(x), the forward-mode derivative of f along dx)."""
+    import torch.autograd.forward_ad as fwAD
+    with fwAD.dual_level():
+        primal, tangent = fwAD.unpack_dual(f(fwAD.make_dual(x, dx)))
+    return primal, tangent
+
+
+def synced(fn):
+    """(fn(), its wall seconds with the card's queue drained on both
+    sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def emitter_mask(data):
+    S = data.tables.spectra.vals.shape[0]
+    mask = torch.zeros(S, device=data.tables.spectra.vals.device)
+    ids = data.emitters.spec_id
+    mask[ids[ids >= 0].long()] = 1.0
+    check(bool(mask.any()), "no emitter spectra rows")
+    return mask
+
+
+def fd_share(g, fd, rtol, atol_frac):
+    """Share of entries where AD matches central differences (np.isclose,
+    atol a fraction of max|fd|)."""
+    scale = max(float(np.abs(fd).max()), 1e-30)
+    return float(np.isclose(g, fd, rtol=rtol, atol=atol_frac * scale).mean())
+
+
+def image_bars(a, ref, wave):
+    """Classical: the share of pixels within 1e-3·max(|ref|, mean|ref|);
+    wave: (Pearson, the share within 1e-2·max(|ref|, mean|ref|))."""
+    scale = np.maximum(np.abs(ref), np.abs(ref).mean())
+    share = float((np.abs(a - ref) <= (1e-2 if wave else 1e-3) * scale)
+                  .all(-1).mean())
+    if not wave:
+        return share
+    return float(np.corrcoef(a.ravel(), ref.ravel())[0, 1]), share
+
+
+def check_gradients_full(rk, ck, built_wave, built_classical):
+    """Phase 19: both AD modes at full width on the card, through
+    trace_paths_wave (the bench wave box, 256² lanes at 1 spp, depth 8)
+    and trace_paths (the classical box, depth 2). Returns ({mode: K1/K2/K3
+    launches}, printed summary dict)."""
+    out, launches = {}, {}
+    data = built_wave.data
+    sensor = built_wave.scene.sensors[0]
+    dev = data.geo.p0.device
+    lanes = grad_lanes(sensor.width, dev)
+    N = lanes[0].shape[0]
+    S = data.tables.spectra.vals.shape[0]
+    ones = torch.ones(S, device=dev)
+    mask = emitter_mask(data)
+
+    def wave_values(rs, sl=slice(None)):
+        return path_values(scaled_rows(data, rs), sensor, lanes, True, 8, sl)
+
+    # warm-ups: each mode's first call pays one-time host costs (forward
+    # mode's first call takes seconds)
+    warm = slice(0, 4096)
+    with torch.no_grad():
+        wave_values(ones, warm)
+    forward_map(lambda th: wave_values(1.0 + mask * (th - 1.0), warm),
+                ones[0], ones[0])
+    wave_values(ones.clone().requires_grad_(), warm).sum().backward()
+    with torch.no_grad():
+        img, dt_plain = synced(lambda: wave_values(ones))
+    out["plain_paths_per_sec"] = N / dt_plain
+    # (a) forward mode w.r.t. the emitters' scale: linear, so map == image
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    (p, g), dt = synced(lambda: forward_map(
+        lambda th: wave_values(1.0 + mask * (th - 1.0)),
+        torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
+    launches["gradient_wave_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(all(v > 0 for v in launches["gradient_wave_forward"].values()),
+          f"phase 19a launched {launches['gradient_wave_forward']}")
+    check(torch.isfinite(g).all() and torch.allclose(p, img, rtol=1e-5,
+                                                     atol=0.0),
+          "phase 19a: non-finite map, or the primal is not the image")
+    err = float((g - img).abs().max())
+    tol = 1e-4 * float(img.abs().max())
+    check(torch.allclose(g, img, rtol=1e-4, atol=tol),
+          f"phase 19a: emitter-scale map vs image, max |diff| {err:.3e}")
+    out["forward_paths_per_sec"] = N / dt
+    out["forward_map_vs_image_max_abs"] = err
+    res = sensor.width
+    print(f"phase 19a: wave box {res}x{res} 1 spp depth 8, forward mode "
+          f"w.r.t. the emitters' scale: map == image within {err:.3e} (max "
+          f"|image| {float(img.abs().max()):.3e}); {N / dt:.1f} fwd+tangent "
+          f"paths/s ({dt:.3f} s) against {N / dt_plain:.1f} plain; "
+          f"launches {launches['gradient_wave_forward']}", flush=True)
+    # (b) reverse mode: d mean(image) / d(row scale), every row, in lane
+    # batches (the loss is a sum over lanes)
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rs = torch.ones(S, device=dev, requires_grad=True)
+
+    def reverse():
+        for b in range(0, N, GRAD_BATCH):
+            (wave_values(rs, slice(b, b + GRAD_BATCH)).sum()
+             / (N * img.shape[1])).backward()
+        return rs.grad
+
+    grad, dt = synced(reverse)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches["gradient_wave_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(all(v > 0 for v in launches["gradient_wave_reverse"].values()),
+          f"phase 19b launched {launches['gradient_wave_reverse']}")
+    check(torch.isfinite(grad).all(), f"phase 19b: gradient {grad}")
+    h = 0.05
+    rows = grad.abs().argsort(descending=True)[:2].tolist()
+    fds = []
+    with torch.no_grad():
+        for r in rows:
+            e = torch.zeros(S, device=dev)
+            e[r] = h
+            fds.append(float(wave_values(ones + e).mean()
+                             - wave_values(ones - e).mean()) / (2 * h))
+    for r, fd in zip(rows, fds):
+        check(abs(float(grad[r]) - fd) <= 0.2 * abs(fd),
+              f"phase 19b: row {r}: AD {float(grad[r]):.6e} vs FD {fd:.6e}")
+    out.update(reverse_paths_per_sec=N / dt, batch=GRAD_BATCH,
+               peak_gib=peak / 2**30, rows=rows,
+               ad=[float(grad[r]) for r in rows], fd=fds)
+    print(f"phase 19b: reverse mode, d mean / d(row scale) for {S} rows in "
+          f"lane batches of {GRAD_BATCH}: {N / dt:.1f} fwd+bwd paths/s "
+          f"({dt:.3f} s), peak memory {peak / 2**30:.2f} GiB; rows {rows}: "
+          f"AD {[f'{float(grad[r]):.6e}' for r in rows]} vs central "
+          f"differences {[f'{x:.6e}' for x in fds]}; launches "
+          f"{launches['gradient_wave_reverse']}", flush=True)
+    # (c) the classical box, depth 2: a back-wall translation along +z
+    cdata = built_classical.data
+    csensor = built_classical.scene.sensors[0]
+    zhat = torch.tensor([0.0, 0.0, 1.0], device=dev)
+
+    def wall(th):
+        return path_values(translated(cdata, 2, th * zhat), csensor, lanes,
+                           False, 2)
+
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    (_, g), dt = synced(lambda: forward_map(
+        wall, torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev)))
+    launches["gradient_classical_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    with torch.no_grad():
+        _, dt_wall = synced(lambda: wall(torch.tensor(0.0, device=dev)))
+    check(launches["gradient_classical_forward"]["closest"] > 0
+          and launches["gradient_classical_forward"]["anyhit"] > 0,
+          f"phase 19c launched {launches['gradient_classical_forward']}")
+    h = 5e-3
+    with torch.no_grad():
+        fd = ((wall(torch.tensor(h, device=dev))
+               - wall(torch.tensor(-h, device=dev))) / (2 * h)).cpu().numpy()
+    g = g.cpu().numpy()
+    check(np.isfinite(g).all() and (g != 0).any(), "phase 19c: map")
+    share = fd_share(g, fd, 0.15, 0.03)
+    check(share > 0.97, f"phase 19c: {share:.4f} of pixels match FD")
+    out.update(wall_forward_paths_per_sec=N / dt,
+               wall_plain_paths_per_sec=N / dt_wall, wall_fd_share=share)
+    print(f"phase 19c: classical box {res}x{res} 1 spp depth 2, forward mode "
+          f"w.r.t. a back-wall translation: {share:.4f} of pixels match "
+          f"central differences (rtol 0.15, atol 0.03 max|fd|); "
+          f"{N / dt:.1f} fwd+tangent paths/s against {N / dt_wall:.1f} "
+          f"plain; launches "
+          f"{launches['gradient_classical_forward']}", flush=True)
+    return launches, out
+
+
+def check_gradients_vs_cpu(build_scene, card="cuda"):
+    """Phase 20: the gradient maps of phase 19 at 16x16, depth 3, on the
+    card and on the CPU (plain versions), at the image bars."""
+    maps = {}
+    for dev in (torch.device(card), torch.device("cpu")):
+        built = build_scene(box_scene(16, 1, 3, fsd=True), device=dev)
+        data, sensor = built.data, built.scene.sensors[0]
+        lanes = grad_lanes(16, dev)
+        S = data.tables.spectra.vals.shape[0]
+        one = torch.tensor(1.0, device=dev)
+        m = {}
+        for wave in (False, True):
+            m["wave" if wave else "classical"] = forward_map(
+                lambda th: path_values(scaled_rows(
+                    data, torch.ones(S, device=dev) * th), sensor, lanes,
+                    wave, 3), one, one)[1]
+        m["wall"] = forward_map(lambda th: path_values(translated(
+            data, 2, th * torch.tensor([0.0, 0.0, 1.0], device=dev)),
+            sensor, lanes, False, 3), one * 0, one)[1]
+        maps[dev.type] = {k: v.cpu().numpy() for k, v in m.items()}
+    res = {}
+    for k in ("classical", "wall", "wave"):
+        a, b = maps[torch.device(card).type][k], maps["cpu"][k]
+        check(np.isfinite(a).all() and (a != 0).any(), f"phase 20 {k}: map")
+        res[k] = image_bars(a, b, k == "wave")
+        if k == "wave":
+            check(res[k][0] >= 0.999 and res[k][1] >= 0.90,
+                  f"phase 20 {k}: Pearson, share {res[k]}")
+        else:
+            check(res[k] >= 0.98, f"phase 20 {k}: share {res[k]:.4f}")
+    print(f"phase 20: 16x16 depth 3 gradient maps, cuda vs cpu: spectra "
+          f"rows classical {res['classical']:.4f} of pixels within 1e-3, "
+          f"wall translation {res['wall']:.4f}, wave Pearson "
+          f"{res['wave'][0]:.6f} and {res['wave'][1]:.4f} within 1e-2",
+          flush=True)
+    return res
+
 
 def zero(*counts):
     for c in counts:
@@ -1511,6 +1797,47 @@ def main():
         print(f"{tag}: 32x32 4 spp depth {depth}: cuda vs cpu: {frac:.4f} "
               f"of pixels within the bar", flush=True)
 
+    # ---- phase 19: both AD modes at full width through K1/K2/K3
+    grad_launches, g19 = check_gradients_full(
+        rk, ck, build_scene(box_scene(256, 1, 8, fsd=True), device="cuda"),
+        build_scene(box_scene(256, 1, 2), device="cuda"))
+
+    # ---- phase 20: the gradient maps, card vs CPU
+    check_gradients_vs_cpu(build_scene)
+
+    # ---- phase 21: the batched renderer against the pool's images
+    batched = {}
+    for tag, b, ref, st_ref, wave in (("wave", wbox, img8, st8, True),
+                                      ("classical", built, img, st, False)):
+        zero(rk.LAUNCHES, ck.LAUNCHES)
+        img21, st21 = render_scene(b, device="cuda", compact=False)
+        torch.cuda.synchronize()
+        batched[tag] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        check(st21["mode"] == ("wave" if wave else "ray"),
+              f"phase 21 {tag}: mode {st21['mode']}")
+        check(batched[tag]["closest"] > 0 and batched[tag]["anyhit"] > 0
+              and (batched[tag]["cone_minz"] > 0) == wave,
+              f"phase 21 {tag}: launched {batched[tag]}")
+        if wave:
+            frac = compare_images(
+                img21, ref, st21, st_ref, "phase 21 wave", mean_rtol=0.02,
+                px_tol=1e-2, px_frac=0.90, counter_rtol=0.02, corr=0.999,
+                counters=("rays_cast", "rr_terminations", "sum_path_depth",
+                          "ballistic_traversals", "diffusive_traversals"))
+        else:
+            frac = compare_images(
+                img21, ref, st21, st_ref, "phase 21 classical",
+                mean_rtol=0.01, px_tol=1e-3, px_frac=0.98,
+                counter_rtol=0.005,
+                counters=("rays_cast", "shadow_rays", "surface_interactions",
+                          "rr_terminations", "sum_path_depth"))
+        print(f"phase 21: Renderer(compact=False), {tag} box 256x256 "
+              f"{st21['paths'] // 65536} spp depth 8: "
+              f"{st21['paths_per_sec']:.1f} paths/s ({st21['seconds']:.3f} "
+              f"s, batch {st21['pool_lanes']}), {frac:.4f} of pixels within "
+              f"the bar of the pool's image; launches {batched[tag]}",
+              flush=True)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -1525,7 +1852,12 @@ def main():
                                           fr_launches[key],
                                       "materials_wave": mat_launches[key],
                                       "materials_bdpt_pol":
-                                          matb_launches[key]},
+                                          matb_launches[key],
+                                      **{k: v[key] for k, v in
+                                         grad_launches.items()},
+                                      "batched_wave": batched["wave"][key],
+                                      "batched_classical":
+                                          batched["classical"][key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)

@@ -37,8 +37,7 @@ def _torch_geo(p0, e1, e2):
     T = len(p0)
     return ttrace.GeoArrays(
         p0=t(p0), e1=t(e1), e2=t(e2), tri_geom=torch.zeros((T, 12)),
-        tri_attr=torch.zeros((T, 32)), mxu_center=torch.zeros(3),
-        tri_feat=torch.zeros((T, 24)))
+        tri_attr=torch.zeros((T, 32)), mxu_center=torch.zeros(3))
 
 
 def _torch_env(env):

@@ -398,3 +398,153 @@ def test_kernels_on_the_materials_box_calls(cuda, integrator):
     for args, (zc, cnt) in calls["cone_minz"]:
         zr, cr = ck._minz_ref(*args)
         assert torch.equal(zc, zr) and torch.equal(cnt, cr)
+
+
+def _primal_spy(monkeypatch):
+    """Wrap the three launchers: record every tensor they receive and fail
+    on one that requires grad, carries a tangent or is wrapped by a
+    torch.func transform. Returns the launch counts seen."""
+    import torch.autograd.forward_ad as fwAD
+    seen = {"closest": 0, "anyhit": 0, "cone": 0}
+    fnc = torch._C._functorch
+
+    def wrap(mod, name, key):
+        inner = getattr(mod, name)
+
+        def spy(*args, **kw):
+            for x in list(args) + list(kw.values()):
+                for y in (x if isinstance(x, tuple) else (x,)):
+                    if isinstance(y, torch.Tensor):
+                        assert not y.requires_grad
+                        assert not fnc.is_functorch_wrapped_tensor(y)
+                        assert fwAD.unpack_dual(y).tangent is None
+            seen[key] += 1
+            return inner(*args, **kw)
+        monkeypatch.setattr(mod, name, spy)
+
+    wrap(rk, "_launch_closest", "closest")
+    wrap(rk, "_launch_anyhit", "anyhit")
+    wrap(ck, "_launch", "cone")
+    return seen
+
+
+def _grad_lanes(res, dev):
+    pix = torch.arange(res * res, device=dev)
+    return (torch.stack([pix % res, pix // res], -1),
+            torch.full((res * res, 2), 0.5, device=dev),
+            torch.zeros(res * res, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wave", [False, True])
+def test_gradients_on_card_match_cpu(cuda, monkeypatch, wave):
+    """Both AD modes through K1/K2 (and K3 on the wave path) on the card:
+    no launcher sees a tensor with a derivative, reverse mode agrees with
+    forward mode row by row, and the image and pixel maps agree with the
+    plain versions on the CPU (the classical and wave image bars of
+    PERF.md §2)."""
+    import dataclasses
+
+    import torch.autograd.forward_ad as fwAD
+
+    from wave_tracer_tpu_torch.integrator.path import trace_paths
+    from wave_tracer_tpu_torch.integrator.plt_path import trace_paths_wave
+    scene = make_box_scene(res=16, spp=1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        data = build_scene(scene, device=dev).data
+        pxy, jit, sids = _grad_lanes(16, dev)
+        vals = data.tables.spectra.vals
+        S = vals.shape[0]
+
+        def f(rs):
+            d = dataclasses.replace(data, tables=dataclasses.replace(
+                data.tables, spectra=dataclasses.replace(
+                    data.tables.spectra, vals=vals * rs[:, None])))
+            if wave:
+                return trace_paths_wave(d, pxy, jit, 3, sids,
+                                        sensor=scene.sensors[0],
+                                        edge_table=d.edges, max_depth=3,
+                                        eps=1e-4)[1]
+            return trace_paths(d, pxy, jit, 3, sids, sensor=scene.sensors[0],
+                               max_depth=3, eps=1e-4)[1]
+
+        with monkeypatch.context() as m:
+            seen = _primal_spy(m) if dev.type == "cuda" else None
+            ones = torch.ones(S, device=dev)
+            with fwAD.dual_level():
+                img, g = fwAD.unpack_dual(f(fwAD.make_dual(ones, ones)))
+            rs = torch.ones(S, device=dev, requires_grad=True)
+            f(rs).mean().backward()
+            _, g_func = torch.func.jvp(f, (ones,), (ones,))
+            # the reverse-mode gradient of the mean, row by row, is the
+            # mean of the forward-mode map along that row
+            for r in range(S):
+                with fwAD.dual_level():
+                    _, gr = fwAD.unpack_dual(f(fwAD.make_dual(
+                        ones, torch.eye(S, device=dev)[r])))
+                torch.testing.assert_close(gr.mean(), rs.grad[r],
+                                           rtol=1e-4, atol=1e-14)
+        if seen is not None:
+            assert seen["closest"] > 0 and seen["anyhit"] > 0
+            assert (seen["cone"] > 0) == wave
+        torch.testing.assert_close(g_func, g, rtol=1e-5, atol=1e-14)
+        out[dev.type] = (img.cpu().numpy(), g.cpu().numpy())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.isfinite(a).all()
+        scale = np.maximum(np.abs(b), np.abs(b).mean())
+        if wave:
+            assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999
+            assert (np.abs(a - b) <= 1e-2 * scale).all(-1).mean() >= 0.90
+        else:
+            assert (np.abs(a - b) <= 1e-3 * scale).all(-1).mean() >= 0.98
+
+
+@pytest.mark.gpu
+def test_wall_translation_on_card(cuda, monkeypatch):
+    """The hit distance's derivative on the card: a back-wall translation's
+    pixel map against the plain version, and t bit for bit without it."""
+    import dataclasses
+
+    import torch.autograd.forward_ad as fwAD
+
+    from wave_tracer_tpu_torch.accel import trace as ttrace
+    from wave_tracer_tpu_torch.integrator.path import trace_paths
+    scene = make_box_scene(res=16, spp=1)
+    scene.integrator.fsd = False
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        data = build_scene(scene, device=dev).data
+        pxy, jit, sids = _grad_lanes(16, dev)
+        wall = (data.geo.tri_attr[:, 22] == 2).float()[:, None]
+
+        def f(th):
+            d3 = wall * (th * torch.tensor([0.0, 0.0, 1.0], device=dev))
+            geo = dataclasses.replace(
+                data.geo, p0=data.geo.p0 + d3,
+                tri_geom=data.geo.tri_geom
+                + torch.nn.functional.pad(d3, (0, 9)))
+            return trace_paths(dataclasses.replace(data, geo=geo), pxy, jit,
+                               7, sids, sensor=scene.sensors[0], max_depth=2,
+                               eps=1e-4)[1]
+
+        with monkeypatch.context() as m:
+            seen = _primal_spy(m) if dev.type == "cuda" else None
+            with fwAD.dual_level():
+                img, g = fwAD.unpack_dual(f(fwAD.make_dual(
+                    torch.tensor(0.0, device=dev),
+                    torch.tensor(1.0, device=dev))))
+        if seen is not None:
+            assert seen["closest"] > 0
+        out[dev.type] = g.cpu().numpy()
+        ro, rd, _ = scene.sensors[0].generate_rays(pxy, jit)
+        args = (ro, rd, torch.full((256,), 1e-4, device=dev),
+                torch.full((256,), 1e30, device=dev))
+        t0 = ttrace.trace(data.geo, *args)[0]
+        rog = ro.clone().requires_grad_()
+        assert torch.equal(ttrace.trace(data.geo, rog, *args[1:])[0]
+                           .detach(), t0)
+    a, b = out["cuda"], out["cpu"]
+    assert np.isfinite(a).all() and (a != 0).any()
+    scale = np.maximum(np.abs(b), np.abs(b).mean())
+    assert (np.abs(a - b) <= 1e-3 * scale).all(-1).mean() >= 0.98

@@ -43,8 +43,7 @@ def _soup(T=700, seed=0):
     t = torch.from_numpy
     tgeo = ttrace.GeoArrays(
         p0=t(p0), e1=t(e1), e2=t(e2), tri_geom=t(tri_geom),
-        tri_attr=torch.zeros((T, 32)), mxu_center=t(center),
-        tri_feat=ray_kernels.tri_features(t(p0), t(e1), t(e2), t(center)))
+        tri_attr=torch.zeros((T, 32)), mxu_center=t(center))
     return jgeo, tgeo
 
 

@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from wave_tracer_tpu_torch.accel import nvcc_build
+from wave_tracer_tpu_torch.accel import nvcc_build, ray_kernels
 
 BIG = 1e30
 _EPS = 1e-12
@@ -458,11 +458,16 @@ def cone_minz(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin=1e-7,
     build of the kernel adds the pairs tested after the tile cull, the
     pairs that entered the pair body, the warp-iterations and those in
     which some lane entered the body. Returns (zc (N, 16) f32, inf where
-    no encounter ≥ bnd_j; cnt (N,) i32 encounters)."""
-    if ro.device.type == "cpu":
-        return _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd,
-                         zmin)
-    if ro.device.type != "cuda":
-        raise NotImplementedError(f"cone kernel: no backend for {ro.device}")
-    return _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd,
-                   zmin, stats)
+    no encounter ≥ bnd_j; cnt (N,) i32 encounters). Every input must be
+    primal (`ray_kernels.check_primal`): the minima carry no derivative."""
+    ray_kernels.check_primal("cone kernel", tri, ro, rd, xh, e, x0, ta,
+                             zmax, exclude, bnd)
+    with ray_kernels.outside_transforms():
+        if ro.device.type == "cpu":
+            return _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd,
+                             zmin)
+        if ro.device.type != "cuda":
+            raise NotImplementedError(
+                f"cone kernel: no backend for {ro.device}")
+        return _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude,
+                       bnd, zmin, stats)

@@ -48,6 +48,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from wave_tracer_tpu_torch.accel import nvcc_build
 
@@ -65,6 +66,52 @@ K1_BLOCKS_PER_SM = 3       # K1's persistent grid (its __launch_bounds__)
 K1_MAX_TILES = 512         # tiles K1 sorts in shared memory (T <= 2^17)
 
 LAUNCHES = {"closest": 0, "anyhit": 0}
+
+
+_functorch = torch._C._functorch
+
+
+def carries_derivative(*xs):
+    """Whether any of the tensors requires grad (with grad mode on),
+    carries a forward-mode tangent, or is wrapped by a torch.func
+    transform."""
+    return any(x is not None and (
+        (x.requires_grad and torch.is_grad_enabled())
+        or _functorch.is_functorch_wrapped_tensor(x)
+        or fwAD.unpack_dual(x).tangent is not None) for x in xs)
+
+
+def primal(x, dtype=None):
+    """The plain contiguous tensor a kernel reads (of `dtype` if given): x
+    detached and, inside a torch.func transform (jvp, grad), unwrapped to
+    the value it holds. Unwrapping comes last: inside a transform even a
+    no-op `.to` returns a wrapped tensor."""
+    x = (x if dtype is None else x.to(dtype)).contiguous().detach()
+    while _functorch.is_functorch_wrapped_tensor(x):
+        x = _functorch.get_unwrapped(x)
+    return x
+
+
+def outside_transforms():
+    """A context in which torch.func transforms wrap no new tensor: the
+    launch code allocates its outputs and work buffers there, so a kernel
+    reads and writes plain memory (its inputs are `primal` already)."""
+    return torch._C._DisableFuncTorch()
+
+
+def check_primal(what, *xs):
+    """The kernels read raw memory and have no derivative: a tensor that
+    requires grad, carries a tangent or is wrapped by a torch.func
+    transform must not reach them. Their callers pass `primal` tensors and
+    restore the derivative outside the kernel (`trace_rays`); anything
+    else raises."""
+    if any(x is not None and (x.requires_grad
+                              or _functorch.is_functorch_wrapped_tensor(x)
+                              or _functorch.is_batchedtensor(x)
+                              or fwAD.unpack_dual(x).tangent is not None)
+           for x in xs):
+        raise ValueError(f"{what}: inputs must be primal (detached) "
+                         "tensors; the kernel has no derivative")
 
 
 def tri_features(p0, e1, e2, center):
@@ -446,27 +493,37 @@ def closest_hit(tri_feat, center, ro, rd, tmin, tmax, ex, need=None,
     others return `carry` (t, tri), or a miss if None, untraced. The
     kernel reads `table`, the RayTable of `tri_feat` (`ray_table`); the
     plain version reads `tri_feat`. Returns (t (N,) f32 with BIG on miss,
-    tri (N,) int32 with -1 on miss)."""
-    if ro.device.type == "cpu":
-        return _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need,
-                            carry)
-    if ro.device.type != "cuda":
-        raise NotImplementedError(f"ray kernels: no backend for {ro.device}")
-    return _unpack(_launch_closest(tri_feat, table, center, ro, rd, tmin,
-                                   tmax, ex, need, carry))
+    tri (N,) int32 with -1 on miss). Every input must be primal
+    (`check_primal`)."""
+    check_primal("closest hit", tri_feat, center, ro, rd, tmin, tmax, ex,
+                 need, *(carry or ()))
+    with outside_transforms():
+        if ro.device.type == "cpu":
+            return _closest_ref(tri_feat, center, ro, rd, tmin, tmax, ex,
+                                need, carry)
+        if ro.device.type != "cuda":
+            raise NotImplementedError(
+                f"ray kernels: no backend for {ro.device}")
+        return _unpack(_launch_closest(tri_feat, table, center, ro, rd,
+                                       tmin, tmax, ex, need, carry))
 
 
 def any_hit(tri_feat, center, ro, rd, tmin, tmax, ex, need=None, *, table):
     """K2: whether any triangle hits in (tmin, tmax]. `need` (N,) bool, or
     None for all rows, names the rows to trace; the others are False.
     The kernel reads `table`, the RayTable of `tri_feat` (`ray_table`);
-    the plain version reads `tri_feat`. Returns (N,) bool."""
-    if ro.device.type == "cpu":
-        return _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex, need)
-    if ro.device.type != "cuda":
-        raise NotImplementedError(f"ray kernels: no backend for {ro.device}")
-    return _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex,
-                          need).bool()
+    the plain version reads `tri_feat`. Returns (N,) bool. Every input
+    must be primal (`check_primal`)."""
+    check_primal("any hit", tri_feat, center, ro, rd, tmin, tmax, ex, need)
+    with outside_transforms():
+        if ro.device.type == "cpu":
+            return _anyhit_ref(tri_feat, center, ro, rd, tmin, tmax, ex,
+                               need)
+        if ro.device.type != "cuda":
+            raise NotImplementedError(
+                f"ray kernels: no backend for {ro.device}")
+        return _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax,
+                              ex, need).bool()
 
 
 # ---------------------------------------------------------------------------
@@ -485,12 +542,21 @@ def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None, need=None,
     """Closest hit over all triangles, traced for the rows of `need` (all
     if None); the others take `carry` (t, tri). Returns (t, tri, u, v): t =
     BIG and tri = -1 on a miss; u/v of the winner recomputed here with the
-    standard Möller–Trumbore formula from one gather."""
+    standard Möller–Trumbore formula from one gather.
+
+    The kernel traces `primal` copies of the rays, so (t, tri) is a
+    detached pick. u and v, and t where the rays or `geo.tri_geom` carry a
+    derivative, take theirs from the winner's Möller–Trumbore solve, as
+    the JAX package's exact-AD CPU traces do: t is the kernel's value bit
+    for bit, plus (t_mt − t_mt) with the second term detached. With no
+    derivative in play t is the kernel's and costs nothing more."""
     N = ro.shape[0]
     ex = _exclusions(N, ro.device, exclude_tri)
-    t, tri = closest_hit(geo.tri_feat, geo.mxu_center, ro.contiguous(),
-                         rd.contiguous(), tmin.contiguous(),
-                         tmax.contiguous(), ex, need, carry,
+    if carry is not None:
+        carry = (primal(carry[0]), primal(carry[1]))
+    t, tri = closest_hit(geo.tri_feat, geo.mxu_center, primal(ro),
+                         primal(rd), primal(tmin), primal(tmax), primal(ex),
+                         need if need is None else primal(need), carry,
                          table=geo.ray_table)
     valid = tri >= 0
     row = geo.tri_geom[tri.clamp_min(0).long()]
@@ -508,6 +574,9 @@ def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None, need=None,
     zero = torch.zeros_like(u)
     u = torch.where(valid, u.clamp(0.0, 1.0), zero)
     v = torch.where(valid, v.clamp(0.0, 1.0), zero)
+    if carries_derivative(ro, rd, geo.tri_geom):
+        t_mt = (e2 * qvec).sum(-1) * inv_det
+        t = torch.where(valid, t + (t_mt - t_mt.detach()), t)
     return t, tri, u, v
 
 
@@ -517,6 +586,7 @@ def occluded_rays(geo, ro, rd, tmin, tmax, exclude_tri=None,
     None); False elsewhere. Returns bool (N,)."""
     N = ro.shape[0]
     ex = _exclusions(N, ro.device, exclude_tri, exclude_tri2, exclude_tri3)
-    return any_hit(geo.tri_feat, geo.mxu_center, ro.contiguous(),
-                   rd.contiguous(), tmin.contiguous(), tmax.contiguous(), ex,
-                   need, table=geo.ray_table)
+    return any_hit(geo.tri_feat, geo.mxu_center, primal(ro), primal(rd),
+                   primal(tmin), primal(tmax), primal(ex),
+                   need if need is None else primal(need),
+                   table=geo.ray_table)

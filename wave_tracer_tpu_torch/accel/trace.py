@@ -34,21 +34,26 @@ class GeoArrays:
     tri_geom: torch.Tensor  # (T, 12)
     tri_attr: torch.Tensor  # (T, 32)
     mxu_center: torch.Tensor  # (3,) translation of the kernel features
-    tri_feat: torch.Tensor  # (T, 24) K1/K2 rows (ray_kernels.tri_features)
-    # derived: (T, 9) K3 rows [A | B | C] (cone_kernels.cone_tris), and
-    # the copies of the triangles that K3 and K1/K2 read, in an order that
-    # makes their 256-triangle tiles compact (ray_kernels.tile_order),
-    # with the tiles' bounds
+    # derived, from detached copies of p0/e1/e2 (the kernels take primal
+    # tensors; a GeoArrays made by dataclasses.replace with moved
+    # triangles derives them anew): (T, 24) K1/K2 rows
+    # (ray_kernels.tri_features), (T, 9) K3 rows [A | B | C]
+    # (cone_kernels.cone_tris), and the copies of the triangles that K3
+    # and K1/K2 read, in an order that makes their 256-triangle tiles
+    # compact (ray_kernels.tile_order), with the tiles' bounds
+    tri_feat: torch.Tensor = field(init=False)
     cone_tris: torch.Tensor = field(init=False)
     cone_table: cone_kernels.ConeTable = field(init=False)
     ray_table: ray_kernels.RayTable = field(init=False)
 
     def __post_init__(self):
-        self.cone_tris = cone_kernels.cone_tris(self.p0, self.e1, self.e2)
-        order = ray_kernels.tile_order(self.p0, self.e1, self.e2)
+        p0, e1, e2 = self.p0.detach(), self.e1.detach(), self.e2.detach()
+        center = self.mxu_center.detach()
+        self.tri_feat = ray_kernels.tri_features(p0, e1, e2, center)
+        self.cone_tris = cone_kernels.cone_tris(p0, e1, e2)
+        order = ray_kernels.tile_order(p0, e1, e2)
         self.cone_table = cone_kernels.cone_table(self.cone_tris, order)
-        self.ray_table = ray_kernels.ray_table(self.p0, self.e1, self.e2,
-                                               self.mxu_center,
+        self.ray_table = ray_kernels.ray_table(p0, e1, e2, center,
                                                self.tri_feat, order)
 
     @property
@@ -129,7 +134,8 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
 
     bounds (N, B) with B ≤ 16; env the lanes' EnvState. Returns (zc (N, B)
     per-boundary minima, inf where no encounter lies ahead; cnt (N,) i32
-    exact encounter count)."""
+    exact encounter count). The minima are detached: K3 returns no
+    winning triangle to take a derivative from."""
     _check_size(geo, ro)
     N, B = bounds.shape
     dev = ro.device
@@ -138,13 +144,16 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
                 torch.zeros((N,), dtype=torch.int32, device=dev))
     if exclude_tri is None:
         exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    # the kernel reads primal tensors: the minima carry no derivative
+    primal = ray_kernels.primal
     if B < cone_kernels.NB:
         bounds = torch.cat([bounds, bounds.new_full(
             (N, cone_kernels.NB - B), cone_kernels.BIG)], dim=1)
+    bounds = primal(bounds)
     zc, cnt = cone_kernels.cone_minz(
-        geo.cone_tris, ro.contiguous(), rd.contiguous(),
-        env.x.contiguous(), env.e, env.x0, env.ta, zmax,
-        exclude_tri.to(torch.int32), bounds, zmin, table=geo.cone_table)
+        geo.cone_tris, primal(ro), primal(rd), primal(env.x), primal(env.e),
+        primal(env.x0), primal(env.ta), primal(zmax),
+        primal(exclude_tri, torch.int32), bounds, zmin, table=geo.cone_table)
     return zc[:, :B], cnt
 
 

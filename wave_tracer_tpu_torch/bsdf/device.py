@@ -332,9 +332,13 @@ def sample(tables: Tables, mat_id, wi, uv, k, u4, duv=None):
         specular = specular | through
         refracted = refracted & ~through
         valid = valid | through
-    return BsdfSample(wo=_flip_z(wo, sgn), pdf=pdf, Mw=Mw,
-                      specular=specular, eta=eta, refracted=refracted,
-                      valid=valid)
+    # detached sampling, as in the JAX package: the sampled direction,
+    # its density and η carry no gradient (nor tangent); the radiometric
+    # derivative flows through Mw only. This keeps gradients finite at
+    # TIR and grazing angles, where d(direction)/d(IOR) diverges
+    return BsdfSample(wo=_flip_z(wo, sgn).detach(), pdf=pdf.detach(), Mw=Mw,
+                      specular=specular, eta=eta.detach(),
+                      refracted=refracted, valid=valid)
 
 
 @dataclass

@@ -1,11 +1,20 @@
-"""Backward unidirectional path integrator — one classical bounce.
+"""Backward unidirectional path integrator over fixed lanes.
 
-Port of wave_tracer_tpu/integrator/path.py (classical_bounce and its
-helpers, plus the device-counter layout). Every lane carries a full
-Mueller throughput operator, one sampled wavenumber and MIS bookkeeping;
-all control flow is masked lane arithmetic. One bounce: trace (K1) →
-emission MIS → NEE with one shadow ray (K2, power-heuristic MIS) → BSDF
-sample → russian roulette.
+Port of wave_tracer_tpu/integrator/path.py (trace_paths, classical_bounce
+and their helpers, plus the device-counter layout). Every lane carries a
+full Mueller throughput operator, one sampled wavenumber and MIS
+bookkeeping; all control flow is masked lane arithmetic. One bounce:
+trace (K1) → emission MIS → NEE with one shadow ray (K2, power-heuristic
+MIS) → BSDF sample → russian roulette.
+
+`trace_paths` runs the bounce max_depth times over one batch of lanes,
+as the JAX package's fori_loop does; it is differentiable: make a float
+table of the SceneData require grad (reverse mode) or give it a tangent
+(`torch.autograd.forward_ad`), and the pixel values carry the
+derivative. Discrete decisions (hits, lobe, emitter and RR picks) and
+sampled directions carry none; the hit distance carries the
+Möller–Trumbore derivative of the winning triangle
+(`accel.ray_kernels.trace_rays`).
 """
 
 from __future__ import annotations
@@ -108,6 +117,71 @@ def bsdf_uniforms(tables, dkeys, u_dir):
     else:
         lobe = torch.zeros_like(u_dir)
     return torch.cat([lobe, u_dir], dim=-1)
+
+
+def camera_lanes(data, sensor, pixel_xy, jitter, keys):
+    """Fresh camera-ray lanes for the (pixel, sample) streams `keys`:
+    the spectral sample, the camera ray and the lane state a bounce
+    reads. Returns (state, k, w_spectral, pixel_tan_alpha)."""
+    sp = data.spectral
+    n = pixel_xy.shape[0]
+    dev = pixel_xy.device
+    u_spec = rng.uniform(keys, rng.D_SPECTRUM, 2)
+    e0, _ = sp.sample_emitter(u_spec[:, 0])
+    k, _ = sp.sample_k(e0, u_spec[:, 1])
+    w_spectral = 1.0 / sp.joint_spectral_density(k).clamp_min(1e-30)
+    ro, rd, pixel_tan_alpha = sensor.generate_rays(pixel_xy, jitter)
+    M0 = torch.eye(4, dtype=torch.float32, device=dev).expand(
+        n, 4, 4) * sensor.importance()
+    state = dict(ro=ro.contiguous(), rd=rd, M=M0.contiguous(),
+                 xf=_perp_axis(-rd),
+                 L=torch.zeros((n, 4), dtype=torch.float32, device=dev),
+                 active=torch.ones((n,), dtype=torch.bool, device=dev),
+                 exclude=torch.full((n,), -1, dtype=torch.int32,
+                                    device=dev),
+                 prev_pdf=torch.zeros((n,), dtype=torch.float32, device=dev),
+                 prev_specular=torch.ones((n,), dtype=torch.bool,
+                                          device=dev))
+    return state, k, w_spectral, pixel_tan_alpha
+
+
+def sensor_values(L, w_spectral, sens, polarimetric):
+    """Response-weighted channel values of the accumulated Stokes vectors
+    L (N, 4); a polarimetric sensor gets all four Stokes components per
+    channel (I/Q/U/V interleaved)."""
+    Lw = L * w_spectral[:, None]
+    if polarimetric:
+        return (Lw[:, None, :] * sens[..., None]).reshape(Lw.shape[0], -1)
+    return Lw[:, 0:1] * sens
+
+
+def trace_paths(data, pixel_xy, jitter, base_key, sample_ids, *, sensor,
+                max_depth: int = 8, rr_depth: int = 3,
+                rr_floor: float = 0.5, eps: float = 1e-5, mis: bool = True,
+                with_stats: bool = False):
+    """Trace one batch of backward paths: `max_depth` classical bounces
+    over fixed lanes. pixel_xy (N, 2) int, jitter (N, 2), sample_ids
+    (N,). Returns (pos (N, 2) splat positions, values (N, C), valid
+    (N,)); with_stats appends the (N_STATS,) f32 counter vector."""
+    N = pixel_xy.shape[0]
+    pixel_id = pixel_xy[:, 1] * sensor.width + pixel_xy[:, 0]
+    keys = rng.sample_key(base_key, pixel_id, sample_ids)
+    st, k, w_spectral, _ = camera_lanes(data, sensor, pixel_xy, jitter,
+                                        keys)
+    st["stats"] = torch.zeros((N_STATS,), dtype=torch.float32,
+                              device=pixel_xy.device)
+    splat_pos = pixel_xy.to(torch.float32) + jitter
+    for depth in range(max_depth):
+        st = classical_bounce(data, st, rng.depth_key(keys, depth), k,
+                              depth, eps=eps, mis=mis, rr_depth=rr_depth,
+                              rr_floor=rr_floor, with_stats=with_stats)
+    sens = sensor.response.sensitivities(k, data.tables.spectra, None)
+    values = sensor_values(st["L"], w_spectral, sens,
+                           bool(getattr(sensor, "polarimetric", False)))
+    valid = torch.ones((N,), dtype=torch.bool, device=pixel_xy.device)
+    if with_stats:
+        return splat_pos, values, valid, st["stats"]
+    return splat_pos, values, valid
 
 
 def carried_hit(st):

@@ -25,13 +25,12 @@ from dataclasses import fields, is_dataclass
 
 import torch
 
-from wave_tracer_tpu_torch.integrator.path import (N_STATS, _perp_axis,
-                                                   classical_bounce)
-from wave_tracer_tpu_torch.integrator.plt_path import wave_bounce
+from wave_tracer_tpu_torch.integrator.path import (N_STATS, camera_lanes,
+                                                   classical_bounce,
+                                                   sensor_values)
+from wave_tracer_tpu_torch.integrator.plt_path import beam_state, wave_bounce
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
-from wave_tracer_tpu_torch.wave import envelope as env_mod
-from wave_tracer_tpu_torch.wave import fsd as fsd_mod
 
 # aperture slots (edges) per lane of the wave bounce, as the JAX pool's
 FSD_SLOTS = 8
@@ -56,43 +55,19 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
 
     def fresh(data, base_key, ids):
         """Camera-ray lane state for (pixel, sample) ids (int64 (n,))."""
-        tables = data.tables
-        sp = data.spectral
         n = ids.shape[0]
         dev = ids.device
         pix = ids % npix
         sid = ids // npix
         keys = rng.sample_key(base_key, pix, sid)
         jitter = rng.uniform(keys, rng.D_PIXEL_JITTER, 2)
-        u_spec = rng.uniform(keys, rng.D_SPECTRUM, 2)
-        e0, _ = sp.sample_emitter(u_spec[:, 0])
-        k, _ = sp.sample_k(e0, u_spec[:, 1])
-        p_k = sp.joint_spectral_density(k)
-        w_spectral = 1.0 / p_k.clamp_min(1e-30)
         pxy = torch.stack([pix % W, pix // W], dim=-1)
-        ro, rd, pixel_tan_alpha = sensor.generate_rays(pxy, jitter)
-        M0 = torch.eye(4, dtype=torch.float32, device=dev).expand(
-            n, 4, 4) * sensor.importance()
-        sens = sensor.response.sensitivities(k, tables.spectra, None)
-        ps = dict(ro=ro.contiguous(), rd=rd, M=M0.contiguous(),
-                  xf=_perp_axis(-rd),
-                  L=torch.zeros((n, 4), dtype=torch.float32, device=dev),
-                  active=torch.ones((n,), dtype=torch.bool, device=dev),
-                  exclude=torch.full((n,), -1, dtype=torch.int32,
-                                     device=dev),
-                  prev_pdf=torch.zeros((n,), dtype=torch.float32,
-                                       device=dev),
-                  prev_specular=torch.ones((n,), dtype=torch.bool,
-                                           device=dev))
+        ps, k, w_spectral, pixel_tan_alpha = camera_lanes(
+            data, sensor, pxy, jitter, keys)
+        sens = sensor.response.sensitivities(k, data.tables.spectra, None)
         if wave:
-            # the wave bounce's beam state: elliptic envelope + deferred
-            # FSD carry
-            ps.update(
-                env=env_mod.initial(rd, 0.0, 0.5 * pixel_tan_alpha),
-                fsd_ap=fsd_mod.empty_aperture(n, FSD_SLOTS, dev),
-                fsd_valid=torch.zeros((n,), dtype=torch.bool, device=dev),
-                sampled_fsd=torch.zeros((n,), dtype=torch.bool, device=dev),
-                prev_vert=ro.clone(), M_prev=M0.clone())
+            ps.update(beam_state(ps["ro"], ps["rd"], ps["M"],
+                                 pixel_tan_alpha, FSD_SLOTS))
         if carry_hits:
             ps.update(hit_t=torch.zeros((n,), dtype=torch.float32,
                                         device=dev),
@@ -107,13 +82,8 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
         return ps, meta
 
     def to_values(ps, meta):
-        """Response-weighted channel values; a polarimetric sensor gets
-        all four Stokes components per channel (I/Q/U/V interleaved)."""
-        Lw = ps["L"] * meta["w_spectral"][:, None]
-        if polarimetric:
-            return (Lw[:, None, :] * meta["sens"][..., None]).reshape(
-                Lw.shape[0], -1)
-        return Lw[:, 0:1] * meta["sens"]
+        return sensor_values(ps["L"], meta["w_spectral"], meta["sens"],
+                             polarimetric)
 
     def init_state(data, film, base_key, id_start, N, device):
         """An empty pool (all dead, nothing pending); the first step

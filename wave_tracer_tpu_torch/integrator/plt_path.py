@@ -1,10 +1,11 @@
-"""plt_path — wave-optical backward transport, one bounce over beam lanes.
+"""plt_path — wave-optical backward transport over beam lanes.
 
-Port of `wave_bounce` of wave_tracer_tpu/integrator/plt_path.py. Each
-lane carries a full beam: an elliptic-cone envelope, a Mueller throughput
-operator, one wavenumber, and the deferred free-space-diffraction carry —
-the previous vertex's aperture plus the pre-interaction Mueller operator,
-superposed one bounce later.
+Port of `trace_paths_wave` and `wave_bounce` of
+wave_tracer_tpu/integrator/plt_path.py. Each lane carries a full beam: an
+elliptic-cone envelope, a Mueller throughput operator, one wavenumber,
+and the deferred free-space-diffraction carry — the previous vertex's
+aperture plus the pre-interaction Mueller operator, superposed one bounce
+later.
 
 Per bounce: trace (K1) → hybrid ballistic/diffusive traversal over the
 exact cone–triangle sweep (K3) → edges inside the beam envelope →
@@ -30,9 +31,10 @@ from wave_tracer_tpu_torch.bsdf import device as bsdf_dev
 from wave_tracer_tpu_torch.emitter import table as etab
 from wave_tracer_tpu_torch.integrator import traversal as traversal_mod
 from wave_tracer_tpu_torch.integrator.path import (
-    N_TRI_HIST, _contribution, _emitter_pmf,
-    _perp_axis, _power_heuristic, _sample_emitter_by_power, bsdf_uniforms,
-    carried_hit, compose_scatter, next_carried_hit, tri_hist_bin)
+    N_STATS, N_TRI_HIST, _contribution, _emitter_pmf, _perp_axis,
+    _power_heuristic, _sample_emitter_by_power, bsdf_uniforms, camera_lanes,
+    carried_hit, compose_scatter, next_carried_hit, sensor_values,
+    tri_hist_bin)
 from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.math import vec
 from wave_tracer_tpu_torch.sampling import rng
@@ -49,6 +51,61 @@ def _where_lanes(cond, new, old):
     """Per-lane select for tensors of any rank (lanes first)."""
     return torch.where(cond.view(cond.shape + (1,) * (new.dim() - 1)),
                        new, old)
+
+
+def beam_state(ro, rd, M0, pixel_tan_alpha, K):
+    """The wave bounce's beam state of fresh camera lanes: the elliptic
+    envelope and the (empty) deferred FSD carry with K aperture slots."""
+    n = ro.shape[0]
+    dev = ro.device
+    return dict(env=env_mod.initial(rd, 0.0, 0.5 * pixel_tan_alpha),
+                fsd_ap=fsd_mod.empty_aperture(n, K, dev),
+                fsd_valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+                sampled_fsd=torch.zeros((n,), dtype=torch.bool, device=dev),
+                prev_vert=ro.clone(), M_prev=M0.clone())
+
+
+def trace_paths_wave(data, pixel_xy, jitter, base_key, sample_ids, *, sensor,
+                     edge_table, max_depth: int = 8, rr_depth: int = 3,
+                     rr_floor: float = 0.5, eps: float = 1e-5,
+                     mis: bool = True, fsd: bool = True, K: int = 8,
+                     with_stats: bool = False):
+    """Wave-mode path batch: `max_depth` wave bounces over fixed lanes
+    (the JAX package's fori_loop, but a lane that died adds nothing
+    more), differentiable as `integrator.path.trace_paths` is. The
+    per-boundary minima of K3 carry no derivative, so a diffusive lane's
+    interaction distance does not follow moving geometry; spectra,
+    emitter and roughness derivatives are whole. Returns (splat_pos,
+    values, valid), with the (N_STATS,) counters appended under
+    with_stats."""
+    N = pixel_xy.shape[0]
+    pixel_id = pixel_xy[:, 1] * sensor.width + pixel_xy[:, 0]
+    keys = rng.sample_key(base_key, pixel_id, sample_ids)
+    st, k, w_spectral, pixel_tan_alpha = camera_lanes(data, sensor, pixel_xy,
+                                                      jitter, keys)
+    st.update(beam_state(st["ro"], st["rd"], st["M"], pixel_tan_alpha, K))
+    st["stats"] = torch.zeros((N_STATS,), dtype=torch.float32,
+                              device=pixel_xy.device)
+    splat_pos = pixel_xy.to(torch.float32) + jitter
+    for depth in range(max_depth):
+        live, L = st["active"], st["L"]
+        st = wave_bounce(data, edge_table, st, rng.depth_key(keys, depth), k,
+                         depth, eps=eps, mis=mis, fsd=fsd, K=K,
+                         rr_depth=rr_depth, rr_floor=rr_floor,
+                         with_stats=with_stats)
+        # the bounce adds emission and NEE wherever its ray meets a
+        # surface, dead lanes included, and a dead lane keeps its last
+        # ray: over fixed lanes it would add them again at every later
+        # depth (the JAX package's trace_paths_wave does). A dead lane
+        # keeps its L, as the pool, which splats it first, does
+        st["L"] = torch.where(live[:, None], st["L"], L)
+    sens = sensor.response.sensitivities(k, data.tables.spectra, None)
+    values = sensor_values(st["L"], w_spectral, sens,
+                           bool(getattr(sensor, "polarimetric", False)))
+    valid = torch.ones((N,), dtype=torch.bool, device=pixel_xy.device)
+    if with_stats:
+        return splat_pos, values, valid, st["stats"]
+    return splat_pos, values, valid
 
 
 def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,

@@ -6,17 +6,20 @@ Port of wave_tracer_tpu/render/renderer.py. For a perspective sensor
 integrator `plt_path` — with free-space diffraction on (the wave bounce,
 when the scene has wedge edges) or off (the classical bounce), or in
 ray-trace-only mode — runs through the compacted pool
-(`Renderer._render_backward_compact` of the JAX package). `plt_bdpt`
-runs the batched renderer (`Renderer._render_backward`): lanes are pixel
-batch × spp batch, each batch one `trace_bdpt` call whose camera values
-splat into the film and whose light-tracing values splat into its light
-image, developed by the samples per pixel. A virtual-plane sensor renders
-by forward light tracing (`Renderer._render_forward` of the JAX package),
-whatever the integrator: batches of `pool_lanes` lanes, lane ids 0..n−1
-and sample id = the batch index, each batch one `trace_forward` call
-(UTD FSD under plt_path, Fraunhofer under plt_bdpt) whose crossings and
-FSD-NEE connections splat into the light image, developed by the samples
-per element. Other sensors raise NotImplementedError.
+(`Renderer._render_backward_compact` of the JAX package), or, with
+`compact=False`, through the batched renderer (`Renderer._render_backward`):
+lanes are pixel batch × spp batch, each batch one `trace_paths_wave` or
+`trace_paths` call of max_depth bounces over fixed lanes whose values
+splat into the film. `plt_bdpt` always runs the batched renderer, each
+batch one `trace_bdpt` call whose camera values splat into the film and
+whose light-tracing values splat into its light image, developed by the
+samples per pixel. A virtual-plane sensor renders by forward light
+tracing (`Renderer._render_forward` of the JAX package), whatever the
+integrator: batches of `pool_lanes` lanes, lane ids 0..n−1 and sample id
+= the batch index, each batch one `trace_forward` call (UTD FSD under
+plt_path, Fraunhofer under plt_bdpt) whose crossings and FSD-NEE
+connections splat into the light image, developed by the samples per
+element. Other sensors raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from wave_tracer_tpu_torch.integrator import path as path_mod
 from wave_tracer_tpu_torch.integrator.path_compact import render_pool
 from wave_tracer_tpu_torch.integrator.plt_bdpt import trace_bdpt
+from wave_tracer_tpu_torch.integrator.plt_path import trace_paths_wave
 from wave_tracer_tpu_torch.integrator.plt_path_forward import trace_forward
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
@@ -81,9 +85,12 @@ class Renderer:
     seed: int = 0
     device: str = "cuda"           # never falls back to the CPU by itself
     # lanes per launch: the pool width of plt_path, the batch width of
-    # plt_bdpt and of forward rendering. None: POOL_LANES_* /
-    # BDPT_LANES_* for the device
+    # plt_bdpt, of the batched plt_path and of forward rendering. None:
+    # POOL_LANES_* / BDPT_LANES_* for the device
     pool_lanes: int | None = None
+    # plt_path through the compacted pool (True) or the batched renderer
+    # over trace_paths / trace_paths_wave (False), as in the JAX package
+    compact: bool = True
 
     def render_sensor(self, sensor_index: int = 0, spp: int | None = None):
         built = self.built
@@ -117,8 +124,12 @@ class Renderer:
                                   sensor.rfilter_sigma, device=device)
         eps = 1e-4 * scene.world_radius()
         if cfg.type == "plt_bdpt" and not trace_only:
-            return self._render_bdpt(data, sensor, spp, film, cfg, eps,
-                                     fsd_on, device)
+            return self._render_batched(data, sensor, spp, film, cfg, eps,
+                                        fsd_on, device, "bdpt")
+        if not self.compact:
+            return self._render_batched(data, sensor, spp, film, cfg, eps,
+                                        fsd_on, device,
+                                        "wave" if fsd_on else "ray")
         paths = spp * W * H
         lanes = min(paths, self.pool_lanes or (
             POOL_LANES_CUDA if device.type == "cuda" else POOL_LANES_CPU))
@@ -133,10 +144,13 @@ class Renderer:
         return img, _stats(dt, paths, "wave-compact" if fsd_on
                            else "ray-compact", spp, lanes, stats)
 
-    def _render_bdpt(self, data, sensor, spp, film, cfg, eps, fsd, device):
-        """The batched bdpt renderer: every (pixel, sample) pair once, in
+    def _render_batched(self, data, sensor, spp, film, cfg, eps, fsd,
+                        device, mode):
+        """The batched renderer: every (pixel, sample) pair once, in
         batches of about `pool_lanes` lanes laid out pixel batch × spp
-        batch (pixel-major), with no padding lanes."""
+        batch (pixel-major), with no padding lanes. mode "bdpt" traces
+        each batch with `trace_bdpt`, "wave" with `trace_paths_wave`, "ray"
+        with `trace_paths`."""
         W, H = sensor.width, sensor.height
         npix = W * H
         lanes = self.pool_lanes or (
@@ -158,17 +172,29 @@ class Renderer:
                 pxy = torch.stack([pid % W, pid // W], dim=-1)
                 jitter = rng.uniform(rng.sample_key(base_key, pid, sid),
                                      rng.D_PIXEL_JITTER, 2)
-                pos, values, ok, (lt_pos, lt_val, lt_ok), st = trace_bdpt(
-                    data, pxy, jitter, base_key, sid, sensor=sensor,
-                    max_depth=min(cfg.max_depth, 16), eps=eps, fsd=fsd,
-                    with_stats=True)
-                film_mod.splat_direct(film, lt_pos, lt_val, lt_ok)
+                args = (data, pxy, jitter, base_key, sid)
+                if mode == "bdpt":
+                    pos, values, ok, (lt_pos, lt_val, lt_ok), st = \
+                        trace_bdpt(*args, sensor=sensor,
+                                   max_depth=min(cfg.max_depth, 16),
+                                   eps=eps, fsd=fsd, with_stats=True)
+                    film_mod.splat_direct(film, lt_pos, lt_val, lt_ok)
+                elif mode == "wave":
+                    pos, values, ok, st = trace_paths_wave(
+                        *args, sensor=sensor, edge_table=data.edges,
+                        max_depth=cfg.max_depth, eps=eps, mis=cfg.mis,
+                        with_stats=True)
+                else:
+                    pos, values, ok, st = path_mod.trace_paths(
+                        *args, sensor=sensor, max_depth=cfg.max_depth,
+                        eps=eps, mis=cfg.mis, with_stats=True)
                 film_mod.splat(film, pos, values, ok)
                 stats += st
-        # the light-tracing splats are normalized per pixel sample
-        img = film_mod.develop(film, spp).cpu().numpy()  # waits for the device
+        # bdpt's light-tracing splats are normalized per pixel sample
+        img = film_mod.develop(film, spp if mode == "bdpt" else 0.0
+                               ).cpu().numpy()   # waits for the device
         dt = time.perf_counter() - t0
-        return img, _stats(dt, npix * spp, "bdpt", spp,
+        return img, _stats(dt, npix * spp, mode, spp,
                            pix_per_batch * spp_per_batch, stats)
 
     def _render_forward(self, data, sensor, spp, cfg, eps, device):
@@ -231,7 +257,7 @@ def _stats(dt, paths, mode, spp, lanes, stats):
 
 def render_scene(built, sensor_index: int = 0, spp: int | None = None,
                  seed: int = 0, device: str = "cuda",
-                 pool_lanes: int | None = None):
+                 pool_lanes: int | None = None, compact: bool = True):
     """Render one sensor → (img (H, W, C) numpy, stats dict)."""
-    return Renderer(built, seed=seed, device=device,
-                    pool_lanes=pool_lanes).render_sensor(sensor_index, spp)
+    return Renderer(built, seed=seed, device=device, pool_lanes=pool_lanes,
+                    compact=compact).render_sensor(sensor_index, spp)

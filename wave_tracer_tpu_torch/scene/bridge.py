@@ -24,7 +24,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wave_tracer_tpu_torch.accel import ray_kernels
 from wave_tracer_tpu_torch.accel.edges import EDGE_KEYS, EdgeTable
 from wave_tracer_tpu_torch.accel.trace import GeoArrays
 from wave_tracer_tpu_torch.bsdf import table as mtab
@@ -98,8 +97,7 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     p0, e1, e2 = t("geo.p0", f32), t("geo.e1", f32), t("geo.e2", f32)
     center = t("geo.mxu_center", f32)
     geo = GeoArrays(p0=p0, e1=e1, e2=e2, tri_geom=t("geo.tri_geom", f32),
-                    tri_attr=t("geo.tri_attr", f32), mxu_center=center,
-                    tri_feat=ray_kernels.tri_features(p0, e1, e2, center))
+                    tri_attr=t("geo.tri_attr", f32), mxu_center=center)
     mpack = a["tables.materials.pack"]
     mtype = mpack[:, mtab.C_MTYPE]
     ttype = a["tables.textures.pack"][:, tex.C_TYPE]
