@@ -1,8 +1,9 @@
 """On-card smoke test of the PyTorch/CUDA port (wave_tracer_tpu_torch).
 
 Drives the port's main paths through the entry points a user calls
-(`scene.build_scene`, `render.render_scene`, and for pixel gradients
-`integrator.path.trace_paths` / `integrator.plt_path.trace_paths_wave`)
+(`scene.build_scene`, `render.render_scene`, for pixel gradients
+`integrator.path.trace_paths` / `integrator.plt_path.trace_paths_wave`,
+and for scene files `python -m wave_tracer_tpu_torch render scene.xml`)
 on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
@@ -165,15 +166,35 @@ Phases (each raises on failure; nothing is caught):
      of phase 8 and the classical box of phase 4, each held against the
      pool's image at the wave and classical bars; its paths/s and
      launches
+ 22. scene files and the command line: the bench wave box (256x256, 8 spp,
+     depth 8, FSD on) and its scale variant (+ the 81,920-triangle
+     icosphere, 4 spp) written as XML by `box_scene_xml`; each file's
+     `load_scene_xml` + bake equals `make_box_scene`'s bake table for
+     table (the uniform spectra's grid ranges excepted; load and bake
+     timed); `python -m wave_tracer_tpu_torch render box.xml -o <dir>
+     --write-stats --mask` as a subprocess exits 0 and writes camera.exr,
+     camera.png, camera_mask.png and perf_stats.json; its EXR against the
+     in-process render_scene of the file (the same seed), developed by the
+     response's develop_matrix, at the wave bars of phase 9; its mask PNG
+     is the in-process mask, which is equal on the card and on the CPU;
+     the mask's K1 launches timed; `cli.main` in-process on the scale file
+     with its K1/K2/K3 calls captured (launches counted from zero) and the
+     calls with the most needed rows held against their plain versions
+     (K3 on its first 16,384 lanes); then an interrupt that terminates at
+     the second poll, a resume from `last_film` / `last_spp_done` and one
+     from a `.ckpt.npz` written on the card, each within 1e-4·max(|ref|,
+     mean|ref|) of the uninterrupted render on every pixel. Prints the
+     CLI's paths/s (its perf_stats.json) beside the in-process render's,
+     with the card's name and power limit
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path" (the gradient
-     modes of phase 19 and the batched renders of phase 21 included),
-     and K1's and K2's
-     timings in the bdpt, coverage and materials renders under
-     "in_bdpt_render", "in_coverage_render", "in_materials_render" and
-     "in_materials_bdpt_render", and the materials calls' agreement with
-     the plain versions under "materials_call_vs_plain") and, last, the
-     result JSON line
+     modes of phase 19, the batched renders of phase 21 and cli_wave_scale
+     and cli_mask of phase 22 included), phase 22's readings under "cli"
+     of the K1 row, and K1's and K2's timings in the bdpt, coverage and
+     materials renders under "in_bdpt_render", "in_coverage_render",
+     "in_materials_render" and "in_materials_bdpt_render", and the
+     materials calls' agreement with the plain versions under
+     "materials_call_vs_plain") and, last, the result JSON line
 
 Each paths/s reading (phases 4, 6, 8, 10 and 16, and 12, 14 and 17 where
 a render takes under 30 s) is the median of three renders, the one whose launches
@@ -1041,12 +1062,11 @@ def check_stokes(img, tag):
     return float((pol.sum() / s[..., 0].sum()))
 
 
-def capture_calls(rk, ck, built):
-    """One render of `built` on the card, keeping per kernel (closest,
+def capture_calls(rk, ck, run, phase="phase 16b"):
+    """`run()` (a render on the card), keeping per kernel (closest,
     anyhit, cone_minz) a copy of the arguments and the result of its call
     with the most needed rows (K1: of those that carry some rows, if
     any)."""
-    from wave_tracer_tpu_torch.render import render_scene
     real = {"closest": rk.closest_hit, "anyhit": rk.any_hit,
             "cone_minz": ck.cone_minz}
     best = {}
@@ -1082,25 +1102,26 @@ def capture_calls(rk, ck, built):
     rk.closest_hit, rk.any_hit = spy("closest"), spy("anyhit")
     ck.cone_minz = spy("cone_minz")
     try:
-        render_scene(built, device="cuda")
+        run()
     finally:
         rk.closest_hit, rk.any_hit = real["closest"], real["anyhit"]
         ck.cone_minz = real["cone_minz"]
     torch.cuda.synchronize()
     for kind in real:
         check(best.get(kind, {"n": 0})["n"] > 0,
-              f"phase 16b: no {kind} call with a needed row")
+              f"{phase}: no {kind} call with a needed row")
     return best
 
 
-def check_calls_vs_plain(rk, ck, cap):
+def check_calls_vs_plain(rk, ck, cap, phase="phase 16b", k3_lanes=None):
     """Each kernel's captured render call against its plain version on
     the same inputs, at the bars of phases 3, 3b and 7: K1's ids agree on
     >= 99.9% of the needed rows and t within rtol 1e-4 / atol 1e-5 where
     they agree, the other rows hold their carried hit bit for bit; K2's
     needed rows agree on >= 99.9% and the others are False; K3's minima
-    and counts are bit-equal. Returns per kernel (rows, needed rows,
-    share of needed rows that disagree)."""
+    and counts are bit-equal (over its first `k3_lanes` lanes if given).
+    Returns per kernel (rows, needed rows, share of needed rows that
+    disagree)."""
     out = {}
     c = cap["closest"]
     args, kw = c["args"], c["kw"]
@@ -1110,14 +1131,14 @@ def check_calls_vs_plain(rk, ck, cap):
     t_r, i_r = rk._closest_ref(*args[:7], need, carry)
     rows = torch.ones_like(i_k, dtype=torch.bool) if need is None else need
     agree = (i_k == i_r)[rows].float().mean().item()
-    check(agree >= 0.999, f"phase 16b: K1 ids agree on {agree:.6f}")
+    check(agree >= 0.999, f"{phase}: K1 ids agree on {agree:.6f}")
     both = rows & (i_k == i_r) & (i_r >= 0)
     check(bool(((t_k - t_r).abs() <= 1e-5 + 1e-4 * t_r.abs())[both].all()),
-          "phase 16b: K1 t beyond rtol 1e-4 / atol 1e-5")
+          f"{phase}: K1 t beyond rtol 1e-4 / atol 1e-5")
     if need is not None and carry is not None:
         check(torch.equal(t_k[~need], carry[0][~need])
               and torch.equal(i_k[~need], carry[1][~need]),
-              "phase 16b: K1 rows off the need mask lost their carried hit")
+              f"{phase}: K1 rows off the need mask lost their carried hit")
     out["closest"] = (i_k.shape[0], int(rows.sum()), 1.0 - agree)
     c = cap["anyhit"]
     args, kw = c["args"], c["kw"]
@@ -1125,18 +1146,20 @@ def check_calls_vs_plain(rk, ck, cap):
     occ_r = anyhit_ref_chunked(rk, args[:7], need)
     rows = torch.ones_like(occ_r) if need is None else need
     agree = (c["out"] == occ_r)[rows].float().mean().item()
-    check(agree >= 0.999, f"phase 16b: K2 needed rows agree on {agree:.6f}")
+    check(agree >= 0.999, f"{phase}: K2 needed rows agree on {agree:.6f}")
     if need is not None:
         check(not c["out"][~need].any().item(),
-              "phase 16b: K2 occluded a row off its need mask")
+              f"{phase}: K2 occluded a row off its need mask")
     out["anyhit"] = (occ_r.shape[0], int(rows.sum()), 1.0 - agree)
     c = cap["cone_minz"]
-    zr, cr = minz_ref_chunked(ck, c["args"])
-    check(torch.equal(c["out"][0], zr) and torch.equal(c["out"][1], cr),
-          "phase 16b: K3 not bit-equal to its plain version")
-    out["cone_minz"] = (cr.shape[0], cr.shape[0], 0.0)
+    zr, cr = minz_ref_chunked(ck, c["args"], k3_lanes)
+    n3 = cr.shape[0]
+    check(torch.equal(c["out"][0][:n3], zr)
+          and torch.equal(c["out"][1][:n3], cr),
+          f"{phase}: K3 not bit-equal to its plain version")
+    out["cone_minz"] = (c["out"][1].shape[0], n3, 0.0)
     for kind, (n, n_need, bad) in out.items():
-        print(f"phase 16b: {kind}: the render's call of {n_need} needed "
+        print(f"{phase}: {kind}: the render's call of {n_need} needed "
               f"rows of {n} against its plain version: "
               f"{'bit-equal' if kind == 'cone_minz' else f'disagree on {bad:.6f} of the needed rows'}",
               flush=True)
@@ -1399,6 +1422,248 @@ def check_gradients_vs_cpu(build_scene, card="cuda"):
           f"{res['wave'][0]:.6f} and {res['wave'][1]:.4f} within 1e-2",
           flush=True)
     return res
+
+
+def cli_box_files(tmp):
+    """The bench wave box and its scale variant as scene files in tmp:
+    {name: (path, icosphere, spp)}."""
+    import os
+
+    from wave_tracer_tpu_torch.scene.procedural import box_scene_xml
+    files = {}
+    for name, ico, spp in (("box", False, 8), ("box_scale", True, 4)):
+        path = os.path.join(tmp, f"{name}.xml")
+        with open(path, "w") as f:
+            f.write(box_scene_xml(256, spp, 8, True, icosphere=ico))
+        files[name] = (path, ico, spp)
+    return files
+
+
+def check_xml_bake(path, icosphere, spp, tag):
+    """The file's load + bake against make_box_scene's bake: every table
+    equal but the two uniform spectra's grid ranges (the dialect's uniform
+    spectrum spans other wavenumbers; the values are equal). Returns (load
+    s, bake s, triangles)."""
+    from wave_tracer_tpu_torch.scene.build import bake_scene_arrays
+    from wave_tracer_tpu_torch.scene.procedural import make_box_scene
+    from wave_tracer_tpu_torch.scene.xml import load_scene_xml
+    t0 = time.perf_counter()
+    scene = load_scene_xml(path)
+    t1 = time.perf_counter()
+    arrays, spectral = bake_scene_arrays(scene)
+    t2 = time.perf_counter()
+    ref = make_box_scene(256, spp, icosphere=icosphere)
+    ref.integrator.max_depth, ref.integrator.fsd = 8, True
+    ref_arrays, ref_spectral = bake_scene_arrays(ref)
+    for key, b in ref_arrays.items():
+        if key in ("tables.spectra.log_kmin", "tables.spectra.log_kmax"):
+            continue
+        a = arrays[key]
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"{tag}: {key} differs from make_box_scene's bake")
+    for key, b in ref_spectral[0].items():
+        check(np.array_equal(spectral[0][key], b),
+              f"{tag}: spectral.{key} differs from make_box_scene's bake")
+    check(np.array_equal(scene.sensors[0].to_world, ref.sensors[0].to_world)
+          and scene.sensors[0].fov == ref.sensors[0].fov
+          and scene.integrator.max_depth == 8 and scene.integrator.fsd,
+          f"{tag}: sensor or integrator differs from make_box_scene's")
+    return t1 - t0, t2 - t1, len(arrays["geo.p0"])
+
+
+def check_cli(rk, ck, card):
+    """Phase 22 (module doc). Returns (the kernels' launches in cli.main's
+    render of the scale file, in its mask, its captured calls against
+    their plain versions, the phase's readings)."""
+    import json as json_mod
+    import os
+    import shutil
+    import tempfile
+
+    from wave_tracer_tpu_torch import cli
+    from wave_tracer_tpu_torch.render import render_scene
+    from wave_tracer_tpu_torch.render.checkpoint import (load_checkpoint,
+                                                         save_checkpoint)
+    from wave_tracer_tpu_torch.render.mask import render_mask
+    from wave_tracer_tpu_torch.render.output import read_exr, read_png
+    from wave_tracer_tpu_torch.scene import build_scene
+    from wave_tracer_tpu_torch.scene.xml import load_scene_xml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="wt_cli_")
+    out = {}
+    try:
+        files = cli_box_files(tmp)
+        for name, (path, ico, spp) in files.items():
+            t_load, t_bake, T = check_xml_bake(path, ico, spp,
+                                               f"phase 22 {name}")
+            out[f"{name}_load_s"], out[f"{name}_bake_s"] = t_load, t_bake
+            print(f"phase 22: {name}.xml ({T} triangles): load "
+                  f"{t_load:.3f} s, bake {t_bake:.3f} s, tables equal to "
+                  f"make_box_scene's [{card}]", flush=True)
+        check(out["box_scale_bake_s"] > 0, "phase 22: no bake time")
+
+        # the real entry point, as a process of its own
+        box, _, _ = files["box"]
+        odir = os.path.join(tmp, "out")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "wave_tracer_tpu_torch", "render", box,
+             "-o", odir, "--write-stats", "--mask"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 22: the CLI exited "
+              f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-4000:]}")
+        for f in ("camera.exr", "camera.png", "camera_mask.png",
+                  "perf_stats.json"):
+            check(os.path.isfile(os.path.join(odir, f)),
+                  f"phase 22: the CLI wrote no {f}")
+        with open(os.path.join(odir, "perf_stats.json")) as f:
+            (cli_st,) = json_mod.load(f)
+        check(cli_st["mode"] == "wave-compact" and cli_st["paths"] == 524288,
+              f"phase 22: CLI stats {cli_st}")
+        exr, names = read_exr(os.path.join(odir, "camera.exr"))
+        exr = np.stack([exr[..., names.index(c)] for c in "RGB"], -1)
+
+        built = build_scene(load_scene_xml(box), device="cuda")
+        sensor = built.scene.sensors[0]
+        M = sensor.response.develop_matrix()
+        render_scene(built, spp=1, device="cuda")           # warm-up
+        img, st = render_scene(built, device="cuda")
+        chunked = [render_scene(built, device="cuda",
+                                interrupt=lambda: None)[1]["paths_per_sec"]
+                   for _ in range(RATE_RENDERS)]
+        rgb = (img @ M.T).astype(np.float32)
+        frac = compare_images(exr, rgb, st, st, "phase 22 CLI vs render",
+                              mean_rtol=0.02, px_tol=1e-2, px_frac=0.90,
+                              counters=(), counter_rtol=0.0, corr=0.999)
+        out.update(cli_paths_per_sec=cli_st["paths_per_sec"],
+                   cli_process_s=wall,
+                   chunked_paths_per_sec=float(np.median(chunked)))
+        print(f"phase 22: python -m wave_tracer_tpu_torch render box.xml "
+              f"(256x256 8 spp depth 8): exit 0 in {wall:.2f} s, "
+              f"{cli_st['paths_per_sec']:.1f} paths/s in its render "
+              f"({cli_st['seconds']:.3f} s, pool {cli_st['pool_lanes']}); "
+              f"in-process render_scene {rate_line(built, st)}); the same "
+              f"in-process with an interrupt callback (the CLI's chunks of "
+              f"1 spp): {float(np.median(chunked)):.1f} paths/s (median of "
+              f"{', '.join(f'{x:.1f}' for x in chunked)}); EXR vs "
+              f"in-process develop: {frac:.4f} of pixels within the wave "
+              f"bar [{card}]", flush=True)
+
+        alpha = read_png(os.path.join(odir, "camera_mask.png"))[..., 0]
+        m_card = render_mask(built, sensor)
+        m_cpu = render_mask(built.on("cpu"), sensor)
+        check(np.array_equal(m_card, m_cpu),
+              f"phase 22: mask differs on the card and the CPU on "
+              f"{int((m_card != m_cpu).sum())} pixels")
+        check(np.array_equal(alpha, np.clip(m_card * 255.0 + 0.5, 0, 255)
+                             .astype(np.uint8)),
+              "phase 22: the CLI's mask PNG is not the in-process mask")
+        # the mask's K1 launches, timed
+        events = []
+        closest_hit = rk.closest_hit
+
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = closest_hit(*a, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return r
+        rk.closest_hit = timed
+        try:
+            render_mask(built, sensor)
+        finally:
+            rk.closest_hit = closest_hit
+        torch.cuda.synchronize()
+        mask_ms = [a.elapsed_time(b) for a, b in events]
+        out["mask_k1_ms_per_launch"] = float(np.mean(mask_ms))
+        print(f"phase 22: mask 256x256 x 4 subsamples: card equals CPU, "
+              f"{float(m_card.mean()):.4f} covered; K1 {len(mask_ms)} "
+              f"launches, {np.mean(mask_ms):.3f} ms per launch [{card}]",
+              flush=True)
+
+        # cli.main in-process on the scale file, its kernel calls held
+        # against their plain versions
+        scale, _, _ = files["box_scale"]
+        sdir = os.path.join(tmp, "scale")
+        zero(rk.LAUNCHES, ck.LAUNCHES)
+        cap = capture_calls(rk, ck, lambda: check(cli.main(
+            ["render", scale, "-o", sdir, "--write-stats"]) == 0,
+            "phase 22: cli.main failed"), phase="phase 22")
+        torch.cuda.synchronize()
+        cli_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        check(all(v > 0 for v in cli_launches.values()),
+              f"phase 22: the CLI's scale render launched {cli_launches}")
+        with open(os.path.join(sdir, "perf_stats.json")) as f:
+            (scale_st,) = json_mod.load(f)
+        zero(rk.LAUNCHES, ck.LAUNCHES)
+        sbuilt = build_scene(load_scene_xml(scale), device="cuda")
+        render_mask(sbuilt, sbuilt.scene.sensors[0])
+        torch.cuda.synchronize()
+        mask_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        check(mask_launches["closest"] > 0 and mask_launches["anyhit"] == 0
+              and mask_launches["cone_minz"] == 0,
+              f"phase 22: the mask launched {mask_launches}")
+        render_scene(sbuilt, spp=1, device="cuda")         # warm-up
+        img_s, st_s = render_scene(sbuilt, device="cuda")
+        calls = check_calls_vs_plain(rk, ck, cap, phase="phase 22",
+                                     k3_lanes=REF_CHUNK)
+        out.update(scale_cli_paths_per_sec=scale_st["paths_per_sec"],
+                   scale_paths_per_sec=st_s["paths_per_sec"])
+        print(f"phase 22: cli.main render box_scale.xml (81932 tris, "
+              f"256x256 4 spp depth 8): {scale_st['paths_per_sec']:.1f} "
+              f"paths/s ({scale_st['seconds']:.3f} s, pool "
+              f"{scale_st['pool_lanes']}), launches {cli_launches}; "
+              f"in-process render_scene {st_s['paths_per_sec']:.1f} paths/s "
+              f"({st_s['seconds']:.3f} s, pool {st_s['pool_lanes']}); its "
+              f"mask launches {mask_launches} [{card}]", flush=True)
+
+        # interrupt after two polls, resume; then through a checkpoint
+        polls = {"n": 0}
+
+        def stop_after_two():
+            polls["n"] += 1
+            return "terminate" if polls["n"] >= 2 else None
+
+        part, pst, rend = render_scene(built, device="cuda",
+                                       interrupt=stop_after_two,
+                                       return_renderer=True)
+        check(pst["interrupted"] and 0 < pst["spp_done"] < 8,
+              f"phase 22: the interrupt left {pst['spp_done']} spp")
+        resumed, rst = render_scene(built, device="cuda",
+                                    init_film=rend.last_film,
+                                    spp_start=int(rend.last_spp_done))
+        ckpt = os.path.join(tmp, "camera.ckpt.npz")
+        save_checkpoint(ckpt, rend.last_film, int(rend.last_spp_done), 0,
+                        sensor.id)
+        film, done, seed, sid = load_checkpoint(ckpt, device="cuda")
+        check((done, seed, sid) == (pst["spp_done"], 0, "camera"),
+              f"phase 22: checkpoint holds {(done, seed, sid)}")
+        from_ckpt, _ = render_scene(built, device="cuda", init_film=film,
+                                    spp_start=done)
+        scale_ref = np.maximum(np.abs(img), np.abs(img).mean())
+        for tag, x in (("resumed", resumed), ("from the checkpoint",
+                                              from_ckpt)):
+            err = float((np.abs(x - img) / scale_ref).max())
+            check(not rst["interrupted"] and err <= 1e-4,
+                  f"phase 22: {tag} render vs uninterrupted: max "
+                  f"|diff|/max(|ref|, mean|ref|) {err:.3e}")
+            out[f"resume_{tag.split()[0]}_max_rel"] = err
+        print(f"phase 22: interrupted after 2 polls at {pst['spp_done']} spp, "
+              f"resumed and resumed from a card checkpoint: max "
+              f"|diff|/max(|ref|, mean|ref|) against the uninterrupted render "
+              f"{out['resume_resumed_max_rel']:.3e} and "
+              f"{out['resume_from_max_rel']:.3e}", flush=True)
+        return cli_launches, mask_launches, calls, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def zero(*counts):
@@ -1734,7 +1999,8 @@ def main():
           f" (over {len(calls16['cone_minz'])} launches)", flush=True)
 
     # ---- phase 16b: K1, K2 and K3 on the materials render's own calls
-    mat_calls = check_calls_vs_plain(rk, ck, capture_calls(rk, ck, mat))
+    mat_calls = check_calls_vs_plain(rk, ck, capture_calls(
+        rk, ck, lambda: render_scene(mat, device="cuda")))
 
     # ---- phase 17: polarimetric plt_bdpt over the materials box
     matb = build_scene(materials_scene(256, 4, 8, "plt_bdpt", True),
@@ -1838,6 +2104,9 @@ def main():
               f"the bar of the pool's image; launches {batched[tag]}",
               flush=True)
 
+    # ---- phase 22: scene files and the command line
+    cli_launches, mask_launches, cli_calls, cli_out = check_cli(rk, ck, card)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -1857,7 +2126,9 @@ def main():
                                          grad_launches.items()},
                                       "batched_wave": batched["wave"][key],
                                       "batched_classical":
-                                          batched["classical"][key]},
+                                          batched["classical"][key],
+                                      "cli_wave_scale": cli_launches[key],
+                                      "cli_mask": mask_launches[key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)
@@ -1873,6 +2144,9 @@ def main():
             in_materials_render=in_mat["closest"],
             in_materials_bdpt_render=in_matb["closest"],
             materials_call_vs_plain=mat_calls["closest"],
+            cli_scale_call_vs_plain=cli_calls["closest"],
+            mask_ms_per_launch=cli_out["mask_k1_ms_per_launch"],
+            cli=cli_out,
             culls_off_ms=kstats["closest"]["culls_off_ms"],
             all_pairs_bound_ms=kstats["closest"]["all_pairs_bound_ms"]),
         row("any_hit", "ray_kernels.cu",
@@ -1886,13 +2160,15 @@ def main():
                                  for k in ("anyhit_legs", "anyhit_nee")},
             in_materials_bdpt_render=in_matb["anyhit"],
             materials_call_vs_plain=mat_calls["anyhit"],
+            cli_scale_call_vs_plain=cli_calls["anyhit"],
             need_mask_ms=legs_need[0], empty_mask_ms=legs_need[1]),
         row("cone_minz", "cone_kernels.cu",
             "wave_tracer_tpu/accel/mxu_cone.py:309", "cone_minz", k3,
             narrow_cones=k3_narrow,
             in_scale_render=in_render["cone_minz"],
             in_materials_render=in_mat["cone_minz"],
-            materials_call_vs_plain=mat_calls["cone_minz"]),
+            materials_call_vs_plain=mat_calls["cone_minz"],
+            cli_scale_call_vs_plain=cli_calls["cone_minz"]),
     ]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,5 +1,5 @@
-"""K1/K2/K3 and the classical, wave, coverage and materials-box renders on
-a CUDA card against the plain torch versions. Marked `gpu`: each test skips without a
+"""K1/K2/K3, the classical, wave, coverage and materials-box renders, the
+mask and the CLI on a CUDA card against the plain torch versions. Marked `gpu`: each test skips without a
 card. This file imports no
 jax, so it also runs on GPU hosts without JAX:
 
@@ -548,3 +548,37 @@ def test_wall_translation_on_card(cuda, monkeypatch):
     assert np.isfinite(a).all() and (a != 0).any()
     scale = np.maximum(np.abs(b), np.abs(b).mean())
     assert (np.abs(a - b) <= 1e-3 * scale).all(-1).mean() >= 0.98
+
+
+@pytest.mark.gpu
+def test_mask_and_cli_render_on_card(cuda, tmp_path):
+    """render_mask on the card equals the CPU's; the CLI's render of the
+    box file on the card agrees with its render on the CPU at the wave
+    bars (PERF.md §2)."""
+    from wave_tracer_tpu_torch import cli
+    from wave_tracer_tpu_torch.render.mask import render_mask
+    from wave_tracer_tpu_torch.render.output import read_exr
+    from wave_tracer_tpu_torch.scene.procedural import box_scene_xml
+    from wave_tracer_tpu_torch.scene.xml import load_scene_xml
+
+    path = tmp_path / "box.xml"
+    path.write_text(box_scene_xml(32, 4, 5, True))
+    built = build_scene(load_scene_xml(str(path)), device=cuda)
+    sensor = built.scene.sensors[0]
+    before = rk.LAUNCHES["closest"]
+    m_card = render_mask(built, sensor)
+    assert rk.LAUNCHES["closest"] > before
+    np.testing.assert_array_equal(m_card, render_mask(built.on("cpu"),
+                                                      sensor))
+    img = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        assert cli.main(["render", str(path), "--device", dev, "-o",
+                         str(out), "--mask"]) == 0
+        x, names = read_exr(str(out / "camera.exr"))
+        img[dev] = np.stack([x[..., names.index(c)] for c in "RGB"], -1)
+    a, b = img["cuda"], img["cpu"]
+    np.testing.assert_allclose(a.mean((0, 1)), b.mean((0, 1)), rtol=0.02)
+    assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999
+    scale = np.maximum(np.abs(b), np.abs(b).mean())
+    assert (np.abs(a - b) <= 1e-2 * scale).all(-1).mean() >= 0.90

@@ -1,6 +1,6 @@
 """The port stands alone: importing wave_tracer_tpu_torch with every
 submodule (and chip_smoke.py) pulls in no jax, flax or wave_tracer_tpu,
-so the port runs on GPU hosts without JAX."""
+nor PIL or PyYAML, so the port runs on GPU hosts without them."""
 
 import os
 import subprocess
@@ -22,7 +22,7 @@ for n in names:
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                    "wave_tracer_tpu"))
+                                    "wave_tracer_tpu", "PIL", "yaml"))
 print(len(names))
 assert not bad, bad
 """
@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 70
 
 
 def test_chip_smoke_refuses_without_a_card():

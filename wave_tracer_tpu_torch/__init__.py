@@ -18,8 +18,11 @@ Layers:
     accel.ray_kernels, and csrc/cone_kernels.cu (the cone-triangle
     boundary sweep), wrapped by accel.cone_kernels; on CPU tensors the
     wrappers run their plain torch versions
+  * scene files and output (standard library and numpy): scene.xml,
+    geometry.{obj,ply}, render.{output,checkpoint,mask}, util.{stats,tev}
 
-Entry point: ``render.render_scene(scene.build_scene(scene), device=...)``.
+Entry points: ``python -m wave_tracer_tpu_torch render scene.xml`` (cli),
+and ``render.render_scene(scene.build_scene(scene), device=...)``.
 """
 
 __version__ = "0.1.0"

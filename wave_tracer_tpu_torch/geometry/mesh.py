@@ -1,8 +1,10 @@
 """Triangle meshes as flat SoA numpy arrays (host-side, scene-build time).
 
-Port of wave_tracer_tpu/geometry/mesh.py for the shapes the procedural
-scenes use (rectangle, cube, icosphere). Meshes are de-indexed into a flat
-world space triangle soup; vertices transform in float64; zero-area
+Port of wave_tracer_tpu/geometry/mesh.py: indexed meshes and per-corner
+arrays (OBJ), and the procedural shapes of the scene dialect (rectangle,
+cube, icosahedron, icosphere, open cylinder, prism, spherical-cap lens),
+each equal to the JAX package's soup bit for bit. Meshes are de-indexed
+into a flat world space triangle soup; vertices transform in float64; zero-area
 triangles are dropped; where all three shading normals oppose the
 geometric normal the winding is flipped; dpdu is the per-triangle
 surface differential.
@@ -14,7 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from wave_tracer_tpu_torch.core.transform import Transform
+from wave_tracer_tpu_torch.core.transform import (Transform,
+                                                  _orthogonal_tangent)
 
 
 @dataclass
@@ -115,6 +118,20 @@ def build_soup(vertices: np.ndarray, indices: np.ndarray,
     )
 
 
+def build_soup_from_corners(corner_pos, corner_normals=None, corner_uvs=None,
+                            to_world: Transform | None = None) -> TriangleSoup:
+    """Build soup from already de-indexed per-corner arrays (e.g. OBJ)."""
+    corner_pos = np.asarray(corner_pos, np.float64)
+    T = len(corner_pos)
+    verts = corner_pos.reshape(-1, 3)
+    idx = np.arange(3 * T).reshape(-1, 3)
+    n = (np.asarray(corner_normals, np.float64).reshape(-1, 3)
+         if corner_normals is not None else None)
+    uv = (np.asarray(corner_uvs, np.float64).reshape(-1, 2)
+          if corner_uvs is not None else None)
+    return build_soup(verts, idx, n, uv, to_world)
+
+
 def rectangle(length: float, to_world: Transform | None = None,
               tessellation: int = 1) -> TriangleSoup:
     """Axis-aligned square in the local xy plane, centred at the origin,
@@ -173,6 +190,15 @@ def cube(length: float, to_world: Transform | None = None) -> TriangleSoup:
                       _CUBE_UV, to_world)
 
 
+def icosahedron(center, radius: float,
+                to_world: Transform | None = None) -> TriangleSoup:
+    n = _ICO_POS / np.linalg.norm(_ICO_POS, axis=-1, keepdims=True)
+    verts = n * radius + np.asarray(center, np.float64)
+    uv = np.stack([np.arctan2(n[:, 2], n[:, 0]) / (2 * np.pi),
+                   np.arcsin(np.clip(n[:, 1], -1, 1)) / np.pi + 0.5], axis=-1)
+    return build_soup(verts, _ICO_IDX, n, uv, to_world)
+
+
 def sphere(center, radius: float, to_world: Transform | None = None,
            tessellation: int = 20) -> TriangleSoup:
     """Subdivided icosphere; recursion = round(log2(tess/3)). Shading
@@ -195,3 +221,177 @@ def sphere(center, radius: float, to_world: Transform | None = None,
                   axis=-1)
     idx = np.arange(len(verts)).reshape(-1, 3)
     return build_soup(verts, idx, normals, uv, to_world)
+
+
+def cylinder(p0, p1, radius: float, to_world: Transform | None = None,
+             phi_tessellation: int = 20) -> TriangleSoup:
+    """Open cylinder from p0 to p1: no caps."""
+    p0 = np.asarray(p0, np.float64)
+    p1 = np.asarray(p1, np.float64)
+    v = p1 - p0
+    ln = np.linalg.norm(v)
+    d = v / ln
+    # local frame with n=d (build_orthogonal_frame)
+    t = _orthogonal_tangent(d)
+    b = np.cross(d, t)
+    verts, normals, uvs, idx = [], [], [], []
+    for i in range(phi_tessellation):
+        phi = 2 * np.pi * i / phi_tessellation
+        c, s = np.cos(phi), np.sin(phi)
+        ndir = c * t + s * b
+        verts.append(p0 + ndir * radius)
+        verts.append(p0 + ndir * radius + v)
+        normals += [ndir, ndir]
+        uvs += [[i / phi_tessellation, 0], [i / phi_tessellation, 1]]
+        i0 = 2 * i
+        i2 = (2 * i + 2) % (2 * phi_tessellation)
+        idx += [[i0, i2, i0 + 1], [i0 + 1, i2, i2 + 1]]
+    return build_soup(np.array(verts), np.array(idx), np.array(normals),
+                      np.array(uvs), to_world)
+
+
+_PRISM_POS = np.array([
+    [-.5, 0, -.5], [.5, 0, -.5], [0, 1, -.5],
+    [-.5, 0, .5], [0, 1, .5], [.5, 0, .5],
+    [-.5, 0, .5], [-.5, 0, -.5], [0, 1, .5], [0, 1, -.5],
+    [.5, 0, -.5], [.5, 0, .5], [0, 1, -.5], [0, 1, .5],
+    [-.5, 0, .5], [-.5, 0, -.5], [.5, 0, .5], [.5, 0, -.5]], np.float64)
+_PRISM_UV = np.array([
+    [0, 0], [1, 0], [.5, .5], [0, 0], [.5, .5], [1, 0],
+    [0, 0], [1, 0], [0, 1], [1, 1], [0, 0], [1, 0], [0, 1], [1, 1],
+    [0, 0], [1, 0], [0, 1], [1, 1]], np.float64)
+_PRISM_IDX = np.array([
+    [0, 2, 1], [3, 5, 4], [6, 8, 7], [9, 7, 8],
+    [10, 12, 11], [13, 11, 12], [14, 15, 16], [17, 16, 15]], np.int64)
+
+
+def prism(length: float, height: float, angle: float,
+          to_world: Transform | None = None) -> TriangleSoup:
+    """Triangular prism along z: apex angle `angle` at the top,
+    base width = 2*height*tan(angle/2)."""
+    xlen = height * np.tan(angle / 2.0)
+    scale = np.array([xlen, height, length])
+    verts = _PRISM_POS * scale
+    return build_soup(verts, _PRISM_IDX, None, _PRISM_UV, to_world)
+
+
+def lens(center, radius: float, R1: float, R2: float, thickness: float,
+         to_world: Transform | None = None,
+         tessellation: int = 35) -> TriangleSoup:
+    """Spherical-cap lens along the x axis.
+
+    R1/R2 are dimensionless curvatures: face radius = radius / Rn; Rn == 0
+    means flat. The left face opens toward -x, right toward +x.
+    """
+    center = np.asarray(center, np.float64)
+    cR1 = radius / R1 if R1 != 0 else np.inf
+    cR2 = radius / R2 if R2 != 0 else np.inf
+    x1 = np.sign(cR1) * np.sqrt(cR1 * cR1 - radius * radius) if np.isfinite(cR1) else 0.0
+    x2 = -np.sign(cR2) * np.sqrt(cR2 * cR2 - radius * radius) if np.isfinite(cR2) else 0.0
+    Lf = np.array([x1, 0.0, 0.0])
+    Rf = np.array([x2, 0.0, 0.0])
+    ET = (x1 - x2 - (cR1 if np.isfinite(cR1) else 0.0)
+          - (cR2 if np.isfinite(cR2) else 0.0) + thickness)
+    if thickness == 0 and R1 <= 0 and R2 <= 0:
+        ET += radius / 1000.0
+
+    verts, normals, uvs, tris = [], [], [], []
+
+    def face(ffoc, fR, xoff, sign_x):
+        """Build one face; returns start index."""
+        start = len(verts)
+        ftess = tessellation if np.isfinite(fR) else 1
+        apex_x = -(fR if np.isfinite(fR) else 0.0)
+        verts.append(ffoc + np.array([apex_x + xoff, 0, 0]))
+        normals.append(np.array([sign_x, 0, 0]))
+        uvs.append([0, 0])
+        for i in range(ftess):
+            h = radius * min(1.0, ((i + 1) / ftess) ** 0.8)
+            for j in range(tessellation):
+                phi = 2 * np.pi * j / tessellation
+                cp = np.array([0.0, np.cos(phi), np.sin(phi)]) * h
+                if np.isfinite(fR):
+                    n = cp - ffoc
+                    n = n / np.linalg.norm(n)
+                    if fR < 0:
+                        n = -n
+                    p = ffoc + n * fR + np.array([xoff, 0, 0])
+                else:
+                    n = np.array([sign_x, 0.0, 0.0])
+                    p = cp + np.array([xoff, 0, 0])
+                verts.append(p)
+                normals.append(n)
+                uvs.append([(i + 1) / (tessellation + 1), j / tessellation])
+        return start, ftess
+
+    L_start, L_tess = face(Lf, cR1, 0.0, -1.0)
+    # right face apex at Rf.x + cR2 + ET
+    R_start = len(verts)
+    R_tess = tessellation if np.isfinite(cR2) else 1
+    verts.append(Rf + np.array([(cR2 if np.isfinite(cR2) else 0.0) + ET, 0, 0]))
+    normals.append(np.array([1.0, 0, 0]))
+    uvs.append([0, 0])
+    for i in range(R_tess):
+        h = radius * min(1.0, ((i + 1) / R_tess) ** 0.8)
+        for j in range(tessellation):
+            phi = 2 * np.pi * j / tessellation
+            cp = np.array([0.0, np.cos(phi), np.sin(phi)]) * h
+            if np.isfinite(cR2):
+                n = cp - Rf
+                n = n / np.linalg.norm(n)
+                if cR2 < 0:
+                    n = -n
+                p = Rf + n * cR2 + np.array([ET, 0, 0])
+            else:
+                n = np.array([1.0, 0.0, 0.0])
+                p = cp + np.array([ET, 0, 0])
+            verts.append(p)
+            normals.append(n)
+            uvs.append([(i + 1) / (tessellation + 1), j / tessellation])
+
+    E_start = len(verts)
+    if ET > 0:
+        for j in range(tessellation):
+            phi = 2 * np.pi * j / tessellation
+            n = np.array([0.0, np.cos(phi), np.sin(phi)])
+            cp = n * radius
+            verts += [cp, cp + np.array([ET, 0, 0])]
+            normals += [n, n]
+            uvs += [[0, j / tessellation], [1, j / tessellation]]
+
+    for i in range(L_tess):
+        for j in range(tessellation):
+            previ0 = (i - 1) * tessellation + (j - 1 if j > 0 else tessellation - 1)
+            previ1 = (i - 1) * tessellation + j
+            prev = i * tessellation + (j - 1 if j > 0 else tessellation - 1)
+            if i == 0:
+                tris.append([L_start, L_start + 1 + j, L_start + 1 + prev])
+            else:
+                tris.append([L_start + 1 + previ0, L_start + 1 + previ1,
+                             L_start + 1 + prev])
+                tris.append([L_start + 1 + prev, L_start + 1 + previ1,
+                             L_start + 1 + i * tessellation + j])
+    for i in range(R_tess):
+        for j in range(tessellation):
+            previ0 = (i - 1) * tessellation + (j - 1 if j > 0 else tessellation - 1)
+            previ1 = (i - 1) * tessellation + j
+            prev = i * tessellation + (j - 1 if j > 0 else tessellation - 1)
+            if i == 0:
+                tris.append([R_start, R_start + 1 + prev, R_start + 1 + j])
+            else:
+                tris.append([R_start + 1 + previ1, R_start + 1 + previ0,
+                             R_start + 1 + prev])
+                tris.append([R_start + 1 + previ1, R_start + 1 + prev,
+                             R_start + 1 + i * tessellation + j])
+    if ET > 0:
+        for j in range(tessellation):
+            prev0 = 2 * j - 2 if j > 0 else 2 * tessellation - 2
+            prev1 = prev0 + 1
+            tris.append([E_start + prev1, E_start + prev0, E_start + 2 * j])
+            tris.append([E_start + 2 * j + 1, E_start + prev1,
+                         E_start + 2 * j])
+
+    verts = np.array(verts) + center
+    tfm = to_world
+    return build_soup(verts, np.array(tris), np.array(normals),
+                      np.array(uvs), tfm)

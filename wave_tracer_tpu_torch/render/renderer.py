@@ -20,6 +20,17 @@ integrator: batches of `pool_lanes` lanes, lane ids 0..n−1 and sample id
 plt_path, Fraunhofer under plt_bdpt) whose crossings and FSD-NEE
 connections splat into the light image, developed by the samples per
 element. Other sensors raise NotImplementedError.
+
+The interrupt system of the JAX renderer: `interrupt`, a callable polled
+between chunks, returns None, "terminate" (stop after the chunk and
+develop the completed work) or "capture" (develop mid-render and pass the
+image and the samples done to `on_capture`). Only with an interrupt is
+the render cut into chunks (the pool and the batched renderer: ⌈spp/8⌉
+samples per pixel a chunk; forward rendering polls after each batch);
+without one each path runs as one chunk. `last_film` and `last_spp_done`
+keep the raw film and the samples done, and `init_film` with `spp_start`
+continue a render from them (render/checkpoint.py): every path's streams
+are keyed by (pixel, sample), so the remaining samples are the same.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
 from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
 from wave_tracer_tpu_torch.sensor.virtual_plane import VirtualPlaneSensor
+from wave_tracer_tpu_torch.util import stats as stats_mod
 
 # default lane-pool sizes. On the card a pool step costs a few thousand
 # small torch launches whatever its width (most of them the int64 Sobol
@@ -91,10 +103,23 @@ class Renderer:
     # plt_path through the compacted pool (True) or the batched renderer
     # over trace_paths / trace_paths_wave (False), as in the JAX package
     compact: bool = True
+    # interrupt system: a callable polled between chunks returning None,
+    # "terminate" or "capture"; on "capture", on_capture(img, spp_done)
+    # gets the developed intermediate image
+    interrupt: object = None
+    on_capture: object = None
+    # after render_sensor: the raw film and the samples per pixel done,
+    # for checkpoint and resume
+    last_film: object = None
+    last_spp_done: float = 0
 
-    def render_sensor(self, sensor_index: int = 0, spp: int | None = None):
+    def render_sensor(self, sensor_index: int = 0, spp: int | None = None,
+                      progress=None, init_film=None, spp_start: int = 0):
         built = self.built
         device = torch.device(self.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port renders on the "
+                               "card unless device='cpu' is asked for")
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if built.device != device:
@@ -108,9 +133,11 @@ class Renderer:
         spp = spp or sensor.samples
         data = dataclasses.replace(
             built.data, spectral=built.spectral_per_sensor[sensor_index])
+        film = _start_film(sensor, init_film, device)
+        eps = 1e-4 * scene.world_radius()
         if isinstance(sensor, VirtualPlaneSensor):
-            return self._render_forward(data, sensor, spp, cfg,
-                                        1e-4 * scene.world_radius(), device)
+            return self._render_forward(data, sensor, spp, film, cfg, eps,
+                                        device, progress, spp_start)
         trace_only = sensor.ray_trace_only or cfg.ray_trace_only
         if cfg.type not in ("plt_path", "plt_bdpt") and not trace_only:
             raise NotImplementedError(f"{cfg.type} is not ported yet")
@@ -119,33 +146,63 @@ class Renderer:
         n_edges = built.data.edges.count
         fsd_on = (cfg.fsd and not trace_only
                   and 0 < n_edges <= MAX_FSD_EDGES)
-        W, H = sensor.width, sensor.height
-        film = film_mod.make_film(W, H, _film_channels(sensor),
-                                  sensor.rfilter_sigma, device=device)
-        eps = 1e-4 * scene.world_radius()
         if cfg.type == "plt_bdpt" and not trace_only:
             return self._render_batched(data, sensor, spp, film, cfg, eps,
-                                        fsd_on, device, "bdpt")
+                                        fsd_on, device, "bdpt", progress,
+                                        spp_start)
         if not self.compact:
             return self._render_batched(data, sensor, spp, film, cfg, eps,
                                         fsd_on, device,
-                                        "wave" if fsd_on else "ray")
-        paths = spp * W * H
-        lanes = min(paths, self.pool_lanes or (
-            POOL_LANES_CUDA if device.type == "cuda" else POOL_LANES_CPU))
-
+                                        "wave" if fsd_on else "ray",
+                                        progress, spp_start)
+        npix = sensor.width * sensor.height
+        # chunk by spp only for interrupt granularity
+        spp_chunk = max(1, -(-spp // 8)) if self.interrupt else spp
+        default = POOL_LANES_CUDA if device.type == "cuda" \
+            else POOL_LANES_CPU
+        base_key = rng.make_base_key(self.seed)
+        stats = None
+        lanes = paths = 0
+        spp_done = spp_start
         t0 = time.perf_counter()
-        film, stats = render_pool(
-            data, film, rng.make_base_key(self.seed), (0, paths),
-            lanes, sensor=sensor, max_depth=cfg.max_depth, eps=eps,
-            mis=cfg.mis, wave=fsd_on)
+        for s0 in range(spp_start, spp, spp_chunk):
+            s1 = min(s0 + spp_chunk, spp)
+            n = min((s1 - s0) * npix, self.pool_lanes or default)
+            film, st = render_pool(
+                data, film, base_key, (s0 * npix, s1 * npix), n,
+                sensor=sensor, max_depth=cfg.max_depth, eps=eps,
+                mis=cfg.mis, wave=fsd_on)
+            # one chunk (no interrupt) adds no launch to the pool's own
+            stats = st if stats is None else stats + st
+            lanes = max(lanes, n)
+            paths += (s1 - s0) * npix
+            spp_done = s1
+            if progress:
+                progress(s1, spp)
+            if self._poll_interrupt(film, spp_done, 0.0):
+                break
+        self.last_film, self.last_spp_done = film, spp_done
         img = film_mod.develop(film).cpu().numpy()   # waits for the device
         dt = time.perf_counter() - t0
+        if stats is None:                    # resumed with nothing left
+            stats = torch.zeros((path_mod.N_STATS,), device=device)
         return img, _stats(dt, paths, "wave-compact" if fsd_on
-                           else "ray-compact", spp, lanes, stats)
+                           else "ray-compact", spp_done, spp, lanes, stats)
+
+    def _poll_interrupt(self, film, spp_done, direct_norm):
+        """True when the render should stop. direct_norm normalizes the
+        light image of a capture (0: no light image in this mode)."""
+        if self.interrupt is None:
+            return False
+        action = self.interrupt()
+        if action == "capture" and self.on_capture is not None:
+            self.on_capture(film_mod.develop(film, direct_norm).cpu().numpy(),
+                            spp_done)
+            return False
+        return action == "terminate"
 
     def _render_batched(self, data, sensor, spp, film, cfg, eps, fsd,
-                        device, mode):
+                        device, mode, progress=None, spp_start=0):
         """The batched renderer: every (pixel, sample) pair once, in
         batches of about `pool_lanes` lanes laid out pixel batch × spp
         batch (pixel-major), with no padding lanes. mode "bdpt" traces
@@ -157,11 +214,16 @@ class Renderer:
             BDPT_LANES_CUDA if device.type == "cuda" else BDPT_LANES_CPU)
         pix_per_batch = min(max(lanes // max(spp, 1), 1), npix)
         spp_per_batch = min(max(lanes // pix_per_batch, 1), spp)
+        if self.interrupt is not None:
+            # interrupt-responsive chunking: ≥ ~8 poll points per render
+            spp_per_batch = min(spp_per_batch, max(1, -(-spp // 8)))
+            pix_per_batch = min(max(lanes // spp_per_batch, 1), npix)
         base_key = rng.make_base_key(self.seed)
         stats = torch.zeros((path_mod.N_STATS,), dtype=torch.float32,
                             device=device)
+        spp_done = spp_start
         t0 = time.perf_counter()
-        for s0 in range(0, spp, spp_per_batch):
+        for s0 in range(spp_start, spp, spp_per_batch):
             sids = torch.arange(s0, min(s0 + spp_per_batch, spp),
                                 device=device)
             for p0 in range(0, npix, pix_per_batch):
@@ -190,32 +252,40 @@ class Renderer:
                         eps=eps, mis=cfg.mis, with_stats=True)
                 film_mod.splat(film, pos, values, ok)
                 stats += st
-        # bdpt's light-tracing splats are normalized per pixel sample
-        img = film_mod.develop(film, spp if mode == "bdpt" else 0.0
+            spp_done = s0 + sids.shape[0]
+            if progress:
+                progress(spp_done, spp)
+            # bdpt's light-tracing splats are normalized per pixel sample
+            if self._poll_interrupt(film, spp_done,
+                                    spp_done if mode == "bdpt" else 0.0):
+                break
+        self.last_film, self.last_spp_done = film, spp_done
+        img = film_mod.develop(film, spp_done if mode == "bdpt" else 0.0
                                ).cpu().numpy()   # waits for the device
         dt = time.perf_counter() - t0
-        return img, _stats(dt, npix * spp, mode, spp,
-                           pix_per_batch * spp_per_batch, stats)
+        return img, _stats(dt, npix * (spp_done - spp_start), mode,
+                           spp_done, spp, pix_per_batch * spp_per_batch,
+                           stats)
 
-    def _render_forward(self, data, sensor, spp, cfg, eps, device):
+    def _render_forward(self, data, sensor, spp, film, cfg, eps, device,
+                        progress=None, spp_start=0):
         """Forward light tracing onto a virtual-plane sensor: spp·W·H
         paths in batches of `pool_lanes` lanes (lane ids 0..n−1, sample
         id the batch index, as the JAX package's forward kernel draws
         them; its lanes past the end, masked off there, are not traced
         here). Crossings splat as Gaussian beams and FSD-NEE connections
         as points into the light image, developed by the samples per
-        element."""
+        element. A resumed render starts at batch ⌈done/lanes⌉."""
         W, H = sensor.width, sensor.height
-        film = film_mod.make_film(W, H, _film_channels(sensor),
-                                  sensor.rfilter_sigma, device=device)
         wave = cfg.fsd and 0 < data.edges.count <= MAX_FSD_EDGES
         fsd_mode = "fraunhofer" if cfg.type == "plt_bdpt" else "utd"
         lanes = self.pool_lanes or (
             BDPT_LANES_CUDA if device.type == "cuda" else BDPT_LANES_CPU)
         base_key = rng.make_base_key(self.seed)
         total = spp * W * H
+        done = start = int(spp_start * W * H)
+        batch = -(-done // lanes)
         t0 = time.perf_counter()
-        done = batch = 0
         while done < total:
             n = min(lanes, total - done)
             ids = torch.arange(n, dtype=torch.int32, device=device)
@@ -228,14 +298,20 @@ class Renderer:
             film_mod.splat_direct(film, nee_pos, nee_val, nee_ok)
             done += n
             batch += 1
+            if progress:
+                progress(done, total)
+            spe_now = done / float(W * H)
+            if self._poll_interrupt(film, spe_now, spe_now):
+                break
         spe = done / float(W * H)
+        self.last_film, self.last_spp_done = film, spe
         img = film_mod.develop(film, spe).cpu().numpy()  # waits for the device
         dt = time.perf_counter() - t0
-        return img, dict(seconds=dt, paths=done,
-                         paths_per_sec=done / max(dt, 1e-9),
+        return img, dict(seconds=dt, paths=done - start,
+                         paths_per_sec=(done - start) / max(dt, 1e-9),
                          mode="forward-wave" if wave else "forward",
-                         spp_done=spe, interrupted=False, pool_lanes=lanes,
-                         batches=batch)
+                         spp_done=spe, interrupted=done < total,
+                         pool_lanes=lanes, batches=batch)
 
 
 def _film_channels(sensor):
@@ -244,20 +320,58 @@ def _film_channels(sensor):
         * (4 if getattr(sensor, "polarimetric", False) else 1)
 
 
-def _stats(dt, paths, mode, spp, lanes, stats):
+def _start_film(sensor, init_film, device):
+    """A fresh film for `sensor` on `device`, or a copy of `init_film` (a
+    resumed render; the splats then add to the copy)."""
+    if init_film is None:
+        return film_mod.make_film(sensor.width, sensor.height,
+                                  _film_channels(sensor),
+                                  sensor.rfilter_sigma, device=device)
+    shape = (sensor.height, sensor.width, _film_channels(sensor))
+    if tuple(init_film.value.shape) != shape:
+        raise ValueError(f"init_film of shape {tuple(init_film.value.shape)}"
+                         f" for a film of shape {shape}")
+
+    def own(x):
+        return x.to(device=device, dtype=torch.float32, copy=True)
+
+    return film_mod.Film(value=own(init_film.value),
+                         weight=own(init_film.weight),
+                         direct=own(init_film.direct),
+                         rfilter_sigma=init_film.rfilter_sigma,
+                         radius=init_film.radius)
+
+
+def _stats(dt, paths, mode, spp_done, spp, lanes, stats):
+    """The stats dict of a backward render; its device counters are also
+    recorded into util/stats.py's registry."""
     vec = stats.cpu().numpy()
+    counters = {name: float(vec[i]) for name, i in _COUNTER_NAMES.items()}
+    hist = [float(x) for x in vec[path_mod.STAT_TRI_HIST0:path_mod.N_STATS]]
+    reg = stats_mod.registry
+    for name, v in counters.items():
+        reg.counter(f"integrator/{name}").add(v)
+    if any(hist):
+        h = reg.histogram("ads/tris_per_cone")
+        for i, c in enumerate(hist):
+            h.add_count(i, c)
     return dict(
         seconds=dt, paths=paths, paths_per_sec=paths / max(dt, 1e-9),
-        mode=mode, spp_done=spp, interrupted=False, pool_lanes=lanes,
-        device_counters=dict(
-            {name: float(vec[i]) for name, i in _COUNTER_NAMES.items()},
-            tris_per_cone_hist=[float(x) for x in vec[
-                path_mod.STAT_TRI_HIST0:path_mod.N_STATS]]))
+        mode=mode, spp_done=spp_done, interrupted=spp_done < spp,
+        pool_lanes=lanes,
+        device_counters=dict(counters, tris_per_cone_hist=hist))
 
 
 def render_scene(built, sensor_index: int = 0, spp: int | None = None,
                  seed: int = 0, device: str = "cuda",
-                 pool_lanes: int | None = None, compact: bool = True):
-    """Render one sensor → (img (H, W, C) numpy, stats dict)."""
-    return Renderer(built, seed=seed, device=device, pool_lanes=pool_lanes,
-                    compact=compact).render_sensor(sensor_index, spp)
+                 pool_lanes: int | None = None, compact: bool = True,
+                 progress=None, interrupt=None, on_capture=None,
+                 init_film=None, spp_start: int = 0,
+                 return_renderer: bool = False):
+    """Render one sensor → (img (H, W, C) numpy, stats dict), and the
+    Renderer (its last_film, last_spp_done) with return_renderer."""
+    r = Renderer(built, seed=seed, device=device, pool_lanes=pool_lanes,
+                 compact=compact, interrupt=interrupt, on_capture=on_capture)
+    out = r.render_sensor(sensor_index, spp, progress, init_film=init_film,
+                          spp_start=spp_start)
+    return out + (r,) if return_renderer else out

@@ -24,8 +24,9 @@ class Shape:
 
 @dataclass
 class IntegratorConfig:
-    type: str = "plt_path"        # plt_path (plt_bdpt is not ported yet)
+    type: str = "plt_path"        # plt_path | plt_bdpt
     max_depth: int = 16
+    russian_roulette: bool = True
     mis: bool = True
     fsd: bool = True              # free-space diffraction (the wave bounce)
     ray_trace_only: bool = False  # classical ray-trace mode

@@ -111,6 +111,73 @@ def make_box_scene(res=32, spp=8, emitter="area", icosphere=False):
                  integrator=IntegratorConfig(max_depth=5))
 
 
+# the box's walls: (to_world rows, material id) in make_box_scene's order
+_BOX_WALLS = (
+    ([1, 0, 0, 0, 0, 0, 1, 0, 0, -1, 0, 0, 0, 0, 0, 1], "white"),
+    ([1, 0, 0, 0, 0, 0, -1, 2, 0, 1, 0, 0, 0, 0, 0, 1], "white"),
+    ([1, 0, 0, 0, 0, 1, 0, 1, 0, 0, 1, -1, 0, 0, 0, 1], "white"),
+    ([0, 0, 1, -1, 0, 1, 0, 1, -1, 0, 0, 0, 0, 0, 0, 1], "red"),
+    ([0, 0, -1, 1, 0, 1, 0, 1, 1, 0, 0, 0, 0, 0, 0, 1], "green"))
+
+
+def box_scene_xml(res=32, spp=8, max_depth=5, fsd=True, emitter="area",
+                  icosphere=False) -> str:
+    """`make_box_scene(res, spp, emitter, icosphere)` with plt_path at the
+    given max_depth and FSD as scene XML text (`res` and `spp` are
+    defaults, so `-D res=...,spp=...` overrides them). Matrices are
+    written with repr floats, so the file loads to the same numbers."""
+    def matrix(rows):
+        return ", ".join(repr(float(v)) for v in np.ravel(rows))
+
+    blackbody = ('<spectrum blackbody="5000K"><float name="scale" '
+                 'value="5e-13"/></spectrum>')
+    out = [
+        '<?xml version="1.0" encoding="utf-8"?>',
+        '<scene version="0.1">',
+        f'  <default name="res" value="{int(res)}"/>',
+        f'  <default name="spp" value="{int(spp)}"/>',
+        '  <integrator type="plt_path">',
+        f'    <integer name="max_depth" value="{int(max_depth)}"/>',
+        f'    <boolean name="FSD" value="{"true" if fsd else "false"}"/>',
+        '  </integrator>',
+        '  <sensor type="perspective" id="camera">',
+        '    <quantity name="fov" value="60°"/>',
+        '    <integer name="samples" value="$spp"/>',
+        '    <transform name="to_world"><matrix value="'
+        + matrix(lookat_matrix([0, 1.0, 3.2], [0, 1.0, 0]))
+        + '"/></transform>',
+        '    <film><integer name="width" value="$res"/>'
+        '<integer name="height" value="$res"/>'
+        '<response type="RGB"/></film>',
+        '  </sensor>',
+        '  <bsdf type="diffuse" id="white"><spectrum name="reflectance" '
+        'value="0.7"/></bsdf>',
+        '  <bsdf type="diffuse" id="red"><spectrum name="reflectance" '
+        'rgb="0.8, 0.1, 0.1"/></bsdf>',
+        '  <bsdf type="diffuse" id="green"><spectrum name="reflectance" '
+        'rgb="0.1, 0.8, 0.1"/></bsdf>']
+    for rows, mat in _BOX_WALLS:
+        out += ['  <shape type="rectangle"><float name="length" value="2"/>'
+                f'<transform name="to_world"><matrix value="{matrix(rows)}"/>'
+                f'</transform><ref id="{mat}"/></shape>']
+    if emitter == "area":
+        out += ['  <shape type="rectangle" id="lamp"><float name="length" '
+                'value="0.5"/><transform name="to_world"><matrix value="'
+                + matrix([1, 0, 0, 0, 0, 0, -1, 2.0 - 0.01, 0, 1, 0, 0, 0, 0, 0, 1])
+                + '"/></transform><bsdf type="diffuse"><spectrum '
+                'name="reflectance" value="0.1"/></bsdf>'
+                f'<emitter type="area">{blackbody}</emitter></shape>']
+    else:
+        out += ['  <emitter type="point"><point name="position" '
+                f'value="0, 1.8, 0"/>{blackbody}</emitter>']
+    if icosphere:
+        out += ['  <shape type="sphere" id="icosphere"><point name="center" '
+                'value="2.78, 1.2, 2.78"/><float name="radius" value="0.9"/>'
+                '<integer name="tessellation" value="192"/>'
+                '<ref id="white"/></shape>']
+    return "\n".join(out + ["</scene>", ""])
+
+
 def make_materials_box_scene(res=32, spp=8, seed=7):
     """The box of `make_box_scene` with glass, a rough conductor, bitmap,
     checkerboard, composite, normal-mapped and masked surfaces and a spot

@@ -2,11 +2,11 @@
 
 Port of wave_tracer_tpu/sensor/response.py. A response maps a path's
 wavenumber to per-channel sensitivities: RGB and XYZ responses accumulate
-in XYZ (CIE CMFs evaluated on the device; the RGB conversion belongs to
-image output, which is not ported yet), monochromatic and multichannel
-responses read their baked sensitivity spectra. The response also gives
-the total sensitivity spectrum of spectral importance sampling, and
-carries the sensor's tonemap (data for image output).
+in XYZ (CIE CMFs evaluated on the device; an RGB response's XYZ→RGB
+matrix, `develop_matrix`, is applied when the image is written),
+monochromatic and multichannel responses read their baked sensitivity
+spectra. The response also gives the total sensitivity spectrum of
+spectral importance sampling, and carries the sensor's tonemap.
 """
 
 from __future__ import annotations
@@ -54,6 +54,12 @@ class Response:
         if self.type == "multichannel":
             return _SumSpectrum(self.channel_spectra)
         raise ValueError(self.type)
+
+    def develop_matrix(self) -> Optional[np.ndarray]:
+        """Channel mixing applied at develop (XYZ→RGB), or None."""
+        if self.type == "RGB":
+            return cie.xyz_to_rgb_matrix(self.colourspace, self.white_point)
+        return None
 
     def sensitivities(self, k, spec_table=None, spec_rows=None):
         """Per-channel sensitivity at wavenumber k (...,) → (..., C).

@@ -1,9 +1,10 @@
-"""CIE colourimetry: XYZ matching functions and blackbody radiance.
+"""CIE colourimetry: XYZ matching functions, RGB colourspaces, blackbodies.
 
 Port of wave_tracer_tpu/spectrum/cie.py. The CMFs are the multi-lobe
 Gaussian analytic fit of Wyman, Sloan & Shirley 2013; `xyz_cmf` takes an
 explicit array namespace ``xp``: numpy for host scene-build code, torch
-for device code.
+for device code. The RGB colourspaces (primaries and whitepoints) give the
+XYZ→RGB matrix that develops an RGB sensor's XYZ film.
 """
 
 from __future__ import annotations
@@ -29,6 +30,46 @@ def xyz_cmf(lambda_nm, xp=np):
     return x, y, z
 
 
+# xy chromaticities of standard whitepoints.
+WHITEPOINTS = {
+    "A": (0.44758, 0.40745),
+    "B": (0.34842, 0.35161),
+    "C": (0.31006, 0.31616),
+    "D50": (0.34567, 0.35850),
+    "D55": (0.33243, 0.34744),
+    "D65": (0.31272, 0.32903),
+    "D75": (0.29903, 0.31488),
+    "E": (1.0 / 3.0, 1.0 / 3.0),
+}
+
+# RGB primaries (xy) per colourspace.
+PRIMARIES = {
+    "CIE": ((0.7347, 0.2653), (0.2738, 0.7174), (0.1666, 0.0089)),
+    "sRGB": ((0.64, 0.33), (0.30, 0.60), (0.15, 0.06)),
+    "AdobeRGB": ((0.64, 0.33), (0.21, 0.71), (0.15, 0.06)),
+}
+
+
+def _xy_to_XYZ(xy):
+    x, y = xy
+    return np.array([x / y, 1.0, (1.0 - x - y) / y])
+
+
+def xyz_to_rgb_matrix(colourspace: str = "sRGB",
+                      white_point: str = "D65") -> np.ndarray:
+    """3x3 matrix M with RGB = M @ XYZ for the given primaries/whitepoint."""
+    rx, gx, bx = PRIMARIES[colourspace]
+    P = np.stack([_xy_to_XYZ(rx), _xy_to_XYZ(gx), _xy_to_XYZ(bx)], axis=1)
+    W = _xy_to_XYZ(WHITEPOINTS[white_point])
+    S = np.linalg.solve(P, W)
+    return np.linalg.inv(P * S[None, :])
+
+
+def rgb_to_xyz_matrix(colourspace: str = "sRGB",
+                      white_point: str = "D65") -> np.ndarray:
+    return np.linalg.inv(xyz_to_rgb_matrix(colourspace, white_point))
+
+
 HBAR = 1.054571817e-34
 C_LIGHT = 299792458.0
 KBOLTZ = 1.380649e-23
@@ -41,3 +82,17 @@ def planck_spectral_radiance_wavenumber(k, T):
     expm = np.expm1(u)
     return (HBAR * C_LIGHT ** 2 / (4.0 * np.pi ** 3)) * k ** 3 \
         / np.maximum(expm, 1e-300)
+
+
+def planckian_locus_xyz(T: float) -> np.ndarray:
+    """XYZ colour of a blackbody radiator at temperature T (normalized Y=1)."""
+    lam = np.linspace(380.0, 780.0, 401)
+    k = 2.0 * np.pi / (lam * 1e-9)
+    B = planck_spectral_radiance_wavenumber(k, T)
+    x, y, z = xyz_cmf(lam)
+    # integrate over wavelength; dk ∝ dλ/λ² (proportionality suffices)
+    w = B * k / lam
+    X = np.trapezoid(w * x, lam)
+    Y = np.trapezoid(w * y, lam)
+    Z = np.trapezoid(w * z, lam)
+    return np.array([X, Y, Z]) / max(Y, 1e-300)
