@@ -2,7 +2,9 @@
 
 Drives the port's main paths through the entry points a user calls
 (`scene.build_scene`, `render.render_scene`, for pixel gradients
-`integrator.path.trace_paths` / `integrator.plt_path.trace_paths_wave`,
+`integrator.path.trace_paths` / `integrator.plt_path.trace_paths_wave`
+/ `integrator.plt_bdpt.trace_bdpt` /
+`integrator.plt_path_forward.trace_forward`,
 and for scene files `python -m wave_tracer_tpu_torch render scene.xml`)
 on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
@@ -186,10 +188,37 @@ Phases (each raises on failure; nothing is caught):
      mean|ref|) of the uninterrupted render on every pixel. Prints the
      CLI's paths/s (its perf_stats.json) beside the in-process render's,
      with the card's name and power limit
+ 23. pixel gradients at full width through trace_bdpt (the bench bdpt
+     box, 256x256 lanes at 1 spp, depth 8, FSD on), counters zeroed just
+     before each mode and read just after (K1 and K2 must launch): (a)
+     the forward-mode map w.r.t. the emitters' scale equals the developed
+     image within 1e-4 of max|image| (bdpt has no roulette and
+     radiance-free MIS weights); (b) the gradient of the lane sum w.r.t.
+     every spectra row by reverse mode in lane batches of GRAD_BATCH, the
+     two largest against central differences (h 0.05) at rtol 0.05. Prints
+     each mode's paths/s against the plain forward's and the peak memory
+     of a batch
+ 24. the same through trace_forward at 2^18 lanes, depth 4: (a) the
+     coverage scene (256² elements, UTD), the forward-mode map w.r.t. the
+     emitter's scale, FSD-NEE splats included, equals the image within
+     1e-4 of max|image|; (b) reverse mode over every spectra row and the
+     concrete row's n and κ in lane batches of COV_GRAD_BATCH: the
+     emitter's row against central differences at rtol 0.05, n and κ
+     against forward mode at rtol 1e-3 (their central differences are
+     printed: they flip lobe picks, which carry no derivative); (c) the
+     slit screen of `slit_screen_xml` (256², Fraunhofer): the map w.r.t.
+     a translation of the screen along x, against central differences (h
+     4 µm) on >= 95% of the pixels at rtol 0.15, atol 0.03·max|fd|, in
+     lane batches of SLIT_FD_BATCH (the JAX test's density of lanes per
+     pixel; the full batch's share is printed)
+ 25. the maps of phases 23-24 at 16x16 on the card and on the CPU (plain
+     versions), at the bars of check_gradient_paths_vs_cpu
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path" (the gradient
-     modes of phase 19, the batched renders of phase 21 and cli_wave_scale
-     and cli_mask of phase 22 included), phase 22's readings under "cli"
+     modes of phases 19, 23 and 24, the batched renders of phase 21 and
+     cli_wave_scale and cli_mask of phase 22 included), phase 22's
+     readings under "cli", the gradient phases' readings under
+     "gradients" of the K1 row
      of the K1 row, and K1's and K2's timings in the bdpt, coverage and
      materials renders under "in_bdpt_render", "in_coverage_render",
      "in_materials_render" and "in_materials_bdpt_render", and the
@@ -1424,6 +1453,437 @@ def check_gradients_vs_cpu(build_scene, card="cuda"):
     return res
 
 
+# ---- phases 23-25: pixel gradients through plt_bdpt and forward transport
+
+def bdpt_outputs(data, sensor, lanes, depth, sl=slice(None)):
+    """trace_bdpt (FSD on, seed 0) over the lanes `sl` of `lanes`: (pos,
+    camera values, ok, (light-splat pos, values, ok))."""
+    from wave_tracer_tpu_torch.integrator.plt_bdpt import trace_bdpt
+    pxy, jit, sid = (x[sl] for x in lanes)
+    return trace_bdpt(data, pxy, jit, 0, sid, sensor=sensor,
+                      max_depth=depth, eps=1e-4, fsd=True)
+
+
+def bdpt_image(out, sensor):
+    """The developed film of one bdpt batch: camera splats and light
+    splats, as the JAX package's TestBdptGradients splats them."""
+    from wave_tracer_tpu_torch.sensor import film as film_mod
+    pos, values, ok, (lp, lv, lo) = out
+    film = film_mod.make_film(sensor.width, sensor.height, values.shape[-1],
+                              sensor.rfilter_sigma, device=values.device)
+    film_mod.splat(film, pos, values, ok)
+    film_mod.splat_direct(film, lp, lv, lo)
+    return film_mod.develop(film, 1.0)
+
+
+def bdpt_lane_sum(out):
+    """Σ of every lane's camera value and live light splat: a sum over
+    lanes, so lane batches add up (the developed film is not: its filter
+    weights normalize across neighbouring lanes)."""
+    _, values, _, (_, lv, lo) = out
+    return values.sum() + torch.where(lo[:, None], lv, 0.0).sum()
+
+
+def forward_params(data, p):
+    """data with spectra row i scaled by p[i] and the complex-IOR row's n
+    and κ by p[S] and p[S + 1] (the coverage scene's one ITU concrete
+    row)."""
+    import dataclasses
+    S = data.tables.spectra.vals.shape[0]
+    st, cs = data.tables.spectra, data.tables.cspectra
+    return dataclasses.replace(data, tables=dataclasses.replace(
+        data.tables,
+        spectra=dataclasses.replace(st, vals=st.vals * p[:S, None]),
+        cspectra=dataclasses.replace(cs, n=cs.n * p[S],
+                                     kappa=cs.kappa * p[S + 1])))
+
+
+def forward_outputs(data, sensor, ids, fsd_mode, eps=1e-4):
+    """trace_forward over the lane ids `ids` (sample 0, seed 0, depth 4)."""
+    from wave_tracer_tpu_torch.integrator.plt_path_forward import \
+        trace_forward
+    return trace_forward(data, ids, 0, torch.zeros_like(ids), sensor=sensor,
+                         edge_table=data.edges, max_depth=4, eps=eps,
+                         fsd_mode=fsd_mode)
+
+
+def forward_image(out, sensor, nee=True):
+    """The developed film of one forward batch: the first crossings'
+    Gaussian splats and (nee) the FSD-NEE point splats."""
+    from wave_tracer_tpu_torch.sensor import film as film_mod
+    pos, values, ok, sig, (npos, nval, nok) = out
+    film = film_mod.make_film(sensor.width, sensor.height, values.shape[-1],
+                              sensor.rfilter_sigma, device=values.device)
+    film_mod.splat_direct_gaussian(film, pos, sig, values, ok)
+    if nee:
+        film_mod.splat_direct(film, npos, nval, nok)
+    return film_mod.develop(film, 1.0)
+
+
+def crossing_sum(out):
+    """Σ over lanes of the recorded first crossings (no FSD-NEE splats)."""
+    return torch.where(out[2][:, None], out[1], 0.0).sum()
+
+
+def slit_shift(data, theta, ids=(0, 1, 2)):
+    """data with the slit screen's strips (shape ids) moved along x by θ:
+    the triangles (p0, e1, e2, tri_geom) and their edges (p0, p1, center),
+    through dataclasses.replace (the kernel and packed tables are derived
+    anew), as the JAX package's TestApertureGeometryGradients moves it."""
+    import dataclasses
+    geo, ed = data.geo, data.edges
+    sid = geo.tri_attr[:, 22]
+    tmask = torch.stack([sid == s for s in ids]).any(0).float()
+    esid = sid[ed.tri1.clamp_min(0).long()]
+    emask = (torch.stack([esid == s for s in ids]).any(0)
+             & (ed.tri1 >= 0)).float()
+    xhat = torch.tensor([1.0, 0.0, 0.0], device=sid.device)
+    dt = (theta * tmask)[:, None] * xhat
+    de = (theta * emask)[:, None] * xhat
+    geo = dataclasses.replace(
+        geo, p0=geo.p0 + dt,
+        tri_geom=geo.tri_geom + torch.nn.functional.pad(dt, (0, 9)))
+    ed = dataclasses.replace(ed, p0=ed.p0 + de, p1=ed.p1 + de,
+                             center=ed.center + de)
+    return dataclasses.replace(data, geo=geo, edges=ed)
+
+
+def slit_built(res, build_scene, device):
+    """The double slit of scene/procedural.py::slit_screen_xml through the
+    scene loader and the bake."""
+    import os
+    import tempfile
+    from wave_tracer_tpu_torch.scene.procedural import slit_screen_xml
+    from wave_tracer_tpu_torch.scene.xml import load_scene_xml
+    fd, path = tempfile.mkstemp(suffix=".xml", dir=os.getcwd())
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(slit_screen_xml(res, 1, 4))
+        scene = load_scene_xml(path)
+    finally:
+        os.remove(path)
+    return build_scene(scene, device=device)
+
+
+def check_gradients_bdpt(rk, ck, built):
+    """Phase 23: both AD modes at full width through trace_bdpt (the bench
+    bdpt box, 256² lanes at 1 spp, depth 8, FSD on). Returns ({mode:
+    launches}, summary dict)."""
+    launches, out = {}, {}
+    data, sensor = built.data, built.scene.sensors[0]
+    dev = data.geo.p0.device
+    lanes = grad_lanes(sensor.width, dev)
+    N = lanes[0].shape[0]
+    S = data.tables.spectra.vals.shape[0]
+    ones = torch.ones(S, device=dev)
+    mask = emitter_mask(data)
+
+    def run(rs, sl=slice(None)):
+        return bdpt_outputs(scaled_rows(data, rs), sensor, lanes, 8, sl)
+
+    warm = slice(0, 4096)
+    with torch.no_grad():
+        run(ones, warm)
+    forward_map(lambda th: bdpt_lane_sum(run(1.0 + mask * (th - 1.0), warm)),
+                ones[0], ones[0])
+    bdpt_lane_sum(run(ones.clone().requires_grad_(), warm)).backward()
+    with torch.no_grad():
+        img, dt_plain = synced(lambda: bdpt_image(run(ones), sensor))
+    # (a) forward mode w.r.t. the emitters' scale: bdpt has no roulette and
+    # its MIS weights are radiance-free, so map == image
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    (p, g), dt = synced(lambda: forward_map(
+        lambda th: bdpt_image(run(1.0 + mask * (th - 1.0)), sensor),
+        torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
+    launches["gradient_bdpt_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(launches["gradient_bdpt_forward"]["closest"] > 0
+          and launches["gradient_bdpt_forward"]["anyhit"] > 0,
+          f"phase 23a launched {launches['gradient_bdpt_forward']}")
+    scale = float(img.abs().max())
+    err = float((g - img).abs().max()) / scale
+    check(torch.isfinite(g).all() and torch.allclose(
+        p, img, rtol=1e-5, atol=1e-6 * scale),
+        "phase 23a: non-finite map, or the primal is not the image")
+    check(err <= 1e-4, f"phase 23a: max |map - image| / max|image| {err:.3e}")
+    out.update(plain_paths_per_sec=N / dt_plain,
+               forward_paths_per_sec=N / dt, map_vs_image_rel=err)
+    print(f"phase 23a: bdpt box {sensor.width}x{sensor.height} 1 spp depth "
+          f"8 FSD on, forward mode w.r.t. the emitters' scale: max |map - "
+          f"image| / max|image| {err:.3e}; {N / dt:.1f} fwd+tangent paths/s "
+          f"({dt:.3f} s) against {N / dt_plain:.1f} plain ({dt_plain:.3f} "
+          f"s); launches {launches['gradient_bdpt_forward']}", flush=True)
+    # (b) reverse mode: d(lane sum / N) / d(row scale), every row, in lane
+    # batches of GRAD_BATCH
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    rs = torch.ones(S, device=dev, requires_grad=True)
+
+    def reverse():
+        for b in range(0, N, GRAD_BATCH):
+            (bdpt_lane_sum(run(rs, slice(b, b + GRAD_BATCH))) / N).backward()
+        return rs.grad
+
+    grad, dt = synced(reverse)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    launches["gradient_bdpt_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(launches["gradient_bdpt_reverse"]["closest"] > 0
+          and launches["gradient_bdpt_reverse"]["anyhit"] > 0,
+          f"phase 23b launched {launches['gradient_bdpt_reverse']}")
+    check(torch.isfinite(grad).all(), f"phase 23b: gradient {grad}")
+    h = 0.05
+    rows = grad.abs().argsort(descending=True)[:2].tolist()
+    fds = []
+    with torch.no_grad():
+        for r in rows:
+            e = torch.zeros(S, device=dev)
+            e[r] = h
+            fds.append(float(bdpt_lane_sum(run(ones + e))
+                             - bdpt_lane_sum(run(ones - e))) / (2 * h * N))
+    for r, fd in zip(rows, fds):
+        check(abs(float(grad[r]) - fd) <= 0.05 * abs(fd),
+              f"phase 23b: row {r}: AD {float(grad[r]):.6e} vs FD {fd:.6e}")
+    out.update(reverse_paths_per_sec=N / dt, batch=GRAD_BATCH,
+               batch_peak_gib=peak, rows=rows,
+               ad=[float(grad[r]) for r in rows], fd=fds)
+    print(f"phase 23b: reverse mode, d(lane sum / N) / d(row scale) for {S} "
+          f"rows in lane batches of {GRAD_BATCH}: {N / dt:.1f} fwd+bwd "
+          f"paths/s ({dt:.3f} s), peak memory of a batch {peak:.2f} GiB; "
+          f"rows {rows}: AD {[f'{float(grad[r]):.6e}' for r in rows]} vs "
+          f"central differences {[f'{x:.6e}' for x in fds]} (rtol 0.05); "
+          f"launches {launches['gradient_bdpt_reverse']}", flush=True)
+    return launches, out
+
+
+COV_GRAD_BATCH = 1 << 16    # lanes per reverse-mode batch (phase 24b)
+SLIT_FD_BATCH = 1 << 14     # lanes per map held against FD (phase 24c)
+
+
+def check_gradients_forward(rk, ck, built_cov, built_slits, N=1 << 18):
+    """Phase 24: forward transport at full width: the coverage scene (256²
+    elements, N = 2^18 lanes, depth 4, UTD) in both AD modes, and the slit
+    screen (256², N lanes, depth 4, Fraunhofer) w.r.t. a translation of
+    the screen. Returns ({mode: launches}, summary dict)."""
+    launches, out = {}, {}
+    data, sensor = built_cov.data, built_cov.scene.sensors[0]
+    dev = data.geo.p0.device
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    S = data.tables.spectra.vals.shape[0]
+    P = S + 2
+    ones = torch.ones(P, device=dev)
+    emit = torch.cat([emitter_mask(data), torch.zeros(2, device=dev)])
+
+    def run(p, sl=slice(None)):
+        return forward_outputs(forward_params(data, p), sensor, ids[sl],
+                               "utd")
+
+    warm = slice(0, 4096)
+    with torch.no_grad():
+        run(ones, warm)
+    forward_map(lambda th: crossing_sum(run(1.0 + emit * (th - 1.0), warm)),
+                ones[0], ones[0])
+    crossing_sum(run(ones.clone().requires_grad_(), warm)).backward()
+    with torch.no_grad():
+        img, dt_plain = synced(lambda: forward_image(run(ones), sensor))
+    # (a) forward mode w.r.t. the emitter's scale, FSD-NEE splats included:
+    # the carry's roulette ratio and the coherent sums are radiance-free,
+    # so map == image
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    (p, g), dt = synced(lambda: forward_map(
+        lambda th: forward_image(run(1.0 + emit * (th - 1.0)), sensor),
+        torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
+    launches["gradient_coverage_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(launches["gradient_coverage_forward"]["closest"] > 0
+          and launches["gradient_coverage_forward"]["anyhit"] > 0,
+          f"phase 24a launched {launches['gradient_coverage_forward']}")
+    scale = float(img.abs().max())
+    err = float((g - img).abs().max()) / scale
+    check(torch.isfinite(g).all() and torch.allclose(
+        p, img, rtol=1e-5, atol=1e-6 * scale),
+        "phase 24a: non-finite map, or the primal is not the image")
+    check(err <= 1e-4, f"phase 24a: max |map - image| / max|image| {err:.3e}")
+    out.update(plain_paths_per_sec=N / dt_plain,
+               forward_paths_per_sec=N / dt, map_vs_image_rel=err)
+    print(f"phase 24a: coverage {sensor.width}x{sensor.height}, {N} lanes, "
+          f"depth 4, UTD, forward mode w.r.t. the emitter's scale: max |map "
+          f"- image| / max|image| {err:.3e}; {N / dt:.1f} fwd+tangent paths/s "
+          f"({dt:.3f} s) against {N / dt_plain:.1f} plain; launches "
+          f"{launches['gradient_coverage_forward']}", flush=True)
+    # (b) reverse mode: d(crossing sum / N) / d(scale) of every parameter
+    # (the spectra rows, the concrete row's n and κ), in lane batches
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pr = torch.ones(P, device=dev, requires_grad=True)
+
+    def reverse():
+        for b in range(0, N, COV_GRAD_BATCH):
+            (crossing_sum(run(pr, slice(b, b + COV_GRAD_BATCH)))
+             / N).backward()
+        return pr.grad
+
+    grad, dt = synced(reverse)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    launches["gradient_coverage_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(launches["gradient_coverage_reverse"]["closest"] > 0
+          and launches["gradient_coverage_reverse"]["anyhit"] > 0,
+          f"phase 24b launched {launches['gradient_coverage_reverse']}")
+    check(torch.isfinite(grad).all(), f"phase 24b: gradient {grad}")
+    # the emitter's row: the crossings are linear in it, so central
+    # differences are its oracle (rtol 0.05); n and κ move the SPM lobe
+    # picks (u < α(θ)), which carry no derivative (the sampled lobe and
+    # direction are detached, as in JAX), so central differences are no
+    # oracle there: each is held against forward mode along it (rtol
+    # 1e-3), and its central difference is printed
+    h = 0.05
+    er = int(emit.argmax())
+    fds = []
+    with torch.no_grad():
+        for r in (er, S, S + 1):
+            e = torch.zeros(P, device=dev)
+            e[r] = h
+            fds.append(float(crossing_sum(run(ones + e))
+                             - crossing_sum(run(ones - e))) / (2 * h * N))
+    check(abs(float(grad[er]) - fds[0]) <= 0.05 * abs(fds[0]),
+          f"phase 24b: emitter row: AD {float(grad[er]):.6e} vs FD "
+          f"{fds[0]:.6e}")
+    fwd = []
+    for r in (S, S + 1):
+        e = torch.zeros(P, device=dev)
+        e[r] = 1.0
+        fwd.append(float(forward_map(lambda x: crossing_sum(run(x)) / N,
+                                     ones, e)[1]))
+        check(abs(float(grad[r]) - fwd[-1]) <= 1e-3 * abs(fwd[-1]),
+              f"phase 24b: row {r}: reverse {float(grad[r]):.6e} vs "
+              f"forward {fwd[-1]:.6e}")
+    out.update(reverse_paths_per_sec=N / dt, batch=COV_GRAD_BATCH,
+               batch_peak_gib=peak,
+               reverse=[float(grad[r]) for r in (er, S, S + 1)],
+               forward_n_kappa=fwd, fd=fds)
+    print(f"phase 24b: reverse mode, d(crossing sum / N) / d(scale) of {P} "
+          f"parameters in lane batches of {COV_GRAD_BATCH}: {N / dt:.1f} "
+          f"fwd+bwd paths/s ({dt:.3f} s), peak memory of a batch "
+          f"{peak:.2f} GiB; emitter row AD {float(grad[er]):.6e} vs central "
+          f"differences {fds[0]:.6e} (rtol 0.05); concrete n, κ reverse "
+          f"{[f'{float(grad[r]):.6e}' for r in (S, S + 1)]} vs forward "
+          f"{[f'{x:.6e}' for x in fwd]} (rtol 1e-3), central differences "
+          f"{[f'{x:.6e}' for x in fds[1:]]} (lobe picks flip); launches "
+          f"{launches['gradient_coverage_reverse']}", flush=True)
+    # (c) the slit screen, Fraunhofer: the map w.r.t. a translation of the
+    # screen along x at full width, then against central differences (h 4
+    # µm) in lane batches of SLIT_FD_BATCH: a lane whose discrete picks
+    # (edge set, RIS winner, the surface/redirect partition) flip inside
+    # [−h, h] moves its whole splat window, so the JAX test's pixel oracle
+    # (>= 95% of pixels) holds at its density of lanes per pixel (512 on
+    # 64²), not at 4 lanes a pixel; the full batch's share is printed
+    sdata, ssensor = built_slits.data, built_slits.scene.sensors[0]
+
+    def slits(th, sl=slice(None)):
+        return forward_image(forward_outputs(
+            slit_shift(sdata, th), ssensor, ids[sl], "fraunhofer", eps=1e-5),
+            ssensor, nee=False)
+
+    zero_t = torch.tensor(0.0, device=dev)
+    one_t = torch.tensor(1.0, device=dev)
+    with torch.no_grad():
+        simg, dt_splain = synced(lambda: slits(zero_t))
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    (_, gs), dt = synced(lambda: forward_map(slits, zero_t, one_t))
+    launches["gradient_slits_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    check(launches["gradient_slits_forward"]["closest"] > 0,
+          f"phase 24c launched {launches['gradient_slits_forward']}")
+    gs = gs.cpu().numpy()
+    check(np.isfinite(gs).all() and (gs != 0).any(), "phase 24c: map")
+    h = 4e-6
+    hp, hm = torch.tensor(h, device=dev), torch.tensor(-h, device=dev)
+
+    def fd_of(sl=slice(None)):
+        with torch.no_grad():
+            return ((slits(hp, sl) - slits(hm, sl)) / (2 * h)).cpu().numpy()
+
+    share_full = fd_share(gs, fd_of(), 0.15, 0.03)
+    shares = []
+    for b in range(0, N, SLIT_FD_BATCH):
+        sl = slice(b, b + SLIT_FD_BATCH)
+        g_b = forward_map(lambda th: slits(th, sl), zero_t, one_t)[1]
+        shares.append(fd_share(g_b.cpu().numpy(), fd_of(sl), 0.15, 0.03))
+    share = float(np.mean(shares))
+    check(share >= 0.95, f"phase 24c: {share:.4f} of pixels match FD "
+          f"(batches {min(shares):.4f}-{max(shares):.4f})")
+    lit = float((simg > 0).float().mean())
+    out.update(slits_forward_paths_per_sec=N / dt,
+               slits_plain_paths_per_sec=N / dt_splain,
+               slits_fd_share=share, slits_fd_share_min=min(shares),
+               slits_fd_share_full_batch=share_full, slits_lit=lit)
+    print(f"phase 24c: slit screen {ssensor.width}x{ssensor.height}, {N} "
+          f"lanes, depth 4, Fraunhofer, forward mode w.r.t. the screen's "
+          f"x translation: {N / dt:.1f} fwd+tangent paths/s against "
+          f"{N / dt_splain:.1f} plain, {lit:.4f} of pixels lit; against "
+          f"central differences (h 4 um; rtol 0.15, atol 0.03 max|fd|) "
+          f"{share:.4f} of pixels match in batches of {SLIT_FD_BATCH} lanes "
+          f"(min {min(shares):.4f}), {share_full:.4f} in the full batch; "
+          f"launches {launches['gradient_slits_forward']}", flush=True)
+    return launches, out
+
+
+def check_gradient_paths_vs_cpu(build_scene, card="cuda"):
+    """Phase 25: the maps of phases 23-24 at 16x16 on the card and on the
+    CPU (plain versions): the bdpt emitter-scale map (16x16 x 4 spp lanes,
+    depth 4, FSD on) at the bdpt image bars (means within 2%, Pearson >=
+    0.999, >= 90% of pixels within 1e-2·max(|ref|, mean|ref|)); the
+    coverage emitter-scale map (1,024 lanes, FSD-NEE splats included) on
+    >= 94% of the pixels within rtol 0.12, atol 0.02·max; the slit
+    screen's translation map (1,024 lanes) on >= 90% within rtol 0.15,
+    atol 0.03·max."""
+    maps = {}
+    for dev in (torch.device(card), torch.device("cpu")):
+        m = {}
+        built = build_scene(bdpt_scene(16, 4, 4), device=dev)
+        data, sensor = built.data, built.scene.sensors[0]
+        pix = torch.arange(16 * 16, device=dev).repeat(4)
+        sid = torch.arange(4, device=dev).repeat_interleave(256)
+        from wave_tracer_tpu_torch.sampling import rng
+        jit = rng.uniform(rng.sample_key(0, pix, sid), rng.D_PIXEL_JITTER, 2)
+        lanes = (torch.stack([pix % 16, pix // 16], -1), jit, sid)
+        mask = emitter_mask(data)
+        one = torch.tensor(1.0, device=dev)
+        m["bdpt"] = forward_map(lambda th: bdpt_image(bdpt_outputs(
+            scaled_rows(data, 1.0 + mask * (th - 1.0)), sensor, lanes, 4),
+            sensor), one, one)[1]
+        cov = build_scene(coverage_scene(16), device=dev)
+        cdata, csensor = cov.data, cov.scene.sensors[0]
+        ids = torch.arange(1024, dtype=torch.int32, device=dev)
+        emit = torch.cat([emitter_mask(cdata), torch.zeros(2, device=dev)])
+        m["coverage"] = forward_map(lambda th: forward_image(forward_outputs(
+            forward_params(cdata, 1.0 + emit * (th - 1.0)), csensor, ids,
+            "utd"), csensor), one, one)[1]
+        sl = slit_built(16, build_scene, dev)
+        m["slits"] = forward_map(lambda th: forward_image(forward_outputs(
+            slit_shift(sl.data, th), sl.scene.sensors[0], ids, "fraunhofer",
+            eps=1e-5), sl.scene.sensors[0], nee=False), one * 0, one)[1]
+        maps[dev.type] = {k: v.cpu().numpy() for k, v in m.items()}
+    a, b = (maps[t]["bdpt"] for t in (torch.device(card).type, "cpu"))
+    check(np.isfinite(a).all() and (a != 0).any(), "phase 25 bdpt: map")
+    means = float(np.abs(a.mean((0, 1)) / b.mean((0, 1)) - 1.0).max())
+    pearson, share = image_bars(a, b, True)
+    check(means <= 0.02 and pearson >= 0.999 and share >= 0.90,
+          f"phase 25 bdpt: means {means:.4f}, Pearson {pearson:.6f}, "
+          f"share {share:.4f}")
+    res = dict(bdpt=(means, pearson, share))
+    for k, rtol, atol, bar in (("coverage", 0.12, 0.02, 0.94),
+                               ("slits", 0.15, 0.03, 0.90)):
+        a, b = (maps[t][k] for t in (torch.device(card).type, "cpu"))
+        check(np.isfinite(a).all() and (a != 0).any(), f"phase 25 {k}: map")
+        res[k] = fd_share(a, b, rtol, atol)
+        check(res[k] >= bar, f"phase 25 {k}: share {res[k]:.4f}")
+    print(f"phase 25: 16x16 gradient maps, cuda vs cpu: bdpt emitter scale "
+          f"means within {res['bdpt'][0]:.4f}, Pearson {res['bdpt'][1]:.6f}, "
+          f"{res['bdpt'][2]:.4f} of pixels within 1e-2; coverage emitter "
+          f"scale {res['coverage']:.4f} of pixels within rtol 0.12; slit "
+          f"translation {res['slits']:.4f} within rtol 0.15", flush=True)
+    return res
+
+
 def cli_box_files(tmp):
     """The bench wave box and its scale variant as scene files in tmp:
     {name: (path, icosphere, spp)}."""
@@ -2107,6 +2567,20 @@ def main():
     # ---- phase 22: scene files and the command line
     cli_launches, mask_launches, cli_calls, cli_out = check_cli(rk, ck, card)
 
+    # ---- phase 23: gradients through plt_bdpt at full width
+    launches23, g23 = check_gradients_bdpt(
+        rk, ck, build_scene(bdpt_scene(256, 1, 8), device="cuda"))
+    grad_launches.update(launches23)
+
+    # ---- phase 24: gradients through forward transport at full width
+    launches24, g24 = check_gradients_forward(
+        rk, ck, build_scene(coverage_scene(256), device="cuda"),
+        slit_built(256, build_scene, "cuda"))
+    grad_launches.update(launches24)
+
+    # ---- phase 25: the maps of phases 23-24, card vs CPU
+    g25 = check_gradient_paths_vs_cpu(build_scene)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -2147,6 +2621,8 @@ def main():
             cli_scale_call_vs_plain=cli_calls["closest"],
             mask_ms_per_launch=cli_out["mask_k1_ms_per_launch"],
             cli=cli_out,
+            gradients=dict(wave_and_classical=g19, bdpt=g23,
+                           forward=g24, paths_vs_cpu=g25),
             culls_off_ms=kstats["closest"]["culls_off_ms"],
             all_pairs_bound_ms=kstats["closest"]["all_pairs_bound_ms"]),
         row("any_hit", "ray_kernels.cu",
@@ -2172,7 +2648,7 @@ def main():
     ]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

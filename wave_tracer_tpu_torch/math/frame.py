@@ -29,11 +29,14 @@ class Frame:
 
 
 def build_orthogonal_frame(n) -> Frame:
-    """Arbitrary frame with normal n (branchless |n.x| > |n.y| split)."""
+    """Arbitrary frame with normal n (branchless |n.x| > |n.y| split). A
+    zero n gives the zero frame (the JAX twin's is NaN): a masked-off row
+    then passes reverse mode no NaN."""
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
     cond = nx.abs() > ny.abs()
-    sx = 1.0 / torch.sqrt(torch.where(cond, nx * nx + nz * nz,
-                                      ny * ny + nz * nz))
+    nz2 = nz * nz
+    sx = 1.0 / torch.sqrt(torch.where(cond, nx * nx + nz2,
+                                      ny * ny + nz2).clamp_min(1e-30))
     zero = torch.zeros_like(sx)
     b = torch.where(cond[..., None],
                     torch.stack([sx * nz, zero, -sx * nx], dim=-1),

@@ -22,7 +22,9 @@ def refract_dir(eta12, w, n):
     eta = torch.where(wn > 0, eta12, 1.0 / eta12)
     cost2 = 1.0 - eta ** 2 * (1.0 - wn ** 2)
     tir = cost2 < 0.0
-    cost = torch.sqrt(cost2.clamp_min(0.0))
+    # the floor keeps the derivatives of sqrt and of |ct/(η·ci)| finite on
+    # the total-internal-reflection rows, which `fresnel` masks
+    cost = torch.sqrt(cost2.clamp_min(1e-30))
     nsgn = torch.where(wn >= 0, 1.0, -1.0)[..., None] * n
     t = eta[..., None] * (wn[..., None] * n - w) - cost[..., None] * nsgn
     t = vec.normalize(t, eps=1e-24)
@@ -51,7 +53,9 @@ def fresnel(eta12, w, n):
     ts = rs + 1.0
     tp = (rp + 1.0) * eta
 
-    Z = (ct / (eta * ci + 1e-30)).abs()
+    # 1e-15, not 1e-30: the divisor's square stays a normal f32 on the
+    # grazing rows (ci = 0), whose masked-off Z then back-propagates 0
+    Z = (ct / (eta * ci + 1e-15)).abs()
     Ts = torch.clamp_max(Z * ts.abs() ** 2, 1.0)
     Tp = torch.clamp_max(Z * tp.abs() ** 2, 1.0)
 

@@ -23,6 +23,10 @@ floor, a composite right wall (a normal-mapped diffuse child over the
 long visible wavelengths, a rough-conductor child over the short ones),
 a masked panel with a checkerboard opacity, and a spot light with a
 piecewise-linear spectrum aimed at the glass sphere.
+
+`slit_screen_xml` writes a double slit as scene XML (both packages'
+loaders read it): three strips leave two 0.35 mm slits, lit at 500 nm
+by a spot on the axis, seen by a virtual-plane sensor 1 m behind.
 """
 
 from __future__ import annotations
@@ -175,6 +179,76 @@ def box_scene_xml(res=32, spp=8, max_depth=5, fsd=True, emitter="area",
                 'value="2.78, 1.2, 2.78"/><float name="radius" value="0.9"/>'
                 '<integer name="tessellation" value="192"/>'
                 '<ref id="white"/></shape>']
+    return "\n".join(out + ["</scene>", ""])
+
+
+SLIT_SCREEN = dict(
+    slit=0.35e-3,          # each slit's width (m)
+    strip=1.0e-3,          # the central strip's width
+    outer=10.0e-3,         # each outer strip's width
+    height=40.0e-3,        # every strip's height: edges at y = ±20 mm
+    source=0.5,            # emitter distance in front of the screen
+    throw=1.0,             # sensor distance behind the screen
+    extent=20.0e-3,        # the sensor's side
+    wavelength="500nm",
+    cutoff=0.6,            # the spot's cutoff angle (degrees)
+)
+
+
+def slit_screen_xml(res=64, spp=2, max_depth=4) -> str:
+    """A double slit as scene XML text: three `rectangle` strips in the
+    z = 0 plane (facing +z; shapes 0, 1, 2 = left, central, right) leave
+    two slits of SLIT_SCREEN["slit"] either side of a central strip; a
+    monochromatic spot emitter on the axis in front of the screen, its
+    cone just covering the slits, lights them; a `virtual_plane` sensor
+    behind it records the fringes; plt_bdpt, so a render runs forward
+    transport with the Fraunhofer interaction. `res` and `spp` are
+    defaults (`-D res=...,spp=...`)."""
+    g = SLIT_SCREEN
+
+    def matrix(rows):
+        return ", ".join(repr(float(v)) for v in np.ravel(rows))
+
+    half_in = 0.5 * g["strip"]
+    half_out = half_in + g["slit"]
+    strips = ((-(half_out + 0.5 * g["outer"]), g["outer"]),
+              (0.0, g["strip"]),
+              (half_out + 0.5 * g["outer"], g["outer"]))
+    spectrum = (f'<spectrum type="discrete" wavelength="{g["wavelength"]}" '
+                'value="1"/>')
+    cut = math.radians(g["cutoff"])
+    out = [
+        '<?xml version="1.0" encoding="utf-8"?>',
+        '<scene version="0.1">',
+        f'  <default name="res" value="{int(res)}"/>',
+        f'  <default name="spp" value="{int(spp)}"/>',
+        '  <integrator type="plt_bdpt">',
+        f'    <integer name="max_depth" value="{int(max_depth)}"/>',
+        '  </integrator>',
+        '  <sensor type="virtual_plane" id="fringes">',
+        f'    <float name="extent" value="{g["extent"]!r}"/>',
+        '    <integer name="samples" value="$spp"/>',
+        '    <transform name="to_world"><matrix value="'
+        + matrix(lookat_matrix([0, 0, -g["throw"]], [0, 0, 0]))
+        + '"/></transform>',
+        '    <film><integer name="width" value="$res"/>'
+        '<integer name="height" value="$res"/>'
+        f'<response type="monochromatic">{spectrum}</response></film>',
+        '  </sensor>',
+        '  <bsdf type="diffuse" id="screen"><spectrum name="reflectance" '
+        'value="0.5"/></bsdf>']
+    for cx, w in strips:
+        out += ['  <shape type="rectangle"><float name="length" value="1"/>'
+                '<transform name="to_world"><matrix value="'
+                + matrix([w, 0, 0, cx, 0, g["height"], 0, 0, 0, 0, 1, 0,
+                          0, 0, 0, 1])
+                + '"/></transform><ref id="screen"/></shape>']
+    out += ['  <emitter type="spot">'
+            f'<float name="beam_width" value="{0.8 * cut!r}"/>'
+            f'<float name="cutoff_angle" value="{cut!r}"/>'
+            '<transform name="to_world"><matrix value="'
+            + matrix(lookat_matrix([0, 0, g["source"]], [0, 0, 0]))
+            + f'"/></transform>{spectrum}</emitter>']
     return "\n".join(out + ["</scene>", ""])
 
 
