@@ -5,7 +5,9 @@ Drives the port's main paths through the entry points a user calls
 `integrator.path.trace_paths` / `integrator.plt_path.trace_paths_wave`
 / `integrator.plt_bdpt.trace_bdpt` /
 `integrator.plt_path_forward.trace_forward`,
-and for scene files `python -m wave_tracer_tpu_torch render scene.xml`)
+for scene files `python -m wave_tracer_tpu_torch render scene.xml`, and
+across processes `parallel.dist.render_distributed` and the CLI's
+`--distributed`)
 on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
@@ -58,7 +60,10 @@ Phases (each raises on failure; nothing is caught):
      in lane chunks of 16,384, on all lanes of the random cones and on
      the first 16,384 narrow ones. Bar: minima and counts bit-equal (the
      kernel's culls skip only pairs the body rejects); times from CUDA
-     events after a warm-up
+     events after a warm-up. Then K3's winner build on the same cones:
+     minima and counts bit-equal to the main build's, and minima and
+     winner ids equal to the plain version's (on all lanes of the box, on
+     the first 16,384 of the others); its time beside the main build's
   8. the wave main path: box, plt_path, fsd=True, 256x256, 8 spp,
      max_depth 8 (the benchmark's timed headline); counters zeroed just
      before and read just after: K1, K2 and K3 must all have launched, the
@@ -213,6 +218,36 @@ Phases (each raises on failure; nothing is caught):
      pixel; the full batch's share is printed)
  25. the maps of phases 23-24 at 16x16 on the card and on the CPU (plain
      versions), at the bars of check_gradient_paths_vs_cpu
+ 26. geometry derivatives through K3's winners: the wave box (64x64
+     lanes, 1 spp, depth 8, FSD on) through trace_paths_wave in forward
+     mode w.r.t. the back wall moved along +z and the left wall slid
+     along z in its own plane (a map made wholly of the winners' entry
+     derivative); counters zeroed just before each and read just after:
+     K1, K2 and K3 launch, every K3 launch through the winner build, as
+     many as the plain forward's; paths/s beside the plain forward's.
+     (a) Every cone query of those runs (the main path's own inputs, their
+     tangents included) again on the CPU through the plain version, on
+     the card's triangles: minima and counts bit-equal, the minima's
+     tangents at phase 20's wave bars (Pearson >= 0.999, >= 90% within
+     1e-2·max(|ref|, mean|ref|)) and each within 1e-5 of its own size
+     plus 1e-6 of the largest. (b) The maps, card against CPU: finite,
+     not zero, >= 90% of pixels within 1e-2·max(|ref|, mean|ref|); their
+     Pearson correlation is printed beside the CPU's own map against
+     itself with the wall moved one ulp (2^-23) either way, not held to
+     0.999: the FSD phase k·(d_edge − d_direct), k ~ 1e7 per metre, is
+     resolved to O(1) rad in float32, so a lane's derivative through it
+     changes sign under a one-ulp change of its inputs (PERF.md §6)
+ 27. rendering across processes (parallel/): (a) render_distributed in
+     an NCCL group of one rank, the wave box at 256x256 x 1 spp, depth 8,
+     against Renderer(compact=False)'s image of the same lanes within
+     1e-5 of max, paths/s of both; (b) two ranks spawned on the one card
+     with gloo (and, with two cards or more, two NCCL ranks on two cards)
+     render it again: each merged film within 1e-5 of max of (a)'s, each
+     rank's K1/K2/K3 launches counted from zero around its render; (c)
+     `python -m wave_tracer_tpu_torch render box.xml --distributed` as
+     two processes (WT_DIST_BACKEND=gloo on one card): exit 0, rank 0
+     alone writes, its EXR at the wave bars of phase 22's one-process
+     CLI EXR, its paths/s
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path" (the gradient
      modes of phases 19, 23 and 24, the batched renders of phase 21 and
@@ -223,7 +258,10 @@ Phases (each raises on failure; nothing is caught):
      materials renders under "in_bdpt_render", "in_coverage_render",
      "in_materials_render" and "in_materials_bdpt_render", and the
      materials calls' agreement with the plain versions under
-     "materials_call_vs_plain") and, last, the result JSON line
+     "materials_call_vs_plain"; the K3 row's winner build ms, its
+     launches in phase 26 and phases 26-27's readings; the launches of
+     phases 26-27 under "launches_by_path") and, last, the result JSON
+     line
 
 Each paths/s reading (phases 4, 6, 8, 10 and 16, and 12, 14 and 17 where
 a render takes under 30 s) is the median of three renders, the one whose launches
@@ -780,13 +818,19 @@ def check_cone_kernel(ck, geo, scene_radius, N, seed):
                                                       f"T={T}")
     ops, kept = cone_need(ck, geo.cone_table, args, int(cull[1]))
     b = bound(ops, cone_bytes(N, T))
+    lanes = None if T <= 12 else REF_CHUNK
+    ms_w, share_w = cone_winners(ck, geo, args, f"T={T}", lanes)
     print(f"phase 7: N={N} T={T} random cones: K3 bit-equal to its plain "
           f"version, mean count {mean_cnt:.2f}, finite minima {fin:.3f}; "
           f"{cull_line(cull, N, T, kept)}", flush=True)
     print(f"phase 7: N={N} T={T}: K3 {ms:.3f} ms (plain {ms_plain:.3f} ms, "
-          f"lane chunks of {REF_CHUNK}), bound {b[0]:.3f} ms ({b[1]})",
-          flush=True)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=ms_plain, bound=b)
+          f"lane chunks of {REF_CHUNK}), bound {b[0]:.3f} ms ({b[1]}); the "
+          f"winner build {ms_w:.3f} ms, its minima bit-equal and its ids "
+          f"equal to the plain version's on "
+          f"{'all' if lanes is None else f'the first {lanes}'} lanes "
+          f"({share_w:.3f} of the minima have one)", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=ms_plain, bound=b,
+                winner_ms=ms_w)
 
 
 def cone_bytes(N, T):
@@ -844,14 +888,19 @@ def check_cone_narrow(ck, built, N, seed):
     entered = int(cull[1].item())
     ops, kept = cone_need(ck, geo.cone_table, args, entered)
     b = bound(ops, cone_bytes(N, T))
+    ms_w, share_w = cone_winners(ck, geo, args, f"T={T} narrow cones",
+                                 REF_CHUNK)
     print(f"phase 7: N={N} T={T} narrow render-like cones: K3 bit-equal to "
           f"its plain version on the first {REF_CHUNK} lanes, mean count "
           f"{mean_cnt:.2f}, finite minima {fin:.3f}; "
           f"{cull_line(cull, N, T, kept)}; K3 {ms:.3f} ms (plain "
           f"{ms_plain:.3f} ms on {REF_CHUNK} lanes), bound {b[0]:.3f} ms "
-          f"({b[1]})", flush=True)
+          f"({b[1]}); the winner build {ms_w:.3f} ms, ids equal to the "
+          f"plain version's on the first {REF_CHUNK} lanes ({share_w:.3f} "
+          f"of the minima have one)", flush=True)
     return dict(ms=ms, plain_ms_subset=ms_plain, bound_ms=b[0],
-                bound_by=b[1], pairs_culled=1 - entered / (N * T))
+                bound_by=b[1], pairs_culled=1 - entered / (N * T),
+                winner_ms=ms_w)
 
 
 def timed_render(rk, ck, built, anyhit_kind=None):
@@ -1322,7 +1371,7 @@ def check_gradients_full(rk, ck, built_wave, built_classical):
         lambda th: wave_values(1.0 + mask * (th - 1.0)),
         torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
     launches["gradient_wave_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
-    check(all(v > 0 for v in launches["gradient_wave_forward"].values()),
+    check(each_launched(launches["gradient_wave_forward"]),
           f"phase 19a launched {launches['gradient_wave_forward']}")
     check(torch.isfinite(g).all() and torch.allclose(p, img, rtol=1e-5,
                                                      atol=0.0),
@@ -1354,7 +1403,7 @@ def check_gradients_full(rk, ck, built_wave, built_classical):
     grad, dt = synced(reverse)
     peak = torch.cuda.max_memory_allocated(dev)
     launches["gradient_wave_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
-    check(all(v > 0 for v in launches["gradient_wave_reverse"].values()),
+    check(each_launched(launches["gradient_wave_reverse"]),
           f"phase 19b launched {launches['gradient_wave_reverse']}")
     check(torch.isfinite(grad).all(), f"phase 19b: gradient {grad}")
     h = 0.05
@@ -1934,7 +1983,8 @@ def check_xml_bake(path, icosphere, spp, tag):
 def check_cli(rk, ck, card):
     """Phase 22 (module doc). Returns (the kernels' launches in cli.main's
     render of the scale file, in its mask, its captured calls against
-    their plain versions, the phase's readings)."""
+    their plain versions, the phase's readings, the CLI's EXR of the box
+    file as RGB)."""
     import json as json_mod
     import os
     import shutil
@@ -2059,7 +2109,7 @@ def check_cli(rk, ck, card):
             "phase 22: cli.main failed"), phase="phase 22")
         torch.cuda.synchronize()
         cli_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
-        check(all(v > 0 for v in cli_launches.values()),
+        check(plain_launched(cli_launches),
               f"phase 22: the CLI's scale render launched {cli_launches}")
         with open(os.path.join(sdir, "perf_stats.json")) as f:
             (scale_st,) = json_mod.load(f)
@@ -2121,9 +2171,390 @@ def check_cli(rk, ck, card):
               f"|diff|/max(|ref|, mean|ref|) against the uninterrupted render "
               f"{out['resume_resumed_max_rel']:.3e} and "
               f"{out['resume_from_max_rel']:.3e}", flush=True)
-        return cli_launches, mask_launches, calls, out
+        return cli_launches, mask_launches, calls, out, exr
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- phase 7 (winners), 26 and 27: K3's winner build, geometry
+# derivatives through it, rendering across processes
+
+def cone_winners(ck, geo, args, tag, lanes=None):
+    """K3's winner build against its main build (minima and counts bit-
+    equal: the main build is bit-equal to the plain version) and against
+    the plain version's winners over the first `lanes` lanes (all if
+    None): ids equal, minima bit-equal. Returns (ms of the winner build,
+    its share of lanes x boundaries with a winner)."""
+    table = geo.cone_table
+    zc, cnt = ck.cone_minz(*args, table=table)
+    zw, cw, win = ck.cone_minz(*args, table=table, winners=True)
+    check(torch.equal(zw, zc) and torch.equal(cw, cnt),
+          f"K3 winners {tag}: minima or counts differ from the main build")
+    n = args[1].shape[0] if lanes is None else lanes
+    refs = [ck._minz_ref(args[0], *(a[s:min(s + REF_CHUNK, n)]
+                                    for a in args[1:-1]), args[-1],
+                         winners=True) for s in range(0, n, REF_CHUNK)]
+    zr = torch.cat([r[0] for r in refs])
+    wr = torch.cat([r[2] for r in refs])
+    check(torch.equal(zw[:n], zr), f"K3 winners {tag}: minima not "
+          "bit-equal to the plain version")
+    if not torch.equal(win[:n], wr):
+        fail(f"K3 winners {tag}: ids differ from the plain version's on "
+             f"{int((win[:n] != wr).sum())} of {wr.numel()} entries")
+    ms = cuda_ms(lambda: ck.cone_minz(*args, table=table, winners=True), 3)
+    return ms, float((win >= 0).float().mean())
+
+
+def to_device(x, dev):
+    """x (a tensor, dual tensors included, a dict or a dataclass of them)
+    on `dev`; a dataclass is made anew from its init fields, so derived
+    tables (GeoArrays') are derived there."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    return x
+
+
+GEOMETRY_MOVES = {"back_wall": (2, (0.0, 0.0, 1.0)),
+                  "left_wall_slide": (3, (0.0, 0.0, 1.0))}
+ULP = 2.0 ** -23        # one ulp of the walls' coordinates, |x| = 1
+
+
+def geometry_map(data, sensor, lanes, depth, move, at=0.0):
+    """The wave box's forward-mode map w.r.t. `move` at th = at."""
+    shape, d = GEOMETRY_MOVES[move]
+    dev = data.geo.p0.device
+    delta = torch.tensor(d, device=dev)
+    return forward_map(lambda th: path_values(translated(
+        data, shape, th * delta), sensor, lanes, True, depth),
+        torch.tensor(at, device=dev), torch.tensor(1.0, device=dev))[1]
+
+
+def replay_cone_queries(data, sensor, lanes, depth, move, card):
+    """Phase 26(a): the forward-mode run w.r.t. `move` on the card, every
+    cone query of it again on the CPU on the same (dual) inputs and the
+    card's moved triangles → (queries, minima entries that differ, count
+    entries that differ, card tangents, CPU tangents)."""
+    import torch.autograd.forward_ad as fwAD
+    from wave_tracer_tpu_torch.integrator import plt_path
+    tr = plt_path.trace_mod
+    real = tr.cone_boundary_minz
+    shape, d = GEOMETRY_MOVES[move]
+    cpu = torch.device("cpu")
+    rec = []
+    with fwAD.dual_level():
+        th = fwAD.make_dual(torch.tensor(0.0, device=card),
+                            torch.tensor(1.0, device=card))
+        moved = translated(data, shape, th * torch.tensor(d, device=card))
+        geo_cpu = to_device(moved.geo, cpu)
+
+        def split(z):
+            p, t = fwAD.unpack_dual(z)
+            return p.cpu(), (torch.zeros_like(p) if t is None else t).cpu()
+
+        def replay(geo, *args, **kw):
+            out = real(geo, *args, **kw)
+            ref = real(geo_cpu, *[to_device(a, cpu) for a in args],
+                       **to_device(kw, cpu))
+            rec.append((split(out[0]), split(ref[0]), out[1].cpu(), ref[1]))
+            return out
+        tr.cone_boundary_minz = replay
+        try:
+            path_values(moved, sensor, lanes, True, depth)
+        finally:
+            tr.cone_boundary_minz = real
+    zdiff = cdiff = 0
+    tc, tp = [], []
+    for (zc, zt), (rc, rt), cc, rcnt in rec:
+        both_inf = torch.isinf(zc) & torch.isinf(rc)
+        zdiff += int((~(both_inf | (zc == rc))).sum())
+        cdiff += int((cc != rcnt).sum())
+        fin = torch.isfinite(rc)
+        tc.append(zt[fin])
+        tp.append(rt[fin])
+    return len(rec), zdiff, cdiff, torch.cat(tc).numpy(), \
+        torch.cat(tp).numpy()
+
+
+def check_geometry_gradients(rk, ck, build_scene, card):
+    """Phase 26 (module doc). Returns its readings and launches."""
+    res, depth = 64, 8
+    dev = torch.device(card)
+    built = build_scene(box_scene(res, 1, depth, fsd=True), device=dev)
+    data, sensor = built.data, built.scene.sensors[0]
+    lanes = grad_lanes(res, dev)
+    cpu_built = build_scene(box_scene(res, 1, depth, fsd=True),
+                            device="cpu")
+    cpu_lanes = grad_lanes(res, torch.device("cpu"))
+    # warm-ups: the plain forward, and forward mode (its first call pays
+    # one-off costs of the dual tensors' kernels)
+    path_values(data, sensor, lanes, True, depth)
+    geometry_map(data, sensor, lanes, depth, "back_wall")
+    zero(rk.LAUNCHES, ck.LAUNCHES)
+    _, sec = synced(lambda: path_values(data, sensor, lanes, True, depth))
+    out = {"plain": dict(rk.LAUNCHES, **ck.LAUNCHES,
+                         paths_per_sec=res * res / sec)}
+    check(plain_launched(out["plain"]),
+          f"phase 26: the plain forward launched {out['plain']}")
+    for name in GEOMETRY_MOVES:
+        zero(rk.LAUNCHES, ck.LAUNCHES)
+        g, sec = synced(lambda: geometry_map(data, sensor, lanes, depth,
+                                             name))
+        r = out[name] = dict(rk.LAUNCHES, **ck.LAUNCHES,
+                             paths_per_sec=res * res / sec)
+        check(each_launched(r) and r["cone_minz_winners"]
+              == r["cone_minz"] == out["plain"]["cone_minz"],
+              f"phase 26 {name}: launched {r} against the plain forward's "
+              f"{out['plain']}")
+        # (a) the path's own cone queries, card against the plain version
+        n, zdiff, cdiff, tc, tp = replay_cone_queries(data, sensor, lanes,
+                                                      depth, name, card)
+        t_pearson, t_share = image_bars(tc, tp, True)
+        t_err = float(np.abs(tc - tp).max() / max(np.abs(tp).max(), 1e-30))
+        check(zdiff == 0 and cdiff == 0, f"phase 26 {name}: K3 against the "
+              f"plain version on the path's cone queries: {zdiff} minima, "
+              f"{cdiff} counts differ")
+        check(np.any(tp != 0) and t_pearson >= 0.999 and t_share >= 0.90
+              and np.all(np.abs(tc - tp) <= 1e-5 * np.abs(tp)
+                         + 1e-6 * np.abs(tp).max()),
+              f"phase 26 {name}: the minima's tangents, card against the "
+              f"plain version: Pearson {t_pearson}, share {t_share}, max "
+              f"error {t_err:.3e} of the largest")
+        # (b) the maps, card against CPU, beside the CPU's one-ulp spread
+        a = g.cpu().numpy()
+        b = geometry_map(cpu_built.data, sensor, cpu_lanes, depth,
+                         name).numpy()
+        check(np.isfinite(a).all() and (a != 0).any(),
+              f"phase 26 {name}: map not finite or zero")
+        pearson, share = image_bars(a, b, True)
+        check(share >= 0.90, f"phase 26 {name}: {share:.4f} of pixels "
+              "within 1e-2")
+        ulp = [image_bars(geometry_map(cpu_built.data, sensor, cpu_lanes,
+                                       depth, name, at).numpy(), b, True)[0]
+               for at in (ULP, -ULP)]
+        r.update(k3_queries=n, tangent_pearson=t_pearson,
+                 tangent_share=t_share, tangent_max_err=t_err,
+                 pearson=pearson, share=share, cpu_ulp_pearson=ulp)
+        print(f"phase 26: wave box {res}x{res} 1 spp depth {depth}, forward "
+              f"mode w.r.t. {name}: (a) {n} cone queries of the path, card "
+              f"against the plain version: minima and counts bit-equal, "
+              f"tangents Pearson {t_pearson:.9f}, {t_share:.4f} within "
+              f"1e-2, max error {t_err:.3e} of the largest; (b) maps cuda vs"
+              f" cpu {share:.4f} of pixels within 1e-2, Pearson "
+              f"{pearson:.6f} (the CPU's own map against it moved +-1 ulp: "
+              f"{ulp[0]:.6f}, {ulp[1]:.6f}); {r['paths_per_sec']:.1f} paths/"
+              f"s against the plain forward's "
+              f"{out['plain']['paths_per_sec']:.1f}; launches K1 "
+              f"{r['closest']} K2 {r['anyhit']} K3 {r['cone_minz']} (winner "
+              f"build {r['cone_minz_winners']}) [{card}]", flush=True)
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+DIST_LANES = 1 << 15        # lanes per rank in phase 27 (2 ranks: 2^16)
+
+
+def dist_rank(rank, world, init, out, backend):
+    """One rank of phase 27(b): the wave box at 256x256 x 1 spp, depth 8,
+    through render_distributed on this rank's card; saves its image, its
+    stats and its K1/K2/K3 launches (counted from zero around the
+    render)."""
+    import json as json_mod
+
+    from wave_tracer_tpu_torch.accel import cone_kernels as ck
+    from wave_tracer_tpu_torch.accel import ray_kernels as rk
+    from wave_tracer_tpu_torch.parallel import launch
+    from wave_tracer_tpu_torch.parallel.dist import render_distributed
+    from wave_tracer_tpu_torch.scene import build_scene
+    launch.initialize_distributed(init, world, rank, backend=backend,
+                                  device="cuda", timeout_s=300.0)
+    try:
+        built = build_scene(box_scene(256, 1, 8, fsd=True),
+                            device=launch.local_device())
+        zero(rk.LAUNCHES, ck.LAUNCHES)
+        img, st = render_distributed(built, lanes_per_device=DIST_LANES)
+        torch.cuda.synchronize()
+        np.save(f"{out}/img_{backend}_{rank}.npy", img)
+        with open(f"{out}/run_{backend}_{rank}.json", "w") as f:
+            json_mod.dump(dict(st, launches=dict(rk.LAUNCHES, **ck.LAUNCHES),
+                               device=str(launch.local_device())), f)
+    finally:
+        launch.shutdown()
+
+
+def spawn_ranks(fn, world, *args, deadline_s=300.0):
+    """fn(rank, world, *args) in `world` spawned processes, each joined
+    within deadline_s (else killed and the phase fails)."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=(world, *args), nprocs=world, join=False,
+        start_method="spawn")
+    end = time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > end:
+                fail(f"ranks not done in {deadline_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def check_distributed(rk, ck, build_scene, cli_exr, card):
+    """Phase 27 (module doc). Returns its readings and launches."""
+    import json as json_mod
+    import os
+    import shutil
+    import tempfile
+
+    from wave_tracer_tpu_torch.parallel import launch
+    from wave_tracer_tpu_torch.parallel.dist import render_distributed
+    from wave_tracer_tpu_torch.render import render_scene
+
+    out = {}
+    # (a) one rank of an NCCL group against the batched renderer
+    check(launch.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                        device="cuda"), "phase 27a: init")
+    try:
+        built = build_scene(box_scene(256, 1, 8, fsd=True), device="cuda")
+        render_distributed(built, lanes_per_device=2 * DIST_LANES)  # warm-up
+        zero(rk.LAUNCHES, ck.LAUNCHES)
+        img_a, st_a = render_distributed(built,
+                                         lanes_per_device=2 * DIST_LANES)
+        out["launches_world1"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        check(st_a["mode"] == "wave-dist" and st_a["processes"] == 1
+              and plain_launched(out["launches_world1"]),
+              f"phase 27a: {st_a}, launches {out['launches_world1']}")
+    finally:
+        launch.shutdown()
+    img_b, st_b = render_scene(built, device="cuda", compact=False,
+                               pool_lanes=2 * DIST_LANES)
+    err = float(np.abs(img_a - img_b).max() / np.abs(img_b).max())
+    check(np.isfinite(img_a).all() and err <= 1e-5,
+          f"phase 27a: against Renderer(compact=False) {err:.3e} of max")
+    out.update(world1_paths_per_sec=st_a["paths_per_sec"],
+               batched_paths_per_sec=st_b["paths_per_sec"],
+               world1_max_err=err)
+    print(f"phase 27a: render_distributed, one NCCL rank, wave box 256x256 "
+          f"1 spp depth 8: {st_a['paths_per_sec']:.1f} paths/s "
+          f"({st_a['seconds']:.3f} s), Renderer(compact=False) "
+          f"{st_b['paths_per_sec']:.1f} paths/s; max |diff| {err:.3e} of "
+          f"max; launches {out['launches_world1']} [{card}]", flush=True)
+
+    # (b) two ranks: gloo on the one card, NCCL over two cards if present
+    tmp = tempfile.mkdtemp(prefix="wt_dist_")
+    try:
+        backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                               else [])
+        for backend in backends:
+            t0 = time.perf_counter()
+            spawn_ranks(dist_rank, 2, f"tcp://127.0.0.1:{free_port()}", tmp,
+                        backend)
+            wall = time.perf_counter() - t0
+            for rank in (0, 1):
+                img = np.load(f"{tmp}/img_{backend}_{rank}.npy")
+                with open(f"{tmp}/run_{backend}_{rank}.json") as f:
+                    run = json_mod.load(f)
+                e = float(np.abs(img - img_a).max() / np.abs(img_a).max())
+                check(e <= 1e-5, f"phase 27b {backend} rank {rank}: merged "
+                      f"film {e:.3e} of max from 27a's")
+                check(plain_launched(run["launches"])
+                      and run["processes"] == 2,
+                      f"phase 27b {backend} rank {rank}: {run}")
+                out[f"{backend}_rank{rank}"] = dict(
+                    launches=run["launches"], device=run["device"],
+                    paths_per_sec=run["paths_per_sec"], max_err=e)
+            print(f"phase 27b: two {backend} ranks "
+                  f"({out[f'{backend}_rank0']['device']}, "
+                  f"{out[f'{backend}_rank1']['device']}), wave box 256x256 "
+                  f"1 spp depth 8: merged films within "
+                  f"{max(out[f'{backend}_rank{r}']['max_err'] for r in (0, 1)):.3e}"
+                  f" of max of 27a's; {out[f'{backend}_rank0']['paths_per_sec']:.1f}"
+                  f" paths/s (its render, cold); launches rank 0 "
+                  f"{out[f'{backend}_rank0']['launches']}, rank 1 "
+                  f"{out[f'{backend}_rank1']['launches']}; {wall:.1f} s with "
+                  f"process start [{card}]", flush=True)
+
+        # (c) the CLI's --distributed with two processes
+        root = os.path.dirname(os.path.abspath(__file__))
+        box = cli_box_files(tmp)["box"][0]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
+        if torch.cuda.device_count() < 2:
+            env["WT_DIST_BACKEND"] = "gloo"      # two ranks on one card
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "wave_tracer_tpu_torch", "render", box,
+             "-o", os.path.join(tmp, f"cli{r}"), "--write-stats",
+             "--distributed", "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", "2", "--process-id", str(r),
+             "--batch_lanes", str(1 << 17)], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in (0, 1)]
+        try:
+            res = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, (so, se)) in enumerate(zip(procs, res)):
+            check(p.returncode == 0, f"phase 27c: rank {r} exited "
+                  f"{p.returncode}:\n{so[-2000:]}{se[-4000:]}")
+        check(not os.path.exists(os.path.join(tmp, "cli1")),
+              "phase 27c: rank 1 wrote outputs")
+        from wave_tracer_tpu_torch.render.output import read_exr
+        with open(os.path.join(tmp, "cli0", "perf_stats.json")) as f:
+            (cst,) = json_mod.load(f)
+        check(cst["mode"] == "wave-dist" and cst["processes"] == 2
+              and cst["paths"] == 524288, f"phase 27c: stats {cst}")
+        exr, names = read_exr(os.path.join(tmp, "cli0", "camera.exr"))
+        exr = np.stack([exr[..., names.index(c)] for c in "RGB"], -1)
+        frac = compare_images(exr, cli_exr, cst, cst,
+                              "phase 27c CLI --distributed vs the CLI",
+                              mean_rtol=0.02, px_tol=1e-2, px_frac=0.90,
+                              counters=(), counter_rtol=0.0, corr=0.999)
+        out.update(cli_paths_per_sec=cst["paths_per_sec"],
+                   cli_process_s=wall, cli_share=frac,
+                   cli_backend=env.get("WT_DIST_BACKEND", "nccl"))
+        print(f"phase 27c: python -m wave_tracer_tpu_torch render box.xml "
+              f"--distributed, two processes ({out['cli_backend']}): exit 0 "
+              f"in {wall:.2f} s, one EXR (rank 0's), "
+              f"{cst['paths_per_sec']:.1f} paths/s in its render "
+              f"({cst['seconds']:.3f} s); {frac:.4f} of pixels within the "
+              f"wave bar of the one-process CLI's EXR [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+KERNELS = ("closest", "anyhit", "cone_minz")    # K1, K2, K3's counts
+
+
+def each_launched(counts):
+    """K1, K2 and K3 each launched in the run that `counts` read (K3's
+    winner build is counted apart as well, under cone_minz_winners)."""
+    return all(counts[k] > 0 for k in KERNELS)
+
+
+def plain_launched(counts):
+    """each_launched, and K3 always through its build without winners:
+    a render with no derivative in play."""
+    return each_launched(counts) and counts["cone_minz_winners"] == 0
 
 
 def zero(*counts):
@@ -2256,7 +2687,7 @@ def main():
     img8, st8 = render_scene(wbox, device="cuda")
     torch.cuda.synchronize()
     wave_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
-    check(all(v > 0 for v in wave_launches.values()),
+    check(plain_launched(wave_launches),
           f"wave main path launched {wave_launches}")
     check_wave_render(img8, st8, (256, 256, 3), "phase 8")
     check(st8["pool_lanes"] == POOL, f"phase 8 pool {st8['pool_lanes']}")
@@ -2294,7 +2725,8 @@ def main():
     img10, st10 = render_scene(wbig, device="cuda")
     torch.cuda.synchronize()
     after = dict(rk.LAUNCHES, **ck.LAUNCHES)
-    check(all(after[k] > before[k] for k in before),
+    check(all(after[k] > before[k] for k in KERNELS)
+          and after["cone_minz_winners"] == before["cone_minz_winners"],
           f"phase 10 launched {after} after {before}")
     check_wave_render(img10, st10, (256, 256, 3), "phase 10")
     print(f"phase 10: wave box + icosphere ({wbig.data.geo.num_tris} tris) "
@@ -2440,7 +2872,7 @@ def main():
     img16, st16 = render_scene(mat, device="cuda")
     torch.cuda.synchronize()
     mat_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
-    check(all(v > 0 for v in mat_launches.values()),
+    check(plain_launched(mat_launches),
           f"materials wave path launched {mat_launches}")
     check_wave_render(img16, st16, (256, 256, 3), "phase 16")
     check(st16["pool_lanes"] == POOL, f"phase 16 pool {st16['pool_lanes']}")
@@ -2565,7 +2997,8 @@ def main():
               flush=True)
 
     # ---- phase 22: scene files and the command line
-    cli_launches, mask_launches, cli_calls, cli_out = check_cli(rk, ck, card)
+    cli_launches, mask_launches, cli_calls, cli_out, cli_exr = check_cli(
+        rk, ck, card)
 
     # ---- phase 23: gradients through plt_bdpt at full width
     launches23, g23 = check_gradients_bdpt(
@@ -2580,6 +3013,19 @@ def main():
 
     # ---- phase 25: the maps of phases 23-24, card vs CPU
     g25 = check_gradient_paths_vs_cpu(build_scene)
+
+    # ---- phase 26: geometry derivatives through K3's winners
+    g26 = check_geometry_gradients(rk, ck, build_scene, "cuda")
+
+    # ---- phase 27: rendering across processes
+    d27 = check_distributed(rk, ck, build_scene, cli_exr, card)
+    extra_launches = {
+        "geometry_plain_forward": g26["plain"],
+        "geometry_back_wall": g26["back_wall"],
+        "geometry_left_wall_slide": g26["left_wall_slide"],
+        "distributed_world1": d27["launches_world1"],
+        **{f"distributed_{k}": v["launches"] for k, v in d27.items()
+           if k.startswith(("gloo_", "nccl_"))}}
 
     # ---- phase 11
     def row(name, src, replaces, key, stats, **extra):
@@ -2602,7 +3048,9 @@ def main():
                                       "batched_classical":
                                           batched["classical"][key],
                                       "cli_wave_scale": cli_launches[key],
-                                      "cli_mask": mask_launches[key]},
+                                      "cli_mask": mask_launches[key],
+                                      **{k: v[key] for k, v in
+                                         extra_launches.items()}},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)
@@ -2644,7 +3092,13 @@ def main():
             in_scale_render=in_render["cone_minz"],
             in_materials_render=in_mat["cone_minz"],
             materials_call_vs_plain=mat_calls["cone_minz"],
-            cli_scale_call_vs_plain=cli_calls["cone_minz"]),
+            cli_scale_call_vs_plain=cli_calls["cone_minz"],
+            winner_ms=k3["winner_ms"], winner_ms_box=k3_box["winner_ms"],
+            winner_launches_by_path={
+                k: g26[k]["cone_minz_winners"] for k in GEOMETRY_MOVES},
+            geometry_gradients=g26,
+            distributed={k: v for k, v in d27.items()
+                         if not k.startswith("launches")}),
     ]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -497,8 +497,9 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["render", p, "-o", str(tmp_path / "o")])
     assert not (tmp_path / "o").exists()
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 5"):
-        cli.main(["render", p, "--device", "cpu", "--distributed"])
+    with pytest.raises(SystemExit, match="writes no checkpoint"):
+        cli.main(["render", p, "--device", "cpu", "--distributed",
+                  "--resume"])
     with pytest.raises(SystemExit, match="bad define"):
         cli.main(["render", p, "--device", "cpu", "-D", "res"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -147,3 +147,20 @@ def test_cone_minz_ignores_default_dtype():
     assert zc64.dtype == torch.float32
     assert torch.equal(zc64.view(torch.int32), zc.view(torch.int32))
     assert torch.equal(cnt64, cnt)
+
+
+def test_plain_sqrt_rounds_as_ieee():
+    """The plain version's square roots round as the kernel's IEEE sqrtf
+    does, correctly, so that its minima stay bit-equal to K3's: on seeded
+    draws, at 0 and below, and at NaN. torch's float32 sqrt on the CPU
+    misses the correctly rounded root on some inputs (the share of these
+    draws is printed)."""
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.uniform(0.0, 100.0, 1 << 20).astype(np.float32))
+    exact = torch.from_numpy(
+        np.sqrt(x.numpy().astype(np.float64)).astype(np.float32))
+    assert torch.equal(cone_kernels._sqrt0(x), exact)
+    print(f"torch.sqrt one ulp off on "
+          f"{float((torch.sqrt(x) != exact).float().mean()):.4%} of draws")
+    edge = cone_kernels._sqrt0(torch.tensor([0.0, -1.0, float("nan")]))
+    assert edge[:2].tolist() == [0.0, 0.0] and torch.isnan(edge[2])

@@ -100,12 +100,16 @@ def test_render_cuda_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_cone_kernel_matches_plain(cuda):
     """K3 against _minz_ref on seeded random cones, at N a multiple of the
-    256-lane block and not, with and without the triangle-range split;
-    test_mxu_cone.py's bars."""
+    256-lane block and not, with and without the triangle-range split, and
+    on a soup of duplicated triangles (exact ties); test_mxu_cone.py's
+    bars."""
     r = np.random.default_rng(7)
-    for T, N in ((700, 256), (3000, 4100), (12, 20000)):
+    for T, N in ((700, 256), (3000, 4100), (12, 20000), (1400, 4100)):
         p0 = r.uniform(-4, 4, (T, 3)).astype(np.float32)
         e = r.uniform(-1, 1, (2, T, 3)).astype(np.float32)
+        if T == 1400:
+            # every triangle twice: the winners break exact ties by id
+            p0[700:], e[:, 700:] = p0[:700], e[:, :700]
         ro = r.uniform(-5, 5, (N, 3)).astype(np.float32)
         rd = r.normal(size=(N, 3)).astype(np.float32)
         rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
@@ -129,11 +133,11 @@ def _cone_matches_plain(args, table):
     """K3 against _minz_ref: bit-equal minima and counts (the culls skip
     only pairs the body rejects), one launch counted; the counting build
     returns the same, with consistent counters."""
-    before = ck.LAUNCHES["cone_minz"]
+    before = dict(ck.LAUNCHES)
     zc, cnt = ck.cone_minz(*args, table=table)
     zr, cr = ck._minz_ref(*args)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["cone_minz"] == before + 1
+    assert ck.LAUNCHES["cone_minz"] == before["cone_minz"] + 1
     assert torch.isfinite(zr).any().item()
     assert torch.equal(zc, zr) and torch.equal(cnt, cr)
     stats = torch.zeros((4,), dtype=torch.int64, device=zc.device)
@@ -142,6 +146,16 @@ def _cone_matches_plain(args, table):
     tested, entered, witer, witer_in = stats.tolist()
     assert entered <= tested <= args[1].shape[0] * args[0].shape[0]
     assert witer_in <= witer and entered >= int(cnt.sum())
+    # the winner build: the same minima and counts, and each minimum's
+    # triangle as the twin picks it (least z, then least id)
+    zw, cw, win = ck.cone_minz(*args, table=table, winners=True)
+    _, _, win_r = ck._minz_ref(*args, winners=True)
+    assert ck.LAUNCHES["cone_minz"] == before["cone_minz"] + 3
+    assert ck.LAUNCHES["cone_minz_winners"] \
+        == before["cone_minz_winners"] + 1
+    assert torch.equal(zw, zc) and torch.equal(cw, cnt)
+    assert torch.equal(win, win_r)
+    assert torch.equal(win >= 0, torch.isfinite(zc))
 
 
 @pytest.mark.gpu
@@ -712,3 +726,45 @@ def test_mask_and_cli_render_on_card(cuda, tmp_path):
     assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999
     scale = np.maximum(np.abs(b), np.abs(b).mean())
     assert (np.abs(a - b) <= 1e-2 * scale).all(-1).mean() >= 0.90
+
+
+def _card_rank(rank, world, init, out):
+    from wave_tracer_tpu_torch.parallel import launch
+    from wave_tracer_tpu_torch.parallel.dist import render_distributed
+    launch.initialize_distributed(init, world, rank, backend="gloo",
+                                  device="cuda", timeout_s=120.0)
+    try:
+        scene = make_box_scene(res=32, spp=2)
+        scene.integrator.fsd = True
+        scene.integrator.max_depth = 4
+        before = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        img, st = render_distributed(build_scene(scene, device="cuda"),
+                                     lanes_per_device=512)
+        assert st["processes"] == world and st["mode"] == "wave-dist"
+        after = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        assert all(after[k] > before[k]
+                   for k in ("closest", "anyhit", "cone_minz")), (before, after)
+        assert after["cone_minz_winners"] == before["cone_minz_winners"]
+        np.save(f"{out}/img_{rank}.npy", img)
+    finally:
+        launch.shutdown()
+
+
+@pytest.mark.gpu
+def test_two_rank_gloo_film_on_card(cuda, tmp_path):
+    """Two ranks of a gloo group on the one card (NCCL refuses two ranks
+    on one device) render the wave box through K1/K2/K3 and merge their
+    films; each rank's image is one rank's within 1e-5·max."""
+    from test_torch_parallel import spawn_ranks
+    from wave_tracer_tpu_torch.parallel.dist import render_distributed
+    spawn_ranks(_card_rank, 2, f"file://{tmp_path / 'rdv'}", str(tmp_path),
+                deadline_s=300.0)
+    scene = make_box_scene(res=32, spp=2)
+    scene.integrator.fsd = True
+    scene.integrator.max_depth = 4
+    ref, _ = render_distributed(build_scene(scene, device=cuda),
+                                lanes_per_device=1024, device=cuda)
+    for rank in (0, 1):
+        img = np.load(tmp_path / f"img_{rank}.npy")
+        np.testing.assert_allclose(img, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())

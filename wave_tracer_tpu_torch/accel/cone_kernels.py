@@ -16,10 +16,13 @@ for small triangles far from the origin.)
 
 On a CUDA tensor `cone_minz` launches the hand-written kernel
 (csrc/cone_kernels.cu, built with nvcc for sm_90a at first use and loaded
-with ctypes) and adds one to LAUNCHES["cone_minz"]; on a CPU tensor it
+with ctypes) and adds one to LAUNCHES["cone_minz"] (and, for the build
+with winners, to LAUNCHES["cone_minz_winners"] as well); on a CPU tensor it
 runs the plain torch version `_minz_ref` (the port of `_launch_ref`: a
 loop over triangle tiles of 512, every pair through the full entry math).
-Any other device raises.
+Any other device raises. With `winners=True` both also return each
+minimum's triangle (the kernel's second build merges (z, id) keys), from
+which accel/trace.py takes the minima's derivative (`minz_pairs`).
 
 The kernel reads its own copy of the triangles (`ConeTable`), sorted so
 that its 256-triangle tiles are compact, and culls before the pair body:
@@ -50,7 +53,8 @@ TILE = 256                  # triangles per bounding-sphere tile (kernel)
 # (their cones cull different tiles), so many short blocks balance better
 CHUNK_BLOCKS = 48
 
-LAUNCHES = {"cone_minz": 0}
+# every launch of K3; those of its winner build also under "cone_minz_winners"
+LAUNCHES = {"cone_minz": 0, "cone_minz_winners": 0}
 
 _lib = None
 
@@ -129,14 +133,14 @@ def build():
     lib = nvcc_build.build("cone_kernels")["cone_kernels"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wt_cone_minz.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci,
-                                 ctypes.c_float, vp, vp, vp, vp]
+                                 ctypes.c_float, vp, vp, vp, vp, vp]
     lib.wt_cone_minz.restype = ci
     _lib = lib
     return lib
 
 
 def _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
-            stats):
+            stats, winners):
     lib = build()
     dev = ro.device
     N, T = ro.shape[0], tri.shape[0]
@@ -178,6 +182,9 @@ def _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
                              "boundary (`cone_table`)")
     zc = torch.full((N, NB), float("inf"), dtype=f32, device=dev)
     cnt = torch.zeros((N,), dtype=torch.int32, device=dev)
+    # the winner build's (z bits << 32 | id) keys; ~0 (−1 as int64): none
+    keys = torch.full((N, NB), -1, dtype=torch.int64, device=dev) \
+        if winners else None
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     err = lib.wt_cone_minz(rows.data_ptr(), ids.data_ptr(), tiles.data_ptr(),
                            spheres.data_ptr(), T,
@@ -186,16 +193,37 @@ def _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
                            exclude.data_ptr(), bnd.data_ptr(), N,
                            float(zmin), zc.data_ptr(), cnt.data_ptr(),
                            None if stats is None else stats.data_ptr(),
+                           None if keys is None else keys.data_ptr(),
                            stream)
     if err != 0:
         raise RuntimeError(f"cone kernel launch failed: cudaError {err}")
     LAUNCHES["cone_minz"] += 1
-    return zc, cnt
+    if not winners:
+        return zc, cnt
+    LAUNCHES["cone_minz_winners"] += 1      # the same launch, its winner build
+    # z ≥ zmin > 0, so a key's high word is the bits of a finite float
+    none = keys == -1
+    zc = torch.where(none, float("inf"),
+                     (keys >> 32).to(torch.int32).view(f32))
+    win = torch.where(none, -1, (keys & 0xFFFFFFFF).to(torch.int32))
+    return zc, cnt, win
 
 
 # ---------------------------------------------------------------------------
 # plain torch version (the port of mxu_cone._launch_ref / _minz_block)
 # ---------------------------------------------------------------------------
+
+def _sqrt0(x):
+    """sqrt(max(x, 0)) rounded as the kernel's IEEE sqrtf rounds it, NaN
+    where x is, with a zero derivative where x ≤ 0 (the plain sqrt's is
+    ∞ · 0 = NaN there, in both AD modes). torch's float32 sqrt on the CPU
+    is one ulp off on some inputs (0.6% of uniform draws on an AVX-512
+    build), so the root is taken in float64 and rounded once: a correctly
+    rounded float64 root rounds to the correctly rounded float32 one."""
+    pos = x > 0
+    root = torch.sqrt(torch.where(pos, x, 1.0).double()).to(x.dtype)
+    return torch.where(pos, root, torch.where(torch.isnan(x), x, 0.0))
+
 
 def _safe_div(a, b):
     # a where of two Python floats takes torch's default dtype: pin b's, so
@@ -213,7 +241,7 @@ def _edge_entry_z(A, B, x0, ta, zlo_eff, zmin, zmax):
     b = 2.0 * (Ax * Ex + Ay * Ey - ta * Ez * r0)
     c = Ax * Ax + Ay * Ay - r0 * r0
     disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(disc.clamp_min(0.0))
+    sq = _sqrt0(disc)
     qq = -0.5 * (b + torch.sign(b) * sq)
     lin = a.abs() < _EPS
     s_lin = _safe_div(-c, b)
@@ -285,7 +313,7 @@ def _minz_block(A, B, C, x0, ta, zmax, zmin):
     best = torch.where(ok_ax & (z_ax < best), z_ax, best)
 
     # 4. conic near point inside the triangle
-    rho = torch.sqrt(lnx * lnx + lny * lny)
+    rho = _sqrt0(lnx * lnx + lny * lny)
 
     def bound(a, b):
         lo = torch.where(a > _EPS, b / a.clamp_min(_EPS), -BIG)
@@ -329,7 +357,8 @@ def _minz_block(A, B, C, x0, ta, zmax, zmin):
 
 def _local_coords(tile, ro, rd, xh, e):
     """Local scaled coordinates of a tile of points (bt, 3·P), P = 3 for
-    triangles, for every lane: P (x, y, z) tuples of (N, bt). yh = rd × xh and the dot products
+    triangles, for every lane: P (x, y, z) tuples of (N, bt); or of each
+    lane's own points (N, bt, 3·P). yh = rd × xh and the dot products
     are written out so that every operation rounds as the kernel's does
     (fused library kernels such as torch.linalg.cross may contract
     multiply-adds on the card)."""
@@ -341,8 +370,8 @@ def _local_coords(tile, ro, rd, xh, e):
     o = [ro[:, c:c + 1] for c in range(3)]
     ecc = e[:, None]
     local = []
-    for p in range(tile.shape[1] // 3):
-        u = [tile[None, :, 3 * p + c] - o[c] for c in range(3)]
+    for p in range(tile.shape[-1] // 3):
+        u = [tile[..., 3 * p + c] - o[c] for c in range(3)]
 
         def dot(a):
             return u[0] * a[0] + u[1] * a[1] + u[2] * a[2]
@@ -350,13 +379,17 @@ def _local_coords(tile, ro, rd, xh, e):
     return local
 
 
-def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
+def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
+              winners=False):
     """Plain version of K3 → (zc (N, 16) f32 with inf where none,
-    cnt (N,) i32). All pairs, no cull."""
+    cnt (N,) i32), and with `winners` win (N, 16) i32: the triangle of
+    each minimum, the least id among equal z, −1 where none. All pairs,
+    no cull."""
     N = ro.shape[0]
     lane = [v[:, None] for v in (x0, ta, zmax)]
     mins = torch.full((N, NB), BIG, dtype=torch.float32, device=ro.device)
     cnt = torch.zeros((N,), dtype=torch.int32, device=ro.device)
+    win = torch.full((N, NB), -1, dtype=torch.int32, device=ro.device)
     for base in range(0, tri.shape[0], TILE_REF):
         tile = tri[base:base + TILE_REF]
         z = _minz_block(*_local_coords(tile, ro, rd, xh, e), *lane, zmin)
@@ -366,9 +399,26 @@ def _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin):
         cnt += ok.sum(1, dtype=torch.int32)
         z = torch.where(ok, z, BIG)
         for j in range(NB):
-            zj = torch.where(z >= bnd[:, j:j + 1], z, BIG).amin(1)
+            zm = torch.where(z >= bnd[:, j:j + 1], z, BIG)
+            zj = zm.amin(1)
+            if winners:
+                # tiles come in id order: a later tile wins only below
+                wj = torch.where(zm == zj[:, None], ids[None, :],
+                                 torch.iinfo(torch.int32).max).amin(1)
+                win[:, j] = torch.where(zj < mins[:, j], wj, win[:, j])
             mins[:, j] = torch.minimum(mins[:, j], zj)
-    return torch.where(mins >= BIG, float("inf"), mins), cnt
+    zc = torch.where(mins >= BIG, float("inf"), mins)
+    return (zc, cnt, win) if winners else (zc, cnt)
+
+
+def minz_pairs(verts, ro, rd, xh, e, x0, ta, zmax, zmin=1e-7):
+    """The exact entry z of each lane's cone into its own triangles:
+    verts (N, B, 9) world vertices [A | B | C], lane inputs as
+    `cone_minz`'s → (N, B), BIG where none. Plain torch and differentiable
+    (the derivative of the winning case); on the kernel's winners it
+    gives the kernel's minima."""
+    return _minz_block(*_local_coords(verts, ro, rd, xh, e),
+                       *(v[:, None] for v in (x0, ta, zmax)), zmin)
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +496,7 @@ def _pair_may_enter(A, B, C, x0, ta, zmax, zmin):
 
 
 def cone_minz(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin=1e-7,
-              *, table, stats=None):
+              *, table, stats=None, winners=False):
     """K3: per-boundary earliest exact cone–triangle entries.
 
     tri (T, 9) f32 world vertices (`cone_tris`), which the plain version
@@ -458,16 +508,20 @@ def cone_minz(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin=1e-7,
     build of the kernel adds the pairs tested after the tile cull, the
     pairs that entered the pair body, the warp-iterations and those in
     which some lane entered the body. Returns (zc (N, 16) f32, inf where
-    no encounter ≥ bnd_j; cnt (N,) i32 encounters). Every input must be
-    primal (`ray_kernels.check_primal`): the minima carry no derivative."""
+    no encounter ≥ bnd_j; cnt (N,) i32 encounters) and, with `winners`,
+    win (N, 16) i32, the bake-order id of each minimum's triangle (the
+    least id among equal z), −1 where none: a second build of the kernel
+    merges (z, id) keys. Every input must be primal
+    (`ray_kernels.check_primal`): the minima carry no derivative
+    (accel/trace.py recomputes the winners' z to take one)."""
     ray_kernels.check_primal("cone kernel", tri, ro, rd, xh, e, x0, ta,
                              zmax, exclude, bnd)
     with ray_kernels.outside_transforms():
         if ro.device.type == "cpu":
             return _minz_ref(tri, ro, rd, xh, e, x0, ta, zmax, exclude, bnd,
-                             zmin)
+                             zmin, winners)
         if ro.device.type != "cuda":
             raise NotImplementedError(
                 f"cone kernel: no backend for {ro.device}")
         return _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude,
-                       bnd, zmin, stats)
+                       bnd, zmin, stats, winners)

@@ -134,8 +134,15 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
 
     bounds (N, B) with B ≤ 16; env the lanes' EnvState. Returns (zc (N, B)
     per-boundary minima, inf where no encounter lies ahead; cnt (N,) i32
-    exact encounter count). The minima are detached: K3 returns no
-    winning triangle to take a derivative from."""
+    exact encounter count). The kernel reads `primal` copies, so the
+    minima are a detached pick. Where the lanes, the bounds or the
+    triangles (geo.p0/e1/e2) carry a derivative, K3 also returns each
+    minimum's triangle and the minimum takes the derivative of that
+    pair's entry z, recomputed by the plain pair math
+    (`cone_kernels.minz_pairs`) on the winners' differentiable vertices,
+    as the JAX package's exact-AD plain query gives it: zc is the kernel's
+    value bit for bit, plus (z − z) with the second term detached. With
+    no derivative in play nothing more runs."""
     _check_size(geo, ro)
     N, B = bounds.shape
     dev = ro.device
@@ -144,17 +151,29 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
                 torch.zeros((N,), dtype=torch.int32, device=dev))
     if exclude_tri is None:
         exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    # the kernel reads primal tensors: the minima carry no derivative
     primal = ray_kernels.primal
+    grad = ray_kernels.carries_derivative(
+        ro, rd, env.x, env.e, env.x0, env.ta, zmax, bounds, geo.p0, geo.e1,
+        geo.e2)
+    pad = bounds
     if B < cone_kernels.NB:
-        bounds = torch.cat([bounds, bounds.new_full(
+        pad = torch.cat([bounds, bounds.new_full(
             (N, cone_kernels.NB - B), cone_kernels.BIG)], dim=1)
-    bounds = primal(bounds)
-    zc, cnt = cone_kernels.cone_minz(
+    out = cone_kernels.cone_minz(
         geo.cone_tris, primal(ro), primal(rd), primal(env.x), primal(env.e),
         primal(env.x0), primal(env.ta), primal(zmax),
-        primal(exclude_tri, torch.int32), bounds, zmin, table=geo.cone_table)
-    return zc[:, :B], cnt
+        primal(exclude_tri, torch.int32), primal(pad), zmin,
+        table=geo.cone_table, winners=grad)
+    zc, cnt = out[0][:, :B], out[1]
+    if grad:
+        win = out[2][:, :B]
+        w = win.clamp_min(0).long()
+        verts = torch.cat([geo.p0[w], geo.p0[w] + geo.e1[w],
+                           geo.p0[w] + geo.e2[w]], dim=-1)
+        z = cone_kernels.minz_pairs(verts, ro, rd, env.x, env.e, env.x0,
+                                    env.ta, zmax, zmin)
+        zc = torch.where(win >= 0, zc + (z - z.detach()), zc)
+    return zc, cnt
 
 
 def ray_tests_per_lane(geo: GeoArrays) -> float:

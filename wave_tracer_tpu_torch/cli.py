@@ -14,7 +14,17 @@ without a card it exits with an error instead of rendering on the CPU.
 
 The first Ctrl-C finishes the chunk in flight, writes the completed work
 and a resumable `<id>.ckpt.npz` (continue with `--resume`); a second one
-aborts.
+aborts. `--ui [PORT]` serves the live web page of util/ui.py (pause,
+resume, terminate, capture; Ctrl-C ends a paused render too).
+
+`--distributed` renders with one process per device (parallel/): the same
+command runs for every rank, with `--coordinator host:port
+--num-processes N --process-id R` or under torchrun; every rank renders
+its share of the lanes on its own device and only rank 0 logs and writes
+the outputs, since every rank holds the same merged image. It takes no
+`--resume`, `--checkpoint` or `--ui` (the JAX CLI ignores the first two
+and promises a checkpoint it never writes): its ranks share every chunk,
+so Ctrl-C aborts the render and nothing is written.
 """
 
 from __future__ import annotations
@@ -31,10 +41,6 @@ import numpy as np
 from wave_tracer_tpu_torch import __version__
 
 PROG = "wave_tracer_tpu_torch"
-
-
-def log(msg, **kw):
-    print(f"[{PROG}] {msg}", **kw)
 
 
 def parse_defines(pairs):
@@ -54,15 +60,40 @@ def parse_defines(pairs):
 def cmd_render(args):
     import torch
 
-    if args.distributed:
-        raise SystemExit(
-            f"{PROG}: --distributed is not ported yet (multi-GPU rendering "
-            "is ROADMAP.md queue 1 item 5); render on one device")
+    from wave_tracer_tpu_torch.util.log import Logger, Verbosity
+
+    if args.distributed and (args.resume or args.checkpoint):
+        raise SystemExit(f"{PROG}: --resume and --checkpoint are refused "
+                         "with --distributed: a distributed render writes "
+                         "no checkpoint")
+    if args.distributed and args.ui is not None:
+        raise SystemExit(f"{PROG}: --ui is refused with --distributed: the "
+                         "distributed render has no interrupt system")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit(f"{PROG}: no CUDA device; pass --device cpu to "
                          "render on the CPU")
+    device = args.device
+    if args.distributed:
+        # before any device use: one rank per device, the same command for
+        # every rank (parallel/launch.py)
+        from wave_tracer_tpu_torch.parallel import launch
+        launch.initialize_distributed(args.coordinator, args.num_processes,
+                                      args.process_id, device=args.device)
+        device = str(launch.local_device(torch.device(args.device).type))
+    main_rank = not args.distributed or launch.is_main_process()
+    try:
+        return _render(args, device, main_rank, Logger(
+            Verbosity.NORMAL if main_rank else Verbosity.QUIET,
+            prefix=f"[{PROG}] "))
+    finally:
+        if args.distributed:
+            launch.shutdown()
 
+
+def _render(args, device, main_rank, log):
+    """Render every sensor of the scene file; with --distributed every
+    rank renders and only rank 0 (main_rank) writes and logs."""
     from wave_tracer_tpu_torch.render import render_scene
     from wave_tracer_tpu_torch.render.checkpoint import (load_checkpoint,
                                                          save_checkpoint)
@@ -80,29 +111,54 @@ def cmd_render(args):
     log(f"loaded '{os.path.basename(args.scene)}': {len(scene.shapes)} "
         f"shapes, {len(scene.emitters)} emitters, {len(scene.sensors)} "
         f"sensors")
-    built = build_scene(scene, device=args.device)
+    built = build_scene(scene, device=device)
     ntris = built.data.geo.num_tris
     log(f"scene built: {ntris} triangles, {built.data.edges.count} edges "
         f"({time.time() - t0:.1f}s)")
 
     outdir = args.output or "."
-    os.makedirs(outdir, exist_ok=True)
+    if main_rank:
+        os.makedirs(outdir, exist_ok=True)
 
-    # SIGINT → terminate after the chunk in flight, develop and write the
-    # completed work and a resumable checkpoint; a second Ctrl-C aborts
+    ui = None
+    if args.ui is not None:
+        # the live web frontend: pause / resume / terminate / capture go
+        # through the same interrupt system as Ctrl-C
+        from wave_tracer_tpu_torch.util.ui import RenderUI
+        ui = RenderUI()
+        log(f"live UI at http://127.0.0.1:{ui.serve(args.ui)}/")
+        ui.set_scene_info(dict(
+            scene=os.path.basename(args.scene), shapes=len(scene.shapes),
+            emitters=len(scene.emitters),
+            sensors=[s.id for s in scene.sensors], triangles=int(ntris),
+            integrator=scene.integrator.type))
+
+    # SIGINT → terminate after the chunk in flight (a UI pause too),
+    # develop and write the completed work and a resumable checkpoint; a
+    # second Ctrl-C aborts. A distributed render cannot stop part-way: its
+    # ranks share every chunk, so Ctrl-C aborts it at once
     sigint = {"count": 0}
     prev_handler = signal.getsignal(signal.SIGINT)
 
     def on_sigint(signum, frame):
         sigint["count"] += 1
+        if args.distributed:
+            print(f"\n[{PROG}] interrupt: aborting the distributed render; "
+                  "nothing is written and no checkpoint is kept", flush=True)
+            signal.signal(signal.SIGINT, prev_handler)
+            raise KeyboardInterrupt
         if sigint["count"] >= 2:
             signal.signal(signal.SIGINT, prev_handler)
             raise KeyboardInterrupt
+        if ui is not None:
+            ui.terminate()
         print(f"\n[{PROG}] interrupt: finishing current batch, writing "
               "completed work (Ctrl-C again to abort)", flush=True)
 
     def poll_interrupt():
-        return "terminate" if sigint["count"] else None
+        if sigint["count"]:
+            return "terminate"
+        return ui.interrupt() if ui is not None else None
 
     signal.signal(signal.SIGINT, on_sigint)
     stats_all = []
@@ -116,45 +172,64 @@ def cmd_render(args):
             meta = {"renderer": f"{PROG} {__version__}",
                     "scene": os.path.basename(args.scene),
                     "sensor": sensor.id, "spp": str(spp)}
+            if ui is not None:
+                ui.set_sensor(name)
 
             def progress(done, total):
                 print(f"\r[{PROG}] sensor {si} ({sensor.id}): "
                       f"{done}/{total} spp", end="", flush=True)
+                if ui is not None:
+                    ui.progress(done, total)
 
             def on_capture(img, spp_done):
                 # an intermediate image of the render in flight
                 img = img[..., 0::4] \
                     if getattr(sensor, "polarimetric", False) else img
-                write_exr(base + "_capture.exr", (
-                    img @ M.T if M is not None else img).astype(np.float32),
-                    half=False, metadata=dict(meta, spp=str(spp_done)))
+                rgb = img @ M.T if M is not None else img
+                write_exr(base + "_capture.exr", rgb.astype(np.float32),
+                          half=False, metadata=dict(meta, spp=str(spp_done)))
+                if ui is not None:
+                    ui.on_capture(rgb, spp_done)
 
-            init_film, spp_start = None, 0
-            ckpt_path = base + ".ckpt.npz"
-            if args.resume and os.path.isfile(ckpt_path):
-                init_film, spp_start, ck_seed, _ = load_checkpoint(ckpt_path)
-                if ck_seed != args.seed:
-                    log(f"checkpoint seed {ck_seed} != --seed {args.seed}; "
-                        f"using checkpoint seed")
-                    args.seed = ck_seed
-                log(f"resuming from {ckpt_path} ({spp_start}/{spp} spp "
-                    f"done)")
-
-            img, stats, rend = render_scene(
-                built, sensor_index=si, spp=spp, seed=args.seed,
-                device=args.device, pool_lanes=args.batch_lanes,
-                progress=progress, interrupt=poll_interrupt,
-                on_capture=on_capture, init_film=init_film,
-                spp_start=spp_start, return_renderer=True)
-            print()
-            if stats.get("interrupted") or args.checkpoint:
-                save_checkpoint(ckpt_path, rend.last_film,
-                                int(rend.last_spp_done), args.seed,
-                                sensor.id or "")
-            if stats.get("interrupted"):
-                log(f"interrupted at {stats['spp_done']}/{spp} spp; "
-                    f"checkpoint: {ckpt_path} (resume with --resume)")
+            if args.distributed:
+                from wave_tracer_tpu_torch.parallel.dist import \
+                    render_distributed
+                img, stats = render_distributed(
+                    built, sensor_index=si, spp=spp, seed=args.seed,
+                    progress=progress, device=device,
+                    **({"lanes_per_device": args.batch_lanes}
+                       if args.batch_lanes else {}))
+                if main_rank:
+                    print()
+            else:
+                init_film, spp_start = None, 0
+                ckpt_path = base + ".ckpt.npz"
+                if args.resume and os.path.isfile(ckpt_path):
+                    init_film, spp_start, ck_seed, _ = load_checkpoint(
+                        ckpt_path)
+                    if ck_seed != args.seed:
+                        log(f"checkpoint seed {ck_seed} != --seed "
+                            f"{args.seed}; using checkpoint seed")
+                        args.seed = ck_seed
+                    log(f"resuming from {ckpt_path} ({spp_start}/{spp} spp "
+                        f"done)")
+                img, stats, rend = render_scene(
+                    built, sensor_index=si, spp=spp, seed=args.seed,
+                    device=device, pool_lanes=args.batch_lanes,
+                    progress=progress, interrupt=poll_interrupt,
+                    on_capture=on_capture, init_film=init_film,
+                    spp_start=spp_start, return_renderer=True)
+                print()
+                if stats.get("interrupted") or args.checkpoint:
+                    save_checkpoint(ckpt_path, rend.last_film,
+                                    int(rend.last_spp_done), args.seed,
+                                    sensor.id or "")
+                if stats.get("interrupted"):
+                    log(f"interrupted at {stats['spp_done']}/{spp} spp; "
+                        f"checkpoint: {ckpt_path} (resume with --resume)")
             stats_all.append(stats)
+            if not main_rank:
+                continue
 
             if getattr(sensor, "polarimetric", False):
                 # channels are (C response channels × 4 Stokes): the
@@ -197,7 +272,9 @@ def cmd_render(args):
                 f"{stats['paths_per_sec']:.0f} paths/s)")
     finally:
         signal.signal(signal.SIGINT, prev_handler)
-    if args.write_stats:
+        if ui is not None:
+            ui.shutdown()
+    if args.write_stats and main_rank:
         with open(os.path.join(outdir, "perf_stats.json"), "w") as f:
             json.dump(stats_all, f, indent=2)
     return 0
@@ -235,10 +312,17 @@ def main(argv=None):
     rp.add_argument("--resume", action="store_true",
                     help="resume from a sensor checkpoint in the output "
                          "dir (written on interrupt or --checkpoint)")
+    rp.add_argument("--ui", type=int, nargs="?", const=0, default=None,
+                    metavar="PORT",
+                    help="serve the live web UI on this port (no value: "
+                         "any free port)")
     rp.add_argument("--distributed", action="store_true",
-                    help="multi-process render (not ported yet)")
+                    help="multi-process render, one rank per device; run "
+                         "the same command for every rank (or torchrun); "
+                         "rank 0 writes the outputs")
     rp.add_argument("--coordinator", default=None,
-                    help="coordinator host:port (with --distributed)")
+                    help="rendezvous host:port, or an init URL; without "
+                         "it torchrun's environment (env://)")
     rp.add_argument("--num-processes", type=int, default=None)
     rp.add_argument("--process-id", type=int, default=None)
     rp.add_argument("--ray-tracing", action="store_true",

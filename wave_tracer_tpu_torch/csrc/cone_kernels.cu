@@ -73,7 +73,15 @@
 //     adds to four counters (pairs tested after the tile cull, pairs that
 //     entered the body, warp-iterations, warp-iterations in which some
 //     lane had a candidate), one atomic per warp; the main path's build
-//     does not count.
+//     does not count;
+//   * a build that also returns each minimum's triangle (kWin), launched
+//     only where a derivative is in play (accel/trace.py recomputes the
+//     winning pair's z differentiably): each minimum merges as one 64-bit
+//     key (z bits << 32 | bake-order id), in shared memory and across
+//     blocks, as K1 merges its hits; z >= zmin > 0, so the keys order by z
+//     and then by the least id. Its 16 keys a lane take 16 KB of shared
+//     memory where the minima take 8 KB. Plain renders launch the build
+//     without it.
 //
 // Why the cull margin holds. An accepted entry lies in the triangle at a z
 //   in [zlo_eff, zmax] and within r = |x0 + ta·z| of the axis (vertex,
@@ -382,7 +390,7 @@ __device__ __forceinline__ void to_local(const float* v, float* loc,
 constexpr int WARPS = BN / 32;
 constexpr int QCAP = 64;      // candidate ring per warp (a power of 2)
 
-template <bool kStats>
+template <bool kStats, bool kWin>
 __global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
     const float* __restrict__ tri, const int* __restrict__ ids,
     const float4* __restrict__ tiles,
@@ -390,10 +398,13 @@ __global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
     int tiles_per_chunk, const float* __restrict__ lane,
     const int* __restrict__ ex, const float* __restrict__ bnd, int N,
     float zmin, float* __restrict__ zc, int* __restrict__ cnt,
-    unsigned long long* __restrict__ stats) {
+    unsigned long long* __restrict__ stats,
+    unsigned long long* __restrict__ keys) {
   __shared__ __align__(16) float4 sh[2][TILE_F4];
   __shared__ float4 ssph[2][TT];
-  __shared__ float smin[NB][BN];
+  // the minima (kWin: the (z, id) keys instead)
+  __shared__ float smin[kWin ? 1 : NB][BN];
+  __shared__ unsigned long long skey[kWin ? NB : 1][kWin ? BN : 1];
   __shared__ int scnt[BN];
   __shared__ int squeue[WARPS][QCAP];
   const int tid = threadIdx.x;
@@ -421,7 +432,12 @@ __global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
   const float rinv = 1.f / (1.f - 1.8f * ta);
 
 #pragma unroll
-  for (int k = 0; k < NB; ++k) smin[k][tid] = BIG;
+  for (int k = 0; k < NB; ++k) {
+    if constexpr (kWin)
+      skey[k][tid] = ~0ull;
+    else
+      smin[k][tid] = BIG;
+  }
   scnt[tid] = 0;
   unsigned tested = 0, entered = 0, witer = 0, witer_in = 0;  // kStats
   unsigned qhead = 0, qtail = 0;        // warp-uniform ring positions
@@ -464,11 +480,20 @@ __global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
         const int slot = warp * 32 + src;
         const size_t row = (size_t)(blockIdx.x * BN + slot) * NB;
         atomicAdd(&scnt[slot], 1);
+        if constexpr (kWin) {
+          const unsigned long long key =
+              ((unsigned long long)__float_as_uint(z) << 32) |
+              (unsigned)__ldg(ids + base + j);
 #pragma unroll
-        for (int k = 0; k < NB; ++k)
-          if (z >= __ldg(bnd + row + k))
-            atomicMin(reinterpret_cast<int*>(&smin[k][slot]),
-                      __float_as_int(z));
+          for (int k = 0; k < NB; ++k)
+            if (z >= __ldg(bnd + row + k)) atomicMin(&skey[k][slot], key);
+        } else {
+#pragma unroll
+          for (int k = 0; k < NB; ++k)
+            if (z >= __ldg(bnd + row + k))
+              atomicMin(reinterpret_cast<int*>(&smin[k][slot]),
+                        __float_as_int(z));
+        }
       }
     }
     qhead += m;
@@ -554,10 +579,15 @@ __global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
   if (!live || !count) return;
   atomicAdd(cnt + i, count);
 #pragma unroll
-  for (int k = 0; k < NB; ++k)
-    if (smin[k][tid] < BIG)
+  for (int k = 0; k < NB; ++k) {
+    if constexpr (kWin) {
+      if (skey[k][tid] != ~0ull)
+        atomicMin(keys + (size_t)i * NB + k, skey[k][tid]);
+    } else if (smin[k][tid] < BIG) {
       atomicMin(reinterpret_cast<int*>(zc) + (size_t)i * NB + k,
                 __float_as_int(smin[k][tid]));
+    }
+  }
 }
 
 }  // namespace
@@ -570,7 +600,10 @@ __global__ void __launch_bounds__(BN, 6) cone_minz_kernel(
 // (T, 4) f32 triangle spheres, 16-byte aligned; lane (N, 16)
 // f32; ex (N,) i32; bnd (N, 16) f32 (BIG-padded); zc (N, 16) f32 must hold
 // +inf and cnt (N,) i32 zeros before the launch; stats, if not null, (4,)
-// u64 counters to which the counting build adds. Returns cudaGetLastError() after the launch (0 =
+// u64 counters to which the counting build adds; keys, if not null, (N,
+// 16) u64 holding ~0 before the launch: the winner build then writes each
+// minimum there as (z bits << 32 | its triangle's bake-order id) and
+// leaves zc as it was. Returns cudaGetLastError() after the launch (0 =
 // launched).
 extern "C" int wt_cone_minz(const float* tri, const int* ids,
                             const float* tiles,
@@ -578,7 +611,7 @@ extern "C" int wt_cone_minz(const float* tri, const int* ids,
                             int chunks, const float* lane, const int* ex,
                             const float* bnd, int N, float zmin, float* zc,
                             int* cnt, unsigned long long* stats,
-                            void* stream) {
+                            unsigned long long* keys, void* stream) {
   if (N <= 0 || T <= 0) return 0;
   const int ntiles = (T + TT - 1) / TT;
   if (chunks < 1) chunks = 1;
@@ -586,10 +619,13 @@ extern "C" int wt_cone_minz(const float* tri, const int* ids,
   const int per = (ntiles + chunks - 1) / chunks;
   chunks = (ntiles + per - 1) / per;
   dim3 grid((N + BN - 1) / BN, chunks);
-  auto kernel = stats ? cone_minz_kernel<true> : cone_minz_kernel<false>;
+  auto kernel = keys ? (stats ? cone_minz_kernel<true, true>
+                              : cone_minz_kernel<false, true>)
+                     : (stats ? cone_minz_kernel<true, false>
+                              : cone_minz_kernel<false, false>);
   kernel<<<grid, BN, 0, (cudaStream_t)stream>>>(
       tri, ids, reinterpret_cast<const float4*>(tiles),
       reinterpret_cast<const float4*>(spheres), T, per, lane, ex, bnd, N,
-      zmin, zc, cnt, stats);
+      zmin, zc, cnt, stats, keys);
   return (int)cudaGetLastError();
 }

@@ -76,6 +76,30 @@ BDPT_LANES_CPU = 1 << 12
 # accel/edges.py raises there
 MAX_FSD_EDGES = 1 << 20
 
+def render_mode(scene, sensor, n_edges):
+    """(mode, fsd_on, eps) as the JAX renderer decides them, for this
+    renderer and parallel/dist.py alike: mode "forward" for a
+    virtual-plane sensor, else "bdpt" (plt_bdpt, not ray-trace-only),
+    "wave" (FSD on) or "ray"; FSD needs wedge edges, 1 to MAX_FSD_EDGES of
+    them, so a scene without any renders classically; eps the rays'
+    offset, 1e-4 of the world radius."""
+    cfg = scene.integrator
+    eps = 1e-4 * scene.world_radius()
+    edges_ok = 0 < n_edges <= MAX_FSD_EDGES
+    if isinstance(sensor, VirtualPlaneSensor):
+        return "forward", bool(cfg.fsd and edges_ok), eps
+    if not isinstance(sensor, PerspectiveSensor):
+        raise NotImplementedError(
+            f"{type(sensor).__name__} sensors are not ported yet")
+    trace_only = sensor.ray_trace_only or cfg.ray_trace_only
+    if cfg.type not in ("plt_path", "plt_bdpt") and not trace_only:
+        raise NotImplementedError(f"{cfg.type} is not ported yet")
+    fsd_on = bool(cfg.fsd and not trace_only and edges_ok)
+    if cfg.type == "plt_bdpt" and not trace_only:
+        return "bdpt", fsd_on, eps
+    return ("wave" if fsd_on else "ray"), fsd_on, eps
+
+
 _COUNTER_NAMES = {
     "rays_cast": path_mod.STAT_RAYS, "shadow_rays": path_mod.STAT_SHADOW,
     "surface_interactions": path_mod.STAT_SURFACE,
@@ -126,35 +150,19 @@ class Renderer:
             built = built.on(device)
         scene = built.scene
         sensor = scene.sensors[sensor_index]
-        if not isinstance(sensor, (PerspectiveSensor, VirtualPlaneSensor)):
-            raise NotImplementedError(
-                f"{type(sensor).__name__} sensors are not ported yet")
+        mode, fsd_on, eps = render_mode(scene, sensor, built.data.edges.count)
         cfg = scene.integrator
         spp = spp or sensor.samples
         data = dataclasses.replace(
             built.data, spectral=built.spectral_per_sensor[sensor_index])
         film = _start_film(sensor, init_film, device)
-        eps = 1e-4 * scene.world_radius()
-        if isinstance(sensor, VirtualPlaneSensor):
+        if mode == "forward":
             return self._render_forward(data, sensor, spp, film, cfg, eps,
-                                        device, progress, spp_start)
-        trace_only = sensor.ray_trace_only or cfg.ray_trace_only
-        if cfg.type not in ("plt_path", "plt_bdpt") and not trace_only:
-            raise NotImplementedError(f"{cfg.type} is not ported yet")
-        # as the JAX renderer decides: FSD needs wedge edges; a scene
-        # without any renders classically
-        n_edges = built.data.edges.count
-        fsd_on = (cfg.fsd and not trace_only
-                  and 0 < n_edges <= MAX_FSD_EDGES)
-        if cfg.type == "plt_bdpt" and not trace_only:
+                                        fsd_on, device, progress, spp_start)
+        if mode == "bdpt" or not self.compact:
             return self._render_batched(data, sensor, spp, film, cfg, eps,
-                                        fsd_on, device, "bdpt", progress,
+                                        fsd_on, device, mode, progress,
                                         spp_start)
-        if not self.compact:
-            return self._render_batched(data, sensor, spp, film, cfg, eps,
-                                        fsd_on, device,
-                                        "wave" if fsd_on else "ray",
-                                        progress, spp_start)
         npix = sensor.width * sensor.height
         # chunk by spp only for interrupt granularity
         spp_chunk = max(1, -(-spp // 8)) if self.interrupt else spp
@@ -267,8 +275,8 @@ class Renderer:
                            spp_done, spp, pix_per_batch * spp_per_batch,
                            stats)
 
-    def _render_forward(self, data, sensor, spp, film, cfg, eps, device,
-                        progress=None, spp_start=0):
+    def _render_forward(self, data, sensor, spp, film, cfg, eps, wave,
+                        device, progress=None, spp_start=0):
         """Forward light tracing onto a virtual-plane sensor: spp·W·H
         paths in batches of `pool_lanes` lanes (lane ids 0..n−1, sample
         id the batch index, as the JAX package's forward kernel draws
@@ -277,7 +285,6 @@ class Renderer:
         as points into the light image, developed by the samples per
         element. A resumed render starts at batch ⌈done/lanes⌉."""
         W, H = sensor.width, sensor.height
-        wave = cfg.fsd and 0 < data.edges.count <= MAX_FSD_EDGES
         fsd_mode = "fraunhofer" if cfg.type == "plt_bdpt" else "utd"
         lanes = self.pool_lanes or (
             BDPT_LANES_CUDA if device.type == "cuda" else BDPT_LANES_CPU)
@@ -314,7 +321,7 @@ class Renderer:
                          pool_lanes=lanes, batches=batch)
 
 
-def _film_channels(sensor):
+def film_channels(sensor):
     """A polarimetric sensor's film holds I/Q/U/V per response channel."""
     return sensor.response.channels \
         * (4 if getattr(sensor, "polarimetric", False) else 1)
@@ -325,9 +332,9 @@ def _start_film(sensor, init_film, device):
     resumed render; the splats then add to the copy)."""
     if init_film is None:
         return film_mod.make_film(sensor.width, sensor.height,
-                                  _film_channels(sensor),
+                                  film_channels(sensor),
                                   sensor.rfilter_sigma, device=device)
-    shape = (sensor.height, sensor.width, _film_channels(sensor))
+    shape = (sensor.height, sensor.width, film_channels(sensor))
     if tuple(init_film.value.shape) != shape:
         raise ValueError(f"init_film of shape {tuple(init_film.value.shape)}"
                          f" for a film of shape {shape}")
