@@ -7,7 +7,8 @@ Drives the port's main paths through the entry points a user calls
 `integrator.plt_path_forward.trace_forward`,
 for scene files `python -m wave_tracer_tpu_torch render scene.xml`, and
 across processes `parallel.dist.render_distributed` and the CLI's
-`--distributed`)
+`--distributed`; scenes above 2^17 triangles through the BVH route and a
+city above 2048 wedge edges through the clustered edge sweep)
 on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
@@ -248,6 +249,29 @@ Phases (each raises on failure; nothing is caught):
      two processes (WT_DIST_BACKEND=gloo on one card): exit 0, rank 0
      alone writes, its EXR at the wave bars of phase 22's one-process
      CLI EXR, its paths/s
+ 28. large scenes. (a) K4 (BVH closest hit) and K5 (any hit) against
+     their lock-step twins on the card, over the wave box with bench.py's
+     sphere at tessellation 384 (327,692 triangles: the BVH route, its
+     tree built by the C++ builder): 262,144 seeded random rays, a third
+     excluding their first hit; K5 also on 262,144 and on 4,456,448 (the
+     FSD-leg width) random segments with one to three exclusions; words
+     bit-equal; times from CUDA events, bounds from the twins' counts of
+     the nodes and triangles each ray visits. (b) The scale cell's 81,932
+     triangles through the BVH for this check only, against K1/K2 on
+     262,144 rays and segments: ids on >= 99.9%, t within rtol 1e-4 /
+     atol 1e-5 where they agree, occlusion on >= 99.9%. (c) render_scene
+     of the large scene at 256x256 x 4 spp, depth 8: K4, K5 and K3 launch,
+     K1/K2 do not; paths/s beside the scale cell's (phase 10); each
+     kernel's ms per launch in the render; K3 on 262,144 random cones at
+     327,692 triangles (bit-equal to its plain version on the first
+     4,096 lanes); then the BVH route at 32x32 x 4 spp, depth 5, on the
+     card and on the CPU at phase 9's wave bars, with MXU_MAX_TRIS lowered
+     to 1,024 and the sphere at 1,280 triangles (the plain K3 at 327,692
+     triangles would keep the CPU busy for many minutes). (d) The city
+     coverage map (make_city_coverage_scene: 2,354 triangles, 2,356 wedge
+     edges) at 256x256 x 8, depth 4, UTD: every edge sweep clustered, K1
+     and K2 launch, K4/K5 do not; paths/s; at 32x32 x 4 on the card and on
+     the CPU at phase 15's coverage bars
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path" (the gradient
      modes of phases 19, 23 and 24, the batched renders of phase 21 and
@@ -260,8 +284,11 @@ Phases (each raises on failure; nothing is caught):
      materials calls' agreement with the plain versions under
      "materials_call_vs_plain"; the K3 row's winner build ms, its
      launches in phase 26 and phases 26-27's readings; the launches of
-     phases 26-27 under "launches_by_path") and, last, the result JSON
-     line
+     phases 26-28 under "launches_by_path"; K3 at 327,692 triangles under
+     "at_327692_tris"; rows for K4 and K5, whose "launches" are the large
+     scene's, with phase 28's readings; the script fails if K4 or K5
+     launched on any path below 2^17 triangles) and, last, the result
+     JSON line
 
 Each paths/s reading (phases 4, 6, 8, 10 and 16, and 12, 14 and 17 where
 a render takes under 30 s) is the median of three renders, the one whose launches
@@ -410,9 +437,11 @@ def cone_need(ck, table, args, entered):
             + entered * FLOP_PER_PAIR["cone_minz"], kept)
 
 
-def box_scene(res, spp, depth, icosphere=False, fsd=False):
+def box_scene(res, spp, depth, icosphere=False, fsd=False,
+              tessellation=192):
     from wave_tracer_tpu_torch.scene.procedural import make_box_scene
-    scene = make_box_scene(res=res, spp=spp, icosphere=icosphere)
+    scene = make_box_scene(res=res, spp=spp, icosphere=icosphere,
+                           tessellation=tessellation)
     scene.integrator.type = "plt_path"
     scene.integrator.fsd = fsd
     scene.integrator.max_depth = depth
@@ -1366,11 +1395,11 @@ def check_gradients_full(rk, ck, built_wave, built_classical):
         img, dt_plain = synced(lambda: wave_values(ones))
     out["plain_paths_per_sec"] = N / dt_plain
     # (a) forward mode w.r.t. the emitters' scale: linear, so map == image
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     (p, g), dt = synced(lambda: forward_map(
         lambda th: wave_values(1.0 + mask * (th - 1.0)),
         torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
-    launches["gradient_wave_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_wave_forward"] = launch_counts()
     check(each_launched(launches["gradient_wave_forward"]),
           f"phase 19a launched {launches['gradient_wave_forward']}")
     check(torch.isfinite(g).all() and torch.allclose(p, img, rtol=1e-5,
@@ -1390,7 +1419,7 @@ def check_gradients_full(rk, ck, built_wave, built_classical):
           f"launches {launches['gradient_wave_forward']}", flush=True)
     # (b) reverse mode: d mean(image) / d(row scale), every row, in lane
     # batches (the loss is a sum over lanes)
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     rs = torch.ones(S, device=dev, requires_grad=True)
 
@@ -1402,7 +1431,7 @@ def check_gradients_full(rk, ck, built_wave, built_classical):
 
     grad, dt = synced(reverse)
     peak = torch.cuda.max_memory_allocated(dev)
-    launches["gradient_wave_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_wave_reverse"] = launch_counts()
     check(each_launched(launches["gradient_wave_reverse"]),
           f"phase 19b launched {launches['gradient_wave_reverse']}")
     check(torch.isfinite(grad).all(), f"phase 19b: gradient {grad}")
@@ -1436,10 +1465,10 @@ def check_gradients_full(rk, ck, built_wave, built_classical):
         return path_values(translated(cdata, 2, th * zhat), csensor, lanes,
                            False, 2)
 
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     (_, g), dt = synced(lambda: forward_map(
         wall, torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev)))
-    launches["gradient_classical_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_classical_forward"] = launch_counts()
     with torch.no_grad():
         _, dt_wall = synced(lambda: wall(torch.tensor(0.0, device=dev)))
     check(launches["gradient_classical_forward"]["closest"] > 0
@@ -1640,11 +1669,11 @@ def check_gradients_bdpt(rk, ck, built):
         img, dt_plain = synced(lambda: bdpt_image(run(ones), sensor))
     # (a) forward mode w.r.t. the emitters' scale: bdpt has no roulette and
     # its MIS weights are radiance-free, so map == image
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     (p, g), dt = synced(lambda: forward_map(
         lambda th: bdpt_image(run(1.0 + mask * (th - 1.0)), sensor),
         torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
-    launches["gradient_bdpt_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_bdpt_forward"] = launch_counts()
     check(launches["gradient_bdpt_forward"]["closest"] > 0
           and launches["gradient_bdpt_forward"]["anyhit"] > 0,
           f"phase 23a launched {launches['gradient_bdpt_forward']}")
@@ -1663,7 +1692,7 @@ def check_gradients_bdpt(rk, ck, built):
           f"s); launches {launches['gradient_bdpt_forward']}", flush=True)
     # (b) reverse mode: d(lane sum / N) / d(row scale), every row, in lane
     # batches of GRAD_BATCH
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     rs = torch.ones(S, device=dev, requires_grad=True)
@@ -1675,7 +1704,7 @@ def check_gradients_bdpt(rk, ck, built):
 
     grad, dt = synced(reverse)
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
-    launches["gradient_bdpt_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_bdpt_reverse"] = launch_counts()
     check(launches["gradient_bdpt_reverse"]["closest"] > 0
           and launches["gradient_bdpt_reverse"]["anyhit"] > 0,
           f"phase 23b launched {launches['gradient_bdpt_reverse']}")
@@ -1737,11 +1766,11 @@ def check_gradients_forward(rk, ck, built_cov, built_slits, N=1 << 18):
     # (a) forward mode w.r.t. the emitter's scale, FSD-NEE splats included:
     # the carry's roulette ratio and the coherent sums are radiance-free,
     # so map == image
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     (p, g), dt = synced(lambda: forward_map(
         lambda th: forward_image(run(1.0 + emit * (th - 1.0)), sensor),
         torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)))
-    launches["gradient_coverage_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_coverage_forward"] = launch_counts()
     check(launches["gradient_coverage_forward"]["closest"] > 0
           and launches["gradient_coverage_forward"]["anyhit"] > 0,
           f"phase 24a launched {launches['gradient_coverage_forward']}")
@@ -1760,7 +1789,7 @@ def check_gradients_forward(rk, ck, built_cov, built_slits, N=1 << 18):
           f"{launches['gradient_coverage_forward']}", flush=True)
     # (b) reverse mode: d(crossing sum / N) / d(scale) of every parameter
     # (the spectra rows, the concrete row's n and κ), in lane batches
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     pr = torch.ones(P, device=dev, requires_grad=True)
@@ -1773,7 +1802,7 @@ def check_gradients_forward(rk, ck, built_cov, built_slits, N=1 << 18):
 
     grad, dt = synced(reverse)
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
-    launches["gradient_coverage_reverse"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_coverage_reverse"] = launch_counts()
     check(launches["gradient_coverage_reverse"]["closest"] > 0
           and launches["gradient_coverage_reverse"]["anyhit"] > 0,
           f"phase 24b launched {launches['gradient_coverage_reverse']}")
@@ -1836,9 +1865,9 @@ def check_gradients_forward(rk, ck, built_cov, built_slits, N=1 << 18):
     one_t = torch.tensor(1.0, device=dev)
     with torch.no_grad():
         simg, dt_splain = synced(lambda: slits(zero_t))
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     (_, gs), dt = synced(lambda: forward_map(slits, zero_t, one_t))
-    launches["gradient_slits_forward"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    launches["gradient_slits_forward"] = launch_counts()
     check(launches["gradient_slits_forward"]["closest"] > 0,
           f"phase 24c launched {launches['gradient_slits_forward']}")
     gs = gs.cpu().numpy()
@@ -2103,21 +2132,21 @@ def check_cli(rk, ck, card):
         # against their plain versions
         scale, _, _ = files["box_scale"]
         sdir = os.path.join(tmp, "scale")
-        zero(rk.LAUNCHES, ck.LAUNCHES)
+        zero_counts()
         cap = capture_calls(rk, ck, lambda: check(cli.main(
             ["render", scale, "-o", sdir, "--write-stats"]) == 0,
             "phase 22: cli.main failed"), phase="phase 22")
         torch.cuda.synchronize()
-        cli_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        cli_launches = launch_counts()
         check(plain_launched(cli_launches),
               f"phase 22: the CLI's scale render launched {cli_launches}")
         with open(os.path.join(sdir, "perf_stats.json")) as f:
             (scale_st,) = json_mod.load(f)
-        zero(rk.LAUNCHES, ck.LAUNCHES)
+        zero_counts()
         sbuilt = build_scene(load_scene_xml(scale), device="cuda")
         render_mask(sbuilt, sbuilt.scene.sensors[0])
         torch.cuda.synchronize()
-        mask_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        mask_launches = launch_counts()
         check(mask_launches["closest"] > 0 and mask_launches["anyhit"] == 0
               and mask_launches["cone_minz"] == 0,
               f"phase 22: the mask launched {mask_launches}")
@@ -2296,17 +2325,17 @@ def check_geometry_gradients(rk, ck, build_scene, card):
     # one-off costs of the dual tensors' kernels)
     path_values(data, sensor, lanes, True, depth)
     geometry_map(data, sensor, lanes, depth, "back_wall")
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     _, sec = synced(lambda: path_values(data, sensor, lanes, True, depth))
-    out = {"plain": dict(rk.LAUNCHES, **ck.LAUNCHES,
+    out = {"plain": dict(launch_counts(),
                          paths_per_sec=res * res / sec)}
     check(plain_launched(out["plain"]),
           f"phase 26: the plain forward launched {out['plain']}")
     for name in GEOMETRY_MOVES:
-        zero(rk.LAUNCHES, ck.LAUNCHES)
+        zero_counts()
         g, sec = synced(lambda: geometry_map(data, sensor, lanes, depth,
                                              name))
-        r = out[name] = dict(rk.LAUNCHES, **ck.LAUNCHES,
+        r = out[name] = dict(launch_counts(),
                              paths_per_sec=res * res / sec)
         check(each_launched(r) and r["cone_minz_winners"]
               == r["cone_minz"] == out["plain"]["cone_minz"],
@@ -2383,12 +2412,12 @@ def dist_rank(rank, world, init, out, backend):
     try:
         built = build_scene(box_scene(256, 1, 8, fsd=True),
                             device=launch.local_device())
-        zero(rk.LAUNCHES, ck.LAUNCHES)
+        zero_counts()
         img, st = render_distributed(built, lanes_per_device=DIST_LANES)
         torch.cuda.synchronize()
         np.save(f"{out}/img_{backend}_{rank}.npy", img)
         with open(f"{out}/run_{backend}_{rank}.json", "w") as f:
-            json_mod.dump(dict(st, launches=dict(rk.LAUNCHES, **ck.LAUNCHES),
+            json_mod.dump(dict(st, launches=launch_counts(),
                                device=str(launch.local_device())), f)
     finally:
         launch.shutdown()
@@ -2430,10 +2459,10 @@ def check_distributed(rk, ck, build_scene, cli_exr, card):
     try:
         built = build_scene(box_scene(256, 1, 8, fsd=True), device="cuda")
         render_distributed(built, lanes_per_device=2 * DIST_LANES)  # warm-up
-        zero(rk.LAUNCHES, ck.LAUNCHES)
+        zero_counts()
         img_a, st_a = render_distributed(built,
                                          lanes_per_device=2 * DIST_LANES)
-        out["launches_world1"] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        out["launches_world1"] = launch_counts()
         check(st_a["mode"] == "wave-dist" and st_a["processes"] == 1
               and plain_launched(out["launches_world1"]),
               f"phase 27a: {st_a}, launches {out['launches_world1']}")
@@ -2542,6 +2571,398 @@ def check_distributed(rk, ck, build_scene, cli_exr, card):
     return out
 
 
+# ---- phase 28: large scenes: the BVH route (K4/K5) above MXU_MAX_TRIS
+# triangles and the clustered edge sweep above 2048 edges
+
+LARGE_TESSELLATION = 384    # bench.py's sphere at 327,680 triangles
+LARGE_TRIS = 327692
+SMALL_TESSELLATION = 24     # 1,280: the card-against-CPU check's sphere
+SMALL_LIMIT = 1024          # MXU_MAX_TRIS in that check
+# fp32 operations of the traversal kernels (csrc/bvh_kernels.cu, counted
+# as FLOP_PER_PAIR is): an internal node's two slab tests (3 subtractions
+# and 3 multiplications per slab pair, twice per child); a leaf
+# triangle's Möller–Trumbore test (two cross products of 9, three dot
+# products of 5 and their scalings, the determinant's 5 and its
+# reciprocal, the origin's offset of 3, u + v); a ray's three reciprocals
+FLOP_BVH_NODE = 24
+FLOP_MT = 46
+FLOP_BVH_RAY = 3
+
+
+def bvh_bound(stats, N, ex_cols, out_bytes):
+    """(bound_ms, bound_by) of a K4/K5 launch from its twin's counts on the
+    same inputs (the bounds' rule): operations over the nodes and
+    triangles each ray visits; bytes: each ray in (origin, direction,
+    range, exclusions) and out once, and each node and triangle row that
+    some ray reads once."""
+    ops = (stats["internal"] * FLOP_BVH_NODE + stats["tri_tests"] * FLOP_MT
+           + N * FLOP_BVH_RAY)
+    nbytes = (N * (32 + 4 * ex_cols + out_bytes)
+              + int(stats["nodes_seen"].sum()) * 64
+              + int(stats["tris_seen"].sum()) * 48)
+    return bound(ops, nbytes)
+
+
+def timed_twin(fn):
+    """(result, ms) of one call of a twin on the card, host clock around
+    synchronised work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bvh_segments(geo, N, r, first=None):
+    """N seeded random segments through geo (tmax 0.05-4), a third with
+    one to three excluded ids (the first the ray's closest hit if
+    `first` is given)."""
+    T = geo.num_tris
+    dev = geo.p0.device
+    ro, rd = random_rays(geo, N, r)
+    some = r.random(N) < 1 / 3
+    ex = np.where(some[:, None], r.integers(0, T, (N, 3)), -1)
+    ex[:, 1:] = np.where(r.random((N, 2)) < 0.5, ex[:, 1:], -1)
+    if first is not None:
+        ex[:, 0] = np.where(some, first, -1)
+    t = [torch.from_numpy(x).to(dev) for x in (ro, rd)]
+    return (t[0], t[1], torch.full((N,), 1e-4, device=dev),
+            torch.from_numpy(r.uniform(0.05, 4.0, N).astype(np.float32)
+                             ).to(dev),
+            torch.from_numpy(ex.astype(np.int32)).to(dev))
+
+
+def check_bvh_kernels(bk, geo, N, n_legs, seed):
+    """28a: K4 and K5 against their twins on the card, words bit-equal:
+    N seeded random rays through geo (a third excluding the triangle they
+    hit first), K5 on N and on n_legs random segments. Returns the rows'
+    readings."""
+    T = geo.num_tris
+    r = np.random.default_rng(seed)
+    dev = geo.p0.device
+    nodes, tris = geo.node_pack, geo.tri_geom
+    ro, rd = (torch.from_numpy(x).to(dev) for x in random_rays(geo, N, r))
+    tmin = torch.full((N,), 1e-4, device=dev)
+    tmax = torch.full((N,), 1e30, device=dev)
+    none = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    _, first = bk.closest_hit(nodes, tris, ro, rd, tmin, tmax, none)
+    ex = torch.where(torch.from_numpy(r.random(N) < 1 / 3).to(dev), first,
+                     -1).to(torch.int32)
+    args = (nodes, tris, ro, rd, tmin, tmax, ex)
+    t_k, i_k = bk.closest_hit(*args)
+    stats = {}
+    (t_r, i_r), ms_plain = timed_twin(
+        lambda: bk._closest_ref(*args, stats=stats))
+    check(torch.equal(t_k.view(torch.int32), t_r.view(torch.int32))
+          and torch.equal(i_k, i_r),
+          f"K4 N={N} T={T}: not bit-equal to its twin (ids differ on "
+          f"{(i_k != i_r).sum().item()} rays)")
+    ms = cuda_ms(lambda: bk.closest_hit(*args), 3)
+    b = bvh_bound(stats, N, 1, 8)
+    hits = (i_k >= 0).float().mean().item()
+    print(f"phase 28a: N={N} T={T}: K4 bit-equal to its twin, hits "
+          f"{hits:.3f}, per ray {stats['internal'] / N:.1f} internal nodes "
+          f"and {stats['tri_tests'] / N:.1f} triangle tests; K4 {ms:.3f} ms "
+          f"(twin {ms_plain:.1f} ms), bound {b[0]:.4f} ms ({b[1]})",
+          flush=True)
+    k4 = dict(max_abs_err=0.0, ms=ms, plain_ms=ms_plain, bound=b,
+              hit_share=hits, nodes_per_ray=stats["internal"] / N,
+              tri_tests_per_ray=stats["tri_tests"] / N)
+    k5 = {}
+    for tag, n in (("rays", N), ("fsd_legs", n_legs)):
+        seg = bvh_segments(geo, n, r, first.cpu().numpy() if n == N
+                           else None)
+        a5 = (nodes, tris) + seg
+        o_k = bk.any_hit(*a5)
+        st5 = {}
+        o_r, ms5_plain = timed_twin(lambda: bk._anyhit_ref(*a5,
+                                                           stats=st5))
+        check(torch.equal(o_k, o_r), f"K5 N={n} T={T}: occlusion differs "
+              f"from its twin on {(o_k != o_r).sum().item()} rays")
+        ms5 = cuda_ms(lambda: bk.any_hit(*a5), 3)
+        b5 = bvh_bound(st5, n, 3, 1)
+        occ = o_k.float().mean().item()
+        print(f"phase 28a: N={n} T={T} segments ({tag}): K5 equal to its "
+              f"twin, occluded {occ:.3f}, per ray "
+              f"{st5['internal'] / n:.1f} internal nodes and "
+              f"{st5['tri_tests'] / n:.1f} triangle tests; K5 {ms5:.3f} ms "
+              f"(twin {ms5_plain:.1f} ms), bound {b5[0]:.4f} ms ({b5[1]})",
+              flush=True)
+        k5[tag] = dict(max_abs_err=0.0, ms=ms5, plain_ms=ms5_plain,
+                       bound=b5, rows=n, occluded_share=occ,
+                       nodes_per_ray=st5["internal"] / n,
+                       tri_tests_per_ray=st5["tri_tests"] / n)
+    # the row reports K5's largest launch on the wave path, the leg call
+    return k4, dict(k5["fsd_legs"], at_pool_width=k5["rays"])
+
+
+def check_bvh_vs_all_pairs(bk, rk, soup_geo, bvh_geo, tri_order, N, seed):
+    """28b: the scale cell's triangles through the BVH route (bvh_geo, in
+    leaf order; tri_order maps its rows to soup_geo's) against K1/K2 on
+    soup_geo: N seeded random rays, ids on >= 99.9%, t within rtol 1e-4 /
+    atol 1e-5 where they agree; N random segments (a third with
+    exclusions), occlusion on >= 99.9%."""
+    T = soup_geo.num_tris
+    r = np.random.default_rng(seed)
+    dev = soup_geo.p0.device
+    ro, rd = (torch.from_numpy(x).to(dev)
+              for x in random_rays(soup_geo, N, r))
+    tmin = torch.full((N,), 1e-4, device=dev)
+    tmax = torch.full((N,), 1e30, device=dev)
+    order = torch.as_tensor(np.asarray(tri_order), device=dev).long()
+    ex1 = torch.full((N, 3), -1, dtype=torch.int32, device=dev)
+    k1_args = (soup_geo.tri_feat, soup_geo.mxu_center, ro, rd, tmin, tmax,
+               ex1)
+    t1, i1 = rk.closest_hit(*k1_args, table=soup_geo.ray_table)
+    k4_args = (bvh_geo.node_pack, bvh_geo.tri_geom, ro, rd, tmin, tmax,
+               ex1[:, 0].contiguous())
+    t4, i4 = bk.closest_hit(*k4_args)
+    i4s = torch.where(i4 >= 0, order[i4.clamp_min(0)], -1).to(torch.int32)
+    same = i4s == i1
+    agree = same.float().mean().item()
+    check(agree >= 0.999, f"K4 vs K1 T={T}: ids agree on {agree:.5f}")
+    hit = same & (i1 >= 0)
+    t_ok = ((t4 - t1).abs() <= 1e-4 * t1.abs() + 1e-5)[hit]
+    check(bool(t_ok.all()), f"K4 vs K1 T={T}: t off on "
+          f"{(~t_ok).sum().item()} rays")
+    ms4 = cuda_ms(lambda: bk.closest_hit(*k4_args), 3)
+    ms1 = cuda_ms(lambda: rk.closest_hit(*k1_args,
+                                         table=soup_geo.ray_table), 3)
+    seg = bvh_segments(soup_geo, N, r)
+    exs = seg[4]
+    ex_bvh = torch.where(exs >= 0, torch.argsort(order).to(torch.int32)[
+        exs.clamp_min(0).long()], -1).to(torch.int32)
+    o2 = rk.any_hit(soup_geo.tri_feat, soup_geo.mxu_center, *seg,
+                    table=soup_geo.ray_table)
+    a5 = (bvh_geo.node_pack, bvh_geo.tri_geom) + seg[:4] + (ex_bvh,)
+    o5 = bk.any_hit(*a5)
+    occ_agree = (o2 == o5).float().mean().item()
+    check(occ_agree >= 0.999, f"K5 vs K2 T={T}: occlusion agrees on "
+          f"{occ_agree:.5f}")
+    ms5 = cuda_ms(lambda: bk.any_hit(*a5), 3)
+    ms2 = cuda_ms(lambda: rk.any_hit(soup_geo.tri_feat, soup_geo.mxu_center,
+                                     *seg, table=soup_geo.ray_table), 3)
+    print(f"phase 28b: N={N} T={T} through the BVH for this check: K4 vs K1 "
+          f"ids agree {agree:.6f} (hits {(i1 >= 0).float().mean().item():.3f}"
+          f"), K5 vs K2 occlusion {occ_agree:.6f}; K4 {ms4:.3f} ms vs K1 "
+          f"{ms1:.3f} ms, K5 {ms5:.3f} ms vs K2 {ms2:.3f} ms", flush=True)
+    return dict(ids_agree=agree, occlusion_agrees=occ_agree, k4_ms=ms4,
+                k1_ms=ms1, k5_ms=ms5, k2_ms=ms2)
+
+
+def timed_bvh_render(bk, ck, built):
+    """One render of `built` with CUDA events around every K4, K5 and K3
+    call → {kind: [ms]} (kinds: bvh_closest, bvh_any_legs for the batched
+    FSD-leg call, bvh_any_nee, cone_minz)."""
+    from wave_tracer_tpu_torch.render import render_scene
+    rec = []
+    fns = dict(closest_hit=bk.closest_hit, any_hit=bk.any_hit)
+    cone_minz = ck.cone_minz
+
+    def timed(kind_of, fn):
+        def wrapper(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            rec.append((kind_of(args), a, b))
+            return out
+        return wrapper
+
+    bk.closest_hit = timed(lambda a: "bvh_closest", fns["closest_hit"])
+    bk.any_hit = timed(lambda a: "bvh_any_legs" if a[2].shape[0] > POOL
+                       else "bvh_any_nee", fns["any_hit"])
+    ck.cone_minz = timed(lambda a: "cone_minz", cone_minz)
+    try:
+        render_scene(built, device="cuda")
+    finally:
+        bk.closest_hit, bk.any_hit = fns["closest_hit"], fns["any_hit"]
+        ck.cone_minz = cone_minz
+    torch.cuda.synchronize()
+    calls = {}
+    for kind, a, b in rec:
+        calls.setdefault(kind, []).append(a.elapsed_time(b))
+    return calls
+
+
+def check_large_scene(bk, ck, build_scene, large, bake_s, scale_rate):
+    """28c: the wave box + the 327,680-triangle sphere through
+    render_scene at 256x256 x 4 spp, depth 8: K4, K5 and K3 launch, K1
+    and K2 do not; paths/s beside the scale cell's; each kernel's ms per
+    launch in the render; K3 standalone at this triangle count on POOL
+    random cones (its plain version on the first REF_CHUNK // 4). Then the
+    same route at a small size on the card and on the CPU, at the wave
+    bars: MXU_MAX_TRIS lowered to SMALL_LIMIT and the sphere to 1,280
+    triangles (the plain K3 at 327,692 triangles would take the CPU
+    side well past two minutes; at 5,120 the CPU side took about a
+    minute)."""
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    from wave_tracer_tpu_torch.accel.bvh import tree_depth
+    from wave_tracer_tpu_torch.render import render_scene
+    geo = large.data.geo
+    n_nodes = int(large.arrays["geo.node_left"].shape[0])
+    depth = tree_depth(large.arrays["geo.node_left"],
+                       large.arrays["geo.node_count"])
+    render_scene(large, spp=1, device="cuda")          # warm-up
+    zero_counts()
+    img, st = render_scene(large, device="cuda")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches["bvh_closest"] > 0 and launches["bvh_any"] > 0
+          and launches["cone_minz"] > 0 and launches["closest"] == 0
+          and launches["anyhit"] == 0
+          and launches["cone_minz_winners"] == 0,
+          f"phase 28c: the large scene launched {launches}")
+    check_wave_render(img, st, (256, 256, 3), "phase 28c")
+    rate = (rate_line(large, st) if st["seconds"] < 30 else
+            f"{st['paths_per_sec']:.1f} paths/s (one render of "
+            f"{st['seconds']:.3f} s")
+    print(f"phase 28c: wave box + sphere ({geo.num_tris} tris, BVH of "
+          f"{n_nodes} nodes, depth {depth}, bake {bake_s:.1f} s) 256x256 4 "
+          f"spp depth 8: "
+          f"{rate}), launches {launches}; the scale cell (81,932 tris, "
+          f"phase 10): {scale_rate}", flush=True)
+    calls = timed_bvh_render(bk, ck, large)
+    in_render = {k: dict(launches=len(v), ms_per_launch=sum(v) / len(v),
+                         ms_max=max(v)) for k, v in calls.items()}
+    print("phase 28c: in the render: " + "; ".join(
+        f"{k} {v['launches']} launches, {v['ms_per_launch']:.3f} ms per "
+        f"launch (max {v['ms_max']:.3f})" for k, v in in_render.items()),
+        flush=True)
+    # K3 standalone at this triangle count
+    from wave_tracer_tpu_torch.integrator.traversal import segment_boundaries
+    r = np.random.default_rng(2801)
+    N = POOL
+    ro, rd = random_rays(geo, N, r)
+    xh = np.cross(rd, r.normal(size=(N, 3))).astype(np.float32)
+    xh /= np.linalg.norm(xh, axis=-1, keepdims=True)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(x)).to(geo.p0.device, dtype)
+
+    lam = t(r.uniform(380e-9, 720e-9, N))
+    exclude = np.where(r.random(N) < 1 / 3,
+                       r.integers(0, geo.num_tris, N), -1)
+    args = (geo.cone_tris, t(ro), t(rd), t(xh), t(r.uniform(0.6, 1.0, N)),
+            t(r.uniform(0.01, 0.3, N)), t(r.uniform(0.01, 0.2, N)),
+            torch.full((N,), float(large.scene.world_radius()),
+                       device=geo.p0.device),
+            t(exclude, torch.int32), segment_boundaries(lam), 1e-7)
+    lanes = REF_CHUNK // 4
+    ms3, ms3_plain, cull, _, fin = cone_vs_plain(
+        ck, geo, args, f"T={geo.num_tris}", lanes=lanes)
+    ops, kept = cone_need(ck, geo.cone_table, args, int(cull[1]))
+    b3 = bound(ops, cone_bytes(N, geo.num_tris))
+    print(f"phase 28c: N={N} T={geo.num_tris} random cones: K3 bit-equal to "
+          f"its plain version on the first {lanes} lanes, finite minima "
+          f"{fin:.3f}; {cull_line(cull, N, geo.num_tris, kept)}; K3 "
+          f"{ms3:.3f} ms (plain {ms3_plain:.3f} ms on {lanes} lanes), bound "
+          f"{b3[0]:.3f} ms ({b3[1]})", flush=True)
+    k3 = dict(ms=ms3, plain_ms_subset=ms3_plain, bound_ms=b3[0],
+              bound_by=b3[1], in_render=in_render.get("cone_minz"))
+    # the route at a small size, card against CPU
+    limit = trace_mod.MXU_MAX_TRIS
+    trace_mod.MXU_MAX_TRIS = SMALL_LIMIT
+    try:
+        scene = box_scene(32, 4, 5, icosphere=True, fsd=True,
+                          tessellation=SMALL_TESSELLATION)
+        small = build_scene(scene, device="cuda")
+        check(small.data.geo.num_tris > SMALL_LIMIT
+              and small.data.geo.node_pack is not None,
+              f"phase 28c: the small scene ({small.data.geo.num_tris} tris) "
+              "is not on the BVH route")
+        zero_counts()
+        img_c, st_c = render_scene(small, device="cuda")
+        torch.cuda.synchronize()
+        small_launches = launch_counts()
+        img_h, st_h = render_scene(small.on("cpu"), device="cpu")
+    finally:
+        trace_mod.MXU_MAX_TRIS = limit
+    check(small_launches["bvh_closest"] > 0 and small_launches["bvh_any"] > 0
+          and small_launches["closest"] == 0 and small_launches["anyhit"] == 0,
+          f"phase 28c: the small scene launched {small_launches}")
+    check(st_c["mode"] == st_h["mode"] == "wave-compact", "phase 28c: mode")
+    frac = compare_images(
+        img_c, img_h, st_c, st_h, "phase 28c small", mean_rtol=0.02,
+        px_tol=1e-2, px_frac=0.90, counter_rtol=0.02, corr=0.999,
+        counters=("rays_cast", "surface_interactions", "fsd_interactions",
+                  "diffusive_traversals", "sum_path_depth"))
+    print(f"phase 28c: wave box + sphere ({small.data.geo.num_tris} tris, "
+          f"MXU_MAX_TRIS lowered to {SMALL_LIMIT}) 32x32 4 spp depth 5: cuda "
+          f"vs cpu: {frac:.4f} of pixels within the bar", flush=True)
+    return dict(launches=launches, paths_per_sec=st["paths_per_sec"],
+                seconds=st["seconds"], in_render=in_render, k3=k3,
+                bake_s=bake_s, bvh_nodes=n_nodes, bvh_depth=depth,
+                small_vs_cpu=frac, small_launches=small_launches)
+
+
+def check_city(build_scene):
+    """28d: the city coverage map (make_city_coverage_scene: 14 x 14
+    buildings, more than 2048 wedge edges) at 256x256 x 8, depth 4, UTD:
+    every edge sweep of the render takes the clustered sweep; K1 and K2
+    launch (2,354 triangles), K4/K5 do not; paths/s; then 32x32 x 4 on
+    the card and on the CPU at the coverage bars (phase 15's)."""
+    from wave_tracer_tpu_torch.accel import edges as edges_mod
+    from wave_tracer_tpu_torch.render import render_scene
+    from wave_tracer_tpu_torch.scene.procedural import \
+        make_city_coverage_scene
+    city = build_scene(make_city_coverage_scene(256), device="cuda")
+    E = city.data.edges.count
+    check(E > edges_mod.MAX_UNCLUSTERED_EDGES, f"city: {E} edges")
+    sweeps = {"clustered": 0, "all_edges": 0}
+    fns = (edges_mod.edges_near_cone_clustered, edges_mod.edges_near_cone)
+
+    def counted(fn, key):
+        def wrapper(*a, **k):
+            sweeps[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    edges_mod.edges_near_cone_clustered = counted(fns[0], "clustered")
+    edges_mod.edges_near_cone = counted(fns[1], "all_edges")
+    try:
+        render_scene(city, spp=1, device="cuda")       # warm-up
+        zero_counts()
+        sweeps.update(clustered=0, all_edges=0)
+        img, st = render_scene(city, device="cuda")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        (edges_mod.edges_near_cone_clustered,
+         edges_mod.edges_near_cone) = fns
+    check(launches["closest"] > 0 and launches["anyhit"] > 0
+          and launches["bvh_closest"] == 0 and launches["bvh_any"] == 0,
+          f"phase 28d: the city launched {launches}")
+    check(sweeps["clustered"] > 0 and sweeps["all_edges"] == 0,
+          f"phase 28d: edge sweeps {sweeps}")
+    sensor = city.scene.sensors[0]
+    check(st["mode"] == "forward-wave"
+          and img.shape == (sensor.height, sensor.width, 1)
+          and np.isfinite(img).all(), f"phase 28d: {st['mode']} {img.shape}")
+    lit = (img > 0).mean()
+    check(lit > 0.2, f"phase 28d: {lit:.3f} of the elements lit")
+    rate = (rate_line(city, st) if st["seconds"] < 30 else
+            f"{st['paths_per_sec']:.1f} paths/s (one render of "
+            f"{st['seconds']:.3f} s")
+    print(f"phase 28d: city coverage ({city.data.geo.num_tris} tris, {E} "
+          f"edges, {city.data.edge_clusters.num_clusters} clusters) 256x256 "
+          f"8 spe depth 4 plt_path (UTD): {rate}, batch {st['pool_lanes']} x "
+          f"{st['batches']}), launches {launches}, clustered sweeps "
+          f"{sweeps['clustered']}, lit {lit:.3f}", flush=True)
+    small = build_scene(make_city_coverage_scene(32), device="cuda")
+    img_c, _ = render_scene(small, spp=4, device="cuda", pool_lanes=4096)
+    img_h, _ = render_scene(small.on("cpu"), spp=4, device="cpu",
+                            pool_lanes=4096)
+    m, c, f, r = compare_maps(img_c, img_h, "phase 28d")
+    print(f"phase 28d: city 32x32 4 spe depth 4: cuda vs cpu: median ratio "
+          f"{m:.6f}, dB Pearson {c:.5f}, {f:.4f} of elements within 0.1 dB, "
+          f"means' ratio {r:.4f}", flush=True)
+    return dict(launches=launches, paths_per_sec=st["paths_per_sec"],
+                edges=E, clustered_sweeps=sweeps["clustered"],
+                vs_cpu=dict(median_ratio=m, db_pearson=c, share=f))
+
+
 KERNELS = ("closest", "anyhit", "cone_minz")    # K1, K2, K3's counts
 
 
@@ -2563,11 +2984,28 @@ def zero(*counts):
             c[k] = 0
 
 
+def launch_counts():
+    """Every kernel's launch count: K1/K2, K3 (and its winner build apart),
+    K4/K5."""
+    from wave_tracer_tpu_torch.accel import (bvh_kernels, cone_kernels,
+                                             ray_kernels)
+    return dict(ray_kernels.LAUNCHES, **cone_kernels.LAUNCHES,
+                **bvh_kernels.LAUNCHES)
+
+
+def zero_counts():
+    """Every kernel's launch count set to 0."""
+    from wave_tracer_tpu_torch.accel import (bvh_kernels, cone_kernels,
+                                             ray_kernels)
+    zero(ray_kernels.LAUNCHES, cone_kernels.LAUNCHES, bvh_kernels.LAUNCHES)
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
     from wave_tracer_tpu_torch.accel import cone_kernels as ck
     from wave_tracer_tpu_torch.accel import nvcc_build
     from wave_tracer_tpu_torch.accel import ray_kernels as rk
@@ -2590,9 +3028,10 @@ def main():
 
     # ---- phase 2
     t0 = time.perf_counter()
-    nvcc_build.build("ray_kernels", "cone_kernels")
+    nvcc_build.build("ray_kernels", "cone_kernels", "bvh_kernels")
     rk.build()
     ck.build()
+    bk.build()
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, info in nvcc_build.BUILD_INFO.items():
@@ -2632,10 +3071,10 @@ def main():
 
     # ---- phase 4: the classical main path
     render_scene(built, spp=1, device="cuda")          # warm-up
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img, st = render_scene(built, device="cuda")
     torch.cuda.synchronize()
-    classical_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    classical_launches = launch_counts()
     check(classical_launches["closest"] > 0
           and classical_launches["anyhit"] > 0,
           f"classical main path launched {classical_launches}")
@@ -2683,10 +3122,10 @@ def main():
 
     # ---- phase 8: the wave main path
     render_scene(wbox, spp=1, device="cuda")           # warm-up
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img8, st8 = render_scene(wbox, device="cuda")
     torch.cuda.synchronize()
-    wave_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    wave_launches = launch_counts()
     check(plain_launched(wave_launches),
           f"wave main path launched {wave_launches}")
     check_wave_render(img8, st8, (256, 256, 3), "phase 8")
@@ -2721,16 +3160,17 @@ def main():
 
     # ---- phase 10: wave scale case
     render_scene(wbig, spp=1, device="cuda")           # warm-up
-    before = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    before = launch_counts()
     img10, st10 = render_scene(wbig, device="cuda")
     torch.cuda.synchronize()
-    after = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    after = launch_counts()
     check(all(after[k] > before[k] for k in KERNELS)
           and after["cone_minz_winners"] == before["cone_minz_winners"],
           f"phase 10 launched {after} after {before}")
     check_wave_render(img10, st10, (256, 256, 3), "phase 10")
+    rate10 = rate_line(wbig, st10)
     print(f"phase 10: wave box + icosphere ({wbig.data.geo.num_tris} tris) "
-          f"256x256 4 spp depth 8: {rate_line(wbig, st10)})", flush=True)
+          f"256x256 4 spp depth 8: {rate10})", flush=True)
     calls, cull10, kept10 = timed_render(rk, ck, wbig)
     T10 = wbig.data.geo.num_tris
     in_render = summarize_calls(rk, calls, T10, "phase 10")
@@ -2755,10 +3195,10 @@ def main():
     # ---- phase 12: the bdpt main path
     bdpt = build_scene(bdpt_scene(256, 4, 8), device="cuda")
     render_scene(bdpt, spp=1, device="cuda")           # warm-up
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img12, st12 = render_scene(bdpt, device="cuda")
     torch.cuda.synchronize()
-    bdpt_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    bdpt_launches = launch_counts()
     check(bdpt_launches["closest"] > 0 and bdpt_launches["anyhit"] > 0,
           f"bdpt main path launched {bdpt_launches}")
     check_render(img12, st12, (256, 256, 3), "phase 12")
@@ -2799,10 +3239,10 @@ def main():
           f"coverage scene has {cov.data.geo.num_tris} triangles")
     render_scene(cov, spp=1, device="cuda")            # warm-up
     torch.cuda.reset_peak_memory_stats()
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img14, st14 = render_scene(cov, device="cuda")
     torch.cuda.synchronize()
-    cov_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    cov_launches = launch_counts()
     check(cov_launches["closest"] > 0 and cov_launches["anyhit"] > 0,
           f"coverage main path launched {cov_launches}")
     check(st14["paths"] == 256 * 256 * 8 and st14["pool_lanes"] == POOL,
@@ -2823,10 +3263,10 @@ def main():
 
     covb = build_scene(coverage_scene(256, "plt_bdpt"), device="cuda")
     render_scene(covb, spp=1, device="cuda")           # warm-up
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img14f, st14f = render_scene(covb, device="cuda")
     torch.cuda.synchronize()
-    fr_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    fr_launches = launch_counts()
     check(fr_launches["closest"] > 0 and fr_launches["anyhit"] == 0
           and fr_launches["cone_minz"] == 0,
           f"Fraunhofer forward launched {fr_launches}")
@@ -2868,10 +3308,10 @@ def main():
           f"materials box has {mat.data.geo.num_tris} triangles")
     check(0 < n_edges <= 2048, f"materials box has {n_edges} edges")
     render_scene(mat, spp=1, device="cuda")            # warm-up
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img16, st16 = render_scene(mat, device="cuda")
     torch.cuda.synchronize()
-    mat_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    mat_launches = launch_counts()
     check(plain_launched(mat_launches),
           f"materials wave path launched {mat_launches}")
     check_wave_render(img16, st16, (256, 256, 3), "phase 16")
@@ -2898,10 +3338,10 @@ def main():
     matb = build_scene(materials_scene(256, 4, 8, "plt_bdpt", True),
                        device="cuda")
     render_scene(matb, spp=1, device="cuda")           # warm-up
-    zero(rk.LAUNCHES, ck.LAUNCHES)
+    zero_counts()
     img17, st17 = render_scene(matb, device="cuda")
     torch.cuda.synchronize()
-    matb_launches = dict(rk.LAUNCHES, **ck.LAUNCHES)
+    matb_launches = launch_counts()
     check(matb_launches["closest"] > 0 and matb_launches["anyhit"] > 0,
           f"materials bdpt launched {matb_launches}")
     check_render(img17, st17, (256, 256, 12), "phase 17")
@@ -2967,10 +3407,10 @@ def main():
     batched = {}
     for tag, b, ref, st_ref, wave in (("wave", wbox, img8, st8, True),
                                       ("classical", built, img, st, False)):
-        zero(rk.LAUNCHES, ck.LAUNCHES)
+        zero_counts()
         img21, st21 = render_scene(b, device="cuda", compact=False)
         torch.cuda.synchronize()
-        batched[tag] = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        batched[tag] = launch_counts()
         check(st21["mode"] == ("wave" if wave else "ray"),
               f"phase 21 {tag}: mode {st21['mode']}")
         check(batched[tag]["closest"] > 0 and batched[tag]["anyhit"] > 0
@@ -3027,12 +3467,42 @@ def main():
         **{f"distributed_{k}": v["launches"] for k, v in d27.items()
            if k.startswith(("gloo_", "nccl_"))}}
 
+    # ---- phase 28: large scenes
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    t0 = time.perf_counter()
+    large = build_scene(box_scene(256, 4, 8, icosphere=True, fsd=True,
+                                  tessellation=LARGE_TESSELLATION),
+                        device="cuda")
+    bake_s = time.perf_counter() - t0
+    check(large.data.geo.num_tris == LARGE_TRIS
+          and large.data.geo.node_pack is not None
+          and large.data.geo.ray_table is None,
+          f"large scene: {large.data.geo.num_tris} tris, not baked for the "
+          "BVH route")
+    k4, k5 = check_bvh_kernels(bk, large.data.geo, POOL, n_legs, 2800)
+    limit = trace_mod.MXU_MAX_TRIS
+    trace_mod.MXU_MAX_TRIS = 0           # the scale cell through the BVH
+    try:
+        big_bvh = build_scene(box_scene(256, 8, 8, icosphere=True),
+                              device="cuda")
+    finally:
+        trace_mod.MXU_MAX_TRIS = limit
+    vs_all_pairs = check_bvh_vs_all_pairs(
+        bk, rk, big.data.geo, big_bvh.data.geo,
+        big_bvh.arrays["geo.tri_order"], POOL, 2802)
+    del big_bvh
+    large_out = check_large_scene(bk, ck, build_scene, large, bake_s,
+                                  rate10)
+    city = check_city(build_scene)
+    large_launches = large_out["launches"]
+
     # ---- phase 11
-    def row(name, src, replaces, key, stats, **extra):
+    def row(name, src, replaces, key, stats, main=None, **extra):
         bound_ms, bound_by = stats["bound"]
         return dict(name=name, route="cuda",
                     source=f"wave_tracer_tpu_torch/csrc/{src}",
-                    replaces=replaces, launches=wave_launches[key],
+                    replaces=replaces,
+                    launches=(main or wave_launches)[key],
                     launches_by_path={"wave": wave_launches[key],
                                       "classical": classical_launches[key],
                                       "bdpt": bdpt_launches[key],
@@ -3050,7 +3520,12 @@ def main():
                                       "cli_wave_scale": cli_launches[key],
                                       "cli_mask": mask_launches[key],
                                       **{k: v[key] for k, v in
-                                         extra_launches.items()}},
+                                         extra_launches.items()},
+                                      "large_scene_wave": large_launches[key],
+                                      "large_scene_small_card":
+                                          large_out["small_launches"][key],
+                                      "city_coverage":
+                                          city["launches"][key]},
                     max_abs_err=stats["max_abs_err"], ms=stats["ms"],
                     plain_ms=stats["plain_ms"], bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None, **extra)
@@ -3098,8 +3573,32 @@ def main():
                 k: g26[k]["cone_minz_winners"] for k in GEOMETRY_MOVES},
             geometry_gradients=g26,
             distributed={k: v for k, v in d27.items()
-                         if not k.startswith("launches")}),
+                         if not k.startswith("launches")},
+            at_327692_tris=large_out["k3"]),
+        row("bvh_closest_hit", "bvh_kernels.cu",
+            "wave_tracer_tpu/accel/trace.py:250", "bvh_closest", k4,
+            main=large_launches, tpu_kernel=None,
+            vs_k1_at_81932_tris=vs_all_pairs,
+            in_large_render=large_out["in_render"].get("bvh_closest"),
+            large_render=dict(paths_per_sec=large_out["paths_per_sec"],
+                              seconds=large_out["seconds"],
+                              bake_s=large_out["bake_s"],
+                              bvh_nodes=large_out["bvh_nodes"],
+                              bvh_depth=large_out["bvh_depth"],
+                              small_vs_cpu=large_out["small_vs_cpu"]),
+            city=city),
+        row("bvh_any_hit", "bvh_kernels.cu",
+            "wave_tracer_tpu/accel/trace.py:392", "bvh_any", k5,
+            main=large_launches, tpu_kernel=None,
+            in_large_render={k: large_out["in_render"].get(k) for k in
+                             ("bvh_any_legs", "bvh_any_nee")}),
     ]
+    # below 2^17 triangles nothing takes the BVH route
+    for r in kernels[3:]:
+        moved = {k: v for k, v in r["launches_by_path"].items()
+                 if v and k not in ("large_scene_wave",
+                                    "large_scene_small_card")}
+        check(not moved, f"{r['name']} launched on {moved}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

@@ -1,4 +1,5 @@
-"""K1/K2/K3, the classical, wave, coverage and materials-box renders, the
+"""K1/K2/K3, K4/K5 (the BVH route), the classical, wave, coverage, city
+and materials-box renders, the
 mask and the CLI on a CUDA card against the plain torch versions. Marked `gpu`: each test skips without a
 card. This file imports no
 jax, so it also runs on GPU hosts without JAX:
@@ -768,3 +769,105 @@ def test_two_rank_gloo_film_on_card(cuda, tmp_path):
         img = np.load(tmp_path / f"img_{rank}.npy")
         np.testing.assert_allclose(img, ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max())
+
+
+def _bvh_box(monkeypatch, dev, tessellation=48, res=16, spp=2):
+    """The box with bench.py's sphere at `tessellation`, MXU_MAX_TRIS
+    lowered below its triangle count: baked for the BVH route."""
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    monkeypatch.setattr(trace_mod, "MXU_MAX_TRIS", 1024)
+    scene = make_box_scene(res=res, spp=spp, icosphere=True,
+                           tessellation=tessellation)
+    built = build_scene(scene, device=dev)
+    assert built.data.geo.node_pack is not None
+    return built
+
+
+@pytest.mark.gpu
+def test_bvh_kernels_match_twins(cuda, monkeypatch):
+    """K4 and K5 against their twins on the same card tensors, words bit
+    for bit: rays from inside the scene's bounds, a third excluding their
+    first hit; K4 with a need mask and carried hits, K5 with one to three
+    exclusions and a need mask."""
+    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
+    geo = _bvh_box(monkeypatch, cuda).data.geo
+    nodes, tris = geo.node_pack, geo.tri_geom
+    r = np.random.default_rng(4)
+    N = 8192
+    lo = geo.p0.min(0).values.cpu().numpy() - 0.2
+    hi = geo.p0.max(0).values.cpu().numpy() + 0.2
+    ro = torch.from_numpy(r.uniform(lo, hi, (N, 3)).astype(np.float32))
+    rd = torch.from_numpy(r.normal(size=(N, 3)).astype(np.float32))
+    ro, rd = ro.to(cuda), (rd / rd.norm(dim=-1, keepdim=True)).to(cuda)
+    tmin = torch.full((N,), 1e-4, device=cuda)
+    for tmax_v in (1e30, 1.5):
+        tmax = torch.full((N,), tmax_v, device=cuda)
+        none = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+        _, first = bk.closest_hit(nodes, tris, ro, rd, tmin, tmax, none)
+        some = torch.from_numpy(r.random(N) < 1 / 3).to(cuda)
+        ex = torch.where(some, first, -1).to(torch.int32)
+        args = (nodes, tris, ro, rd, tmin, tmax, ex)
+        t_k, i_k = bk.closest_hit(*args)
+        t_r, i_r = bk._closest_ref(*args)
+        assert torch.equal(i_k, i_r)
+        assert torch.equal(t_k.view(torch.int32), t_r.view(torch.int32))
+        need = torch.from_numpy(r.random(N) < 0.5).to(cuda)
+        carry = (torch.full((N,), 2.0, device=cuda),
+                 torch.full((N,), 3, dtype=torch.int32, device=cuda))
+        t_n, i_n = bk.closest_hit(*args, need, carry)
+        assert torch.equal(i_n[need], i_k[need])
+        assert (i_n[~need] == 3).all() and (t_n[~need] == 2.0).all()
+        ex3 = torch.from_numpy(np.where(
+            r.random((N, 3)) < 0.4, r.integers(0, geo.num_tris, (N, 3)),
+            -1).astype(np.int32)).to(cuda)
+        ex3[:, 0] = ex
+        a5 = (nodes, tris, ro, rd, tmin, tmax, ex3)
+        o_k = bk.any_hit(*a5)
+        assert torch.equal(o_k, bk._anyhit_ref(*a5))
+        o_n = bk.any_hit(*a5, need)
+        assert torch.equal(o_n[need], o_k[need]) and not o_n[~need].any()
+
+
+@pytest.mark.gpu
+def test_bvh_route_render_on_card(cuda, monkeypatch):
+    """The wave box with bench.py's sphere at 1,280 triangles on the BVH
+    route (MXU_MAX_TRIS lowered), card against CPU at the wave bars; the
+    card's render launches K4, K5 and K3 and neither K1 nor K2."""
+    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
+    built = _bvh_box(monkeypatch, cuda, tessellation=24)
+    built.scene.integrator.fsd = True
+    built.scene.integrator.max_depth = 4
+    for counts in (rk.LAUNCHES, ck.LAUNCHES, bk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    img_c, st_c = render_scene(built, device="cuda")
+    assert bk.LAUNCHES["bvh_closest"] > 0 and bk.LAUNCHES["bvh_any"] > 0
+    assert ck.LAUNCHES["cone_minz"] > 0
+    assert rk.LAUNCHES["closest"] == 0 and rk.LAUNCHES["anyhit"] == 0
+    img_h, st_h = render_scene(built, device="cpu")
+    assert st_c["mode"] == st_h["mode"] == "wave-compact"
+    np.testing.assert_allclose(img_c.mean((0, 1)), img_h.mean((0, 1)),
+                               rtol=0.02)
+    assert np.corrcoef(img_c.ravel(), img_h.ravel())[0, 1] >= 0.999
+    scale = np.maximum(np.abs(img_h), np.abs(img_h).mean())
+    assert (np.abs(img_c - img_h) <= 1e-2 * scale).all(-1).mean() >= 0.90
+
+
+@pytest.mark.gpu
+def test_city_coverage_on_card(cuda):
+    """The city coverage map (more than 2048 wedge edges: the clustered
+    sweep) at 16x16 x 4, card against CPU at the coverage film bars."""
+    from wave_tracer_tpu_torch.scene.procedural import \
+        make_city_coverage_scene
+    built = build_scene(make_city_coverage_scene(16), device=cuda)
+    assert built.data.edges.count > 2048
+    img_c, st_c = render_scene(built, spp=4, device="cuda", pool_lanes=1024)
+    img_h, _ = render_scene(built, spp=4, device="cpu", pool_lanes=1024)
+    assert st_c["mode"] == "forward-wave"
+    a, b = img_c[..., 0], img_h[..., 0]
+    both = (a > 0) & (b > 0)
+    assert abs(np.median(a[both] / b[both]) - 1.0) <= 1e-3
+    la = 10 * np.log10(np.maximum(a, 1e-30))
+    lb = 10 * np.log10(np.maximum(b, 1e-30))
+    assert np.corrcoef(la.ravel(), lb.ravel())[0, 1] >= 0.95
+    assert (np.abs(la - lb) <= 0.1).mean() >= 0.90

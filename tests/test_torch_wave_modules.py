@@ -360,16 +360,37 @@ def test_edges_near_cone(box):
 
 
 def test_edge_table_refuses_clustered_sizes(box):
+    """Above MAX_UNCLUSTERED_EDGES edges the integrators' edge sweep
+    (`edges_in_cone`) takes the clustered sweep, as the JAX integrators
+    do, and refuses a table that comes without its clusters; at or below
+    it the exact all-edges sweep runs. (The clustered sweep itself is
+    held against the JAX package in test_torch_edges_clustered.py.)"""
     _, td = box
     big = tedges.EdgeTable(**{
         k: getattr(td.edges, k).repeat_interleave(
             tedges.MAX_UNCLUSTERED_EDGES // td.edges.count + 1, dim=0)
         for k in tedges.EDGE_KEYS})
-    ro = torch.zeros((2, 3))
-    rd = torch.tensor([[0.0, 0.0, 1.0]] * 2)
-    env = tenv.initial(rd, 0.0, 0.01)
-    with pytest.raises(NotImplementedError, match="clustered"):
-        tedges.edges_near_cone(big, ro, rd, env, torch.ones(2), 8)
+    assert big.count > tedges.MAX_UNCLUSTERED_EDGES
+    ro = torch.tensor([[0.0, 1.0, 0.5]] * 2)
+    rd = torch.tensor([[-0.6, 0.0, -0.8], [0.6, 0.0, -0.8]])
+    env = tenv.initial(rd, 0.0, 0.6)
+    zmax = torch.full((2,), 4.0)
+    with pytest.raises(ValueError, match="clusters"):
+        tedges.edges_in_cone(big, None, ro, rd, env, zmax, 8)
+    clusters = tedges.EdgeClusters(**{
+        k: torch.from_numpy(v) for k, v in tedges.build_edge_clusters(
+            {k: getattr(big, k).numpy() for k in ("center", "p0", "p1")}
+        ).items()})
+    got = tedges.edges_in_cone(big, clusters, ro, rd, env, zmax, 8)
+    ref = tedges.edges_near_cone_clustered(big, clusters, ro, rd, env,
+                                           zmax, 8)
+    assert (got[2] > 0).all()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    got = tedges.edges_in_cone(td.edges, None, ro, rd, env, zmax, 8)
+    ref = tedges.edges_near_cone(td.edges, ro, rd, env, zmax, 8)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.fixture(scope="module")

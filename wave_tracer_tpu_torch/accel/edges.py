@@ -2,15 +2,20 @@
 exact cone-mode edge query.
 
 Port of wave_tracer_tpu/accel/edges.py (`EdgeTable`, `classify_edges`,
-`_exact_cone_entries`, `edges_near_cone`). The classification is numpy
-host code: a vectorized hash join over quantized vertex positions finds
-triangle pairs sharing two vertices and builds wedge records carrying
-both outward face normals, the face tangents and the wedge angle
-α = π − acos(n1·n2); near-planar wedges (faces within 20° of coplanar)
-are dropped and boundary edges get n2 = −n1.
+`_exact_cone_entries`, `edges_near_cone`, `EdgeClusters`,
+`build_edge_clusters`, `edges_near_cone_clustered`). The classification
+is numpy host code: a vectorized hash join over quantized vertex
+positions finds triangle pairs sharing two vertices and builds wedge
+records carrying both outward face normals, the face tangents and the
+wedge angle α = π − acos(n1·n2); near-planar wedges (faces within 20° of
+coplanar) are dropped and boundary edges get n2 = −n1.
 
-The clustered edge sweep (`edges_near_cone_clustered`, used above
-MAX_UNCLUSTERED_EDGES edges) is not ported: such a scene raises.
+Above MAX_UNCLUSTERED_EDGES edges the integrators take the clustered
+sweep (`edges_in_cone` chooses, as the JAX integrators do): the edges are
+bucketed by the grid cell of their centre into clusters with bounding
+spheres (a host bake), and a lane tests its cone against the spheres,
+keeps the 8 nearest clusters and runs the exact entry test on their
+edges only. Plain torch: gathers and two top-k selections.
 """
 
 from __future__ import annotations
@@ -235,8 +240,6 @@ def edges_near_cone(edges: EdgeTable, ro, rd, env, zmax, K: int,
         return (torch.full((N, K), -1, dtype=torch.int32, device=dev),
                 torch.full((N, K), math.inf, device=dev),
                 torch.zeros((N,), dtype=torch.int32, device=dev))
-    if E > MAX_UNCLUSTERED_EDGES:
-        raise NotImplementedError("clustered edge sweep not ported yet")
     # padded edges are masked out, so a tile of min(tile, E) gives the
     # same result without (N, 1024, 3) temporaries for a 16-edge scene
     tile = min(tile, E)
@@ -260,3 +263,129 @@ def edges_near_cone(edges: EdgeTable, ro, rd, env, zmax, K: int,
     valid = torch.isfinite(bz)
     return (torch.where(valid, bidx, -1), bz,
             valid.sum(1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# clustered sweep (above MAX_UNCLUSTERED_EDGES edges)
+# ---------------------------------------------------------------------------
+
+CLUSTER_KEYS = ("center", "radius", "start", "count", "order")
+
+
+@dataclass
+class EdgeClusters:
+    """Two-level edge index: bounding-sphere clusters over grid cells."""
+    center: torch.Tensor   # (M, 3)
+    radius: torch.Tensor   # (M,)
+    start: torch.Tensor    # (M,) i32 into `order`
+    count: torch.Tensor    # (M,) i32
+    order: torch.Tensor    # (E,) i32 edge rows grouped by cluster
+
+    @property
+    def num_clusters(self):
+        return self.center.shape[0]
+
+
+def build_edge_clusters(edges: dict, grid: int | None = None) -> dict:
+    """Host bake of the edge table `edges` (numpy arrays keyed by
+    EDGE_KEYS): bucket the edges by the grid cell of their centre, the
+    grid sized so that clusters average ~32 edges → dict of numpy arrays
+    keyed by CLUSTER_KEYS; each cluster's sphere is centred on the mean of
+    its edges' endpoints."""
+    c = np.asarray(edges["center"])
+    E = len(c)
+    if grid is None:
+        grid = max(2, int(round((max(E, 1) / 32.0) ** (1.0 / 3.0))))
+    if E == 0:
+        return dict(center=np.zeros((1, 3), np.float32),
+                    radius=np.zeros(1, np.float32),
+                    start=np.zeros(1, np.int32), count=np.zeros(1, np.int32),
+                    order=np.zeros(0, np.int32))
+    p0 = np.asarray(edges["p0"])
+    p1 = np.asarray(edges["p1"])
+    lo = c.min(axis=0)
+    hi = c.max(axis=0)
+    ext = np.maximum(hi - lo, 1e-9)
+    cell = np.minimum((c - lo) / ext * grid, grid - 1e-4).astype(np.int64)
+    key = (cell[:, 0] * grid + cell[:, 1]) * grid + cell[:, 2]
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    starts = np.concatenate([[0], np.nonzero(np.diff(key_s))[0] + 1])
+    counts = np.diff(np.concatenate([starts, [E]]))
+    M = len(starts)
+    center = np.zeros((M, 3), np.float32)
+    radius = np.zeros(M, np.float32)
+    for m in range(M):
+        ids = order[starts[m]: starts[m] + counts[m]]
+        pts = np.concatenate([p0[ids], p1[ids]])
+        ctr = pts.mean(axis=0)
+        center[m] = ctr
+        radius[m] = np.linalg.norm(pts - ctr, axis=1).max()
+    return dict(center=center, radius=radius, start=starts.astype(np.int32),
+                count=counts.astype(np.int32), order=order.astype(np.int32))
+
+
+def _smallest(z, k):
+    """(values, indices) of the k smallest of each row, ascending, ties to
+    the lower index (jax.lax.top_k of −z); k may exceed the row."""
+    sz, sel = torch.sort(z, dim=1, stable=True)
+    return sz[:, :k], sel[:, :k]
+
+
+def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
+                              ro, rd, env, zmax, K: int,
+                              n_clusters: int = 8,
+                              edges_per_cluster: int = 64):
+    """Clustered exact cone-mode edge set: a conservative sphere prefilter
+    per cluster (the major-axis radius encloses the elliptic envelope)
+    keeps each lane's n_clusters nearest clusters along its axis; the
+    exact cone–edge entries of their first edges_per_cluster edges give
+    the K earliest. Returns `edges_near_cone`'s (idx, z, count)."""
+    N = ro.shape[0]
+    dev = ro.device
+    if edges.count == 0:
+        return (torch.full((N, K), -1, dtype=torch.int32, device=dev),
+                torch.full((N, K), math.inf, device=dev),
+                torch.zeros((N,), dtype=torch.int32, device=dev))
+    w = clusters.center[None, :, :] - ro[:, None, :]
+    zc = (w * rd[:, None, :]).sum(-1).clamp_min(0.0)
+    closest = ro[:, None, :] + zc[..., None] * rd[:, None, :]
+    dist = torch.linalg.vector_norm(closest - clusters.center[None], dim=-1)
+    reach = env.x0[:, None] + env.ta[:, None] * zc + clusters.radius[None]
+    okc = (dist <= reach) & (zc - clusters.radius[None] <= zmax[:, None])
+    zk = torch.where(okc, zc, math.inf)
+    zsel, sel = _smallest(zk, n_clusters)
+    valid_cl = torch.isfinite(zsel)
+
+    base = clusters.start[sel].long()
+    cnt = clusters.count[sel]
+    offs = torch.arange(edges_per_cluster, device=dev)
+    cand = base[..., None] + offs[None, None, :]
+    in_range = (offs[None, None, :] < cnt[..., None]) & valid_cl[..., None]
+    cand = cand.clamp(0, clusters.order.shape[0] - 1)
+    eidx = clusters.order[cand].reshape(N, -1)
+    in_range = in_range.reshape(N, -1)
+    ei = eidx.long()
+    z, ok = _exact_cone_entries(ro, rd, env, edges.p0[ei], edges.p1[ei],
+                                zmax)
+    zq = torch.where(ok & in_range, z, math.inf)
+    best_z, selk = _smallest(zq, K)
+    best_i = torch.gather(eidx, 1, selk)
+    valid = torch.isfinite(best_z)
+    return (torch.where(valid, best_i, -1), best_z,
+            valid.sum(1, dtype=torch.int32))
+
+
+def edges_in_cone(edges: EdgeTable, clusters: EdgeClusters | None, ro, rd,
+                  env, zmax, K: int):
+    """The integrators' edge sweep: the clustered sweep above
+    MAX_UNCLUSTERED_EDGES edges, the exact all-edges sweep at or below
+    it (as the JAX integrators switch). Returns (idx, z, count)."""
+    if edges.count > MAX_UNCLUSTERED_EDGES:
+        if clusters is None:
+            raise ValueError(f"{edges.count} edges > "
+                             f"{MAX_UNCLUSTERED_EDGES} need the edge "
+                             "clusters (scene.build_scene bakes them)")
+        return edges_near_cone_clustered(edges, clusters, ro, rd, env, zmax,
+                                         K)
+    return edges_near_cone(edges, ro, rd, env, zmax, K)

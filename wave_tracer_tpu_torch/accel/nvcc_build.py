@@ -22,10 +22,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source additions. K3's membership tests sit on float thresholds; with
-# no multiply-add contraction every operation rounds as its plain torch
-# version's separate elementwise operations do
-EXTRA_FLAGS = {"cone_kernels": ["-fmad=false"]}
+# per-source additions. K3's membership tests and K4/K5's traversal
+# decisions sit on float thresholds; with no multiply-add contraction every
+# operation rounds as its plain torch version's separate elementwise
+# operations do
+EXTRA_FLAGS = {"cone_kernels": ["-fmad=false"],
+               "bvh_kernels": ["-fmad=false"]}
 
 # name → {"seconds": nvcc wall time, "ptxas": its report, "library": path}
 BUILD_INFO: dict = {}

@@ -558,8 +558,17 @@ def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None, need=None,
                          primal(rd), primal(tmin), primal(tmax), primal(ex),
                          need if need is None else primal(need), carry,
                          table=geo.ray_table)
+    return solve_hits(geo.tri_geom, ro, rd, t, tri)
+
+
+def solve_hits(tri_geom, ro, rd, t, tri):
+    """(t, tri, u, v) of a closest-hit query's (t, tri) (BIG and -1 on a
+    miss): u/v of the winner by the standard Möller–Trumbore formula from
+    one gather of `tri_geom`, and t plus (t_mt − t_mt) with the second term
+    detached where the rays or `tri_geom` carry a derivative (`trace_rays`
+    says why)."""
     valid = tri >= 0
-    row = geo.tri_geom[tri.clamp_min(0).long()]
+    row = tri_geom[tri.clamp_min(0).long()]
     p0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     pvec = torch.linalg.cross(rd, e2, dim=-1)
     det = (e1 * pvec).sum(-1)
@@ -574,7 +583,7 @@ def trace_rays(geo, ro, rd, tmin, tmax, exclude_tri=None, need=None,
     zero = torch.zeros_like(u)
     u = torch.where(valid, u.clamp(0.0, 1.0), zero)
     v = torch.where(valid, v.clamp(0.0, 1.0), zero)
-    if carries_derivative(ro, rd, geo.tri_geom):
+    if carries_derivative(ro, rd, tri_geom):
         t_mt = (e2 * qvec).sum(-1) * inv_det
         t = torch.where(valid, t + (t_mt - t_mt.detach()), t)
     return t, tri, u, v

@@ -1,12 +1,19 @@
 """Scene geometry on the device, ray-query dispatch, hit attributes.
 
-Port of wave_tracer_tpu/accel/trace.py for the all-pairs backend. The
-triangles stay in the order they were baked in (the port's own bake keeps
-soup order; a table bridged from the JAX package keeps its BVH order).
-No BVH is built: scenes up to MXU_MAX_TRIS triangles go through the
-all-pairs kernels K1/K2 (accel/ray_kernels.py) and the cone sweep K3
-(accel/cone_kernels.py); a larger scene on a CUDA tensor raises, since
-the BVH backend is not ported yet. The ball query of the bdpt
+Port of wave_tracer_tpu/accel/trace.py. Two routes, chosen by the
+triangle count as the JAX package chooses them:
+
+* up to MXU_MAX_TRIS triangles, the all-pairs kernels K1/K2
+  (accel/ray_kernels.py). The port's own bake keeps such a scene in soup
+  order and builds no BVH; a table bridged from the JAX package keeps its
+  BVH order (and its tree, unused here).
+* above it, the BVH route: the bake permutes the triangles into the leaf
+  order of a binned-SAH BVH (accel/bvh.py) and packs its nodes
+  (`node_pack`), and `trace_bvh` / `occluded_bvh` walk it with the
+  traversal kernels K4/K5 (accel/bvh_kernels.py).
+
+The cone sweep (`cone_boundary_minz`) runs through K3
+(accel/cone_kernels.py) on either route. The ball query of the bdpt
 blocked-flux integral (`tris_in_ball`) is plain torch.
 """
 
@@ -18,52 +25,78 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from wave_tracer_tpu_torch.accel import cone_kernels, ray_kernels
+from wave_tracer_tpu_torch.accel import (bvh_kernels, cone_kernels,
+                                         ray_kernels)
+from wave_tracer_tpu_torch.accel.bvh import FlatBVH, pack_nodes
 
+# above this triangle count the ray queries take the BVH route (K4/K5), as
+# the JAX package's do (its all-pairs MXU intersector stops there)
 MXU_MAX_TRIS = 1 << 17
+
+
+def takes_bvh(num_tris: int) -> bool:
+    """Whether a scene of `num_tris` triangles takes the BVH route."""
+    return num_tris > MXU_MAX_TRIS
 
 
 @dataclass
 class GeoArrays:
     """Device-side scene geometry. Packed rows as in the JAX package:
     tri_geom (T, 12) = p0 e1 e2 pad3; tri_attr (T, 32) = n0 n1 n2 uv0 uv1
-    uv2 geo_n dpdu mat shape emitter (ids as f32) pad."""
+    uv2 geo_n dpdu mat shape emitter (ids as f32) pad; on the BVH route
+    node_pack (M, 16) = count, left, the children's boxes inline
+    (accel/bvh.py::pack_nodes), with the triangles in its leaf order."""
     p0: torch.Tensor        # (T, 3)
     e1: torch.Tensor        # (T, 3)
     e2: torch.Tensor        # (T, 3)
     tri_geom: torch.Tensor  # (T, 12)
     tri_attr: torch.Tensor  # (T, 32)
     mxu_center: torch.Tensor  # (3,) translation of the kernel features
+    node_pack: torch.Tensor | None = None   # (M, 16); None: no BVH
     # derived, from detached copies of p0/e1/e2 (the kernels take primal
     # tensors; a GeoArrays made by dataclasses.replace with moved
     # triangles derives them anew): (T, 24) K1/K2 rows
     # (ray_kernels.tri_features), (T, 9) K3 rows [A | B | C]
     # (cone_kernels.cone_tris), and the copies of the triangles that K3
     # and K1/K2 read, in an order that makes their 256-triangle tiles
-    # compact (ray_kernels.tile_order), with the tiles' bounds
-    tri_feat: torch.Tensor = field(init=False)
+    # compact (ray_kernels.tile_order), with the tiles' bounds. A scene
+    # on the BVH route has no K1/K2 rows (tri_feat, ray_table None)
+    tri_feat: torch.Tensor | None = field(init=False)
     cone_tris: torch.Tensor = field(init=False)
     cone_table: cone_kernels.ConeTable = field(init=False)
-    ray_table: ray_kernels.RayTable = field(init=False)
+    ray_table: ray_kernels.RayTable | None = field(init=False)
 
     def __post_init__(self):
         p0, e1, e2 = self.p0.detach(), self.e1.detach(), self.e2.detach()
         center = self.mxu_center.detach()
-        self.tri_feat = ray_kernels.tri_features(p0, e1, e2, center)
         self.cone_tris = cone_kernels.cone_tris(p0, e1, e2)
         order = ray_kernels.tile_order(p0, e1, e2)
         self.cone_table = cone_kernels.cone_table(self.cone_tris, order)
-        self.ray_table = ray_kernels.ray_table(p0, e1, e2, center,
-                                               self.tri_feat, order)
+        self.tri_feat = self.ray_table = None
+        if not takes_bvh(self.num_tris):
+            self.tri_feat = ray_kernels.tri_features(p0, e1, e2, center)
+            self.ray_table = ray_kernels.ray_table(p0, e1, e2, center,
+                                                   self.tri_feat, order)
 
     @property
     def num_tris(self):
         return self.p0.shape[0]
 
 
-def from_soup(soup, mat_id, shape_id, emitter_id) -> dict:
-    """Host bake of a TriangleSoup + per-tri ids (soup order) → dict of
-    numpy arrays {p0, e1, e2, tri_geom, tri_attr, mxu_center}."""
+def from_soup(soup, mat_id, shape_id, emitter_id,
+              bvh: FlatBVH | None = None) -> dict:
+    """Host bake of a TriangleSoup + per-tri ids → dict of numpy arrays
+    {p0, e1, e2, tri_geom, tri_attr, mxu_center}, in soup order; with a
+    `bvh`, permuted into its leaf order (`bvh.tri_order`), as the JAX
+    package's `from_soup` does, plus node_pack (what the traversal
+    reads), node_left and node_count (the tree's shape, for its depth) and
+    tri_order (row i of the tables is soup triangle tri_order[i])."""
+    if bvh is not None:
+        perm = bvh.tri_order
+        soup = type(soup)(**{f: getattr(soup, f)[perm] for f in (
+            "positions", "normals", "uvs", "geo_n", "dpdu")})
+        mat_id, shape_id, emitter_id = (np.asarray(x)[perm] for x in (
+            mat_id, shape_id, emitter_id))
     p = soup.positions
     T = len(p)
     e1 = (p[:, 1] - p[:, 0]).astype(np.float32)
@@ -86,15 +119,53 @@ def from_soup(soup, mat_id, shape_id, emitter_id) -> dict:
     tri_attr[:, 23] = np.asarray(emitter_id, np.float32)
     mxu_center = (p.reshape(-1, 3).mean(axis=0).astype(np.float32)
                   if T else np.zeros(3, np.float32))
-    return dict(p0=np.ascontiguousarray(p[:, 0]), e1=e1, e2=e2,
-                tri_geom=tri_geom, tri_attr=tri_attr, mxu_center=mxu_center)
+    out = dict(p0=np.ascontiguousarray(p[:, 0]), e1=e1, e2=e2,
+               tri_geom=tri_geom, tri_attr=tri_attr, mxu_center=mxu_center)
+    if bvh is not None:
+        out.update(node_left=bvh.node_left, node_count=bvh.node_count,
+                   node_pack=pack_nodes(bvh), tri_order=bvh.tri_order)
+    return out
 
 
-def _check_size(geo, ro):
-    if geo.num_tris > MXU_MAX_TRIS and ro.device.type == "cuda":
-        raise NotImplementedError(
-            f"{geo.num_tris} triangles > {MXU_MAX_TRIS}: the BVH backend "
-            "is not ported yet")
+def _nodes(geo):
+    if geo.node_pack is None:
+        raise ValueError(
+            f"{geo.num_tris} triangles > MXU_MAX_TRIS = {MXU_MAX_TRIS} take "
+            "the BVH route, and this GeoArrays has no node_pack (bake the "
+            "scene with scene.build_scene)")
+    return geo.node_pack
+
+
+def trace_bvh(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
+              need=None, carry=None):
+    """Closest hit through the BVH (K4; its twin on the CPU), with
+    `trace`'s contract. Returns (t, tri, u, v): u/v of the winner by
+    Möller–Trumbore, and t's derivative where one is in play, as
+    `ray_kernels.trace_rays` gives them."""
+    N = ro.shape[0]
+    primal = ray_kernels.primal
+    ex = (torch.full((N,), -1, dtype=torch.int32, device=ro.device)
+          if exclude_tri is None else exclude_tri)
+    if carry is not None:
+        carry = (primal(carry[0]), primal(carry[1]))
+    t, tri = bvh_kernels.closest_hit(
+        _nodes(geo), primal(geo.tri_geom), primal(ro), primal(rd),
+        primal(tmin), primal(tmax), primal(ex, torch.int32),
+        need if need is None else primal(need), carry)
+    return ray_kernels.solve_hits(geo.tri_geom, ro, rd, t, tri)
+
+
+def occluded_bvh(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
+                 exclude_tri2=None, exclude_tri3=None, need=None):
+    """Any hit through the BVH (K5; its twin on the CPU), with
+    `occluded`'s contract."""
+    ex = ray_kernels._exclusions(ro.shape[0], ro.device, exclude_tri,
+                                 exclude_tri2, exclude_tri3)
+    primal = ray_kernels.primal
+    return bvh_kernels.any_hit(
+        _nodes(geo), primal(geo.tri_geom), primal(ro), primal(rd),
+        primal(tmin), primal(tmax), primal(ex),
+        need if need is None else primal(need))
 
 
 def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None, need=None,
@@ -103,14 +174,16 @@ def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None, need=None,
     `need` (N,) bool names the rows to trace (None: all); the others take
     `carry`, the (t, tri) of their last trace (a miss if None), untraced:
     the caller passes it for rows whose ray, tmin, tmax and exclusion are
-    those of that trace."""
-    _check_size(geo, ro)
+    those of that trace. Up to MXU_MAX_TRIS triangles K1, above it the
+    BVH route (`trace_bvh`)."""
     if geo.num_tris == 0:
         N = ro.shape[0]
         z = torch.zeros((N,), dtype=torch.float32, device=ro.device)
         return (torch.full_like(z, ray_kernels._BIG_F32),
                 torch.full((N,), -1, dtype=torch.int32, device=ro.device),
                 z, z.clone())
+    if takes_bvh(geo.num_tris):
+        return trace_bvh(geo, ro, rd, tmin, tmax, exclude_tri, need, carry)
     return ray_kernels.trace_rays(geo, ro, rd, tmin, tmax, exclude_tri,
                                   need, carry)
 
@@ -119,11 +192,14 @@ def occluded(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
              exclude_tri2=None, exclude_tri3=None, need=None):
     """Any hit within (tmin, tmax]. `need` (N,) bool names the rows whose
     result is read (None: all); the others return False and are not
-    traced. Returns bool (N,)."""
-    _check_size(geo, ro)
+    traced. Returns bool (N,). Up to MXU_MAX_TRIS triangles K2, above it
+    the BVH route (`occluded_bvh`)."""
     if geo.num_tris == 0:
         return torch.zeros((ro.shape[0],), dtype=torch.bool,
                            device=ro.device)
+    if takes_bvh(geo.num_tris):
+        return occluded_bvh(geo, ro, rd, tmin, tmax, exclude_tri,
+                            exclude_tri2, exclude_tri3, need)
     return ray_kernels.occluded_rays(geo, ro, rd, tmin, tmax, exclude_tri,
                                      exclude_tri2, exclude_tri3, need)
 
@@ -142,8 +218,8 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
     (`cone_kernels.minz_pairs`) on the winners' differentiable vertices,
     as the JAX package's exact-AD plain query gives it: zc is the kernel's
     value bit for bit, plus (z − z) with the second term detached. With
-    no derivative in play nothing more runs."""
-    _check_size(geo, ro)
+    no derivative in play nothing more runs. K3 on either route (the JAX
+    package's dense sweep computes the same minima above MXU_MAX_TRIS)."""
     N, B = bounds.shape
     dev = ro.device
     if geo.num_tris == 0:
@@ -177,9 +253,10 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
 
 
 def ray_tests_per_lane(geo: GeoArrays) -> float:
-    """Ray–triangle pair tests one trace/occluded call issues per lane
-    (all-pairs: every triangle)."""
-    return float(geo.num_tris)
+    """Ray–triangle pair tests one trace/occluded call issues per lane:
+    every triangle on the all-pairs route; 0 on the BVH route, whose count
+    depends on the data (as the JAX package reports it)."""
+    return 0.0 if takes_bvh(geo.num_tris) else float(geo.num_tris)
 
 
 def _point_tri_dist(p, a, e1, e2, gn):

@@ -98,6 +98,7 @@ def _render(args, device, main_rank, log):
     from wave_tracer_tpu_torch.render.checkpoint import (load_checkpoint,
                                                          save_checkpoint)
     from wave_tracer_tpu_torch.render.output import write_exr, write_png
+    from wave_tracer_tpu_torch.accel.bvh import tree_depth
     from wave_tracer_tpu_torch.scene import build_scene
     from wave_tracer_tpu_torch.scene.xml import load_scene_xml
     from wave_tracer_tpu_torch.sensor.tonemap import Tonemap, srgb_encode
@@ -113,8 +114,14 @@ def _render(args, device, main_rank, log):
         f"sensors")
     built = build_scene(scene, device=device)
     ntris = built.data.geo.num_tris
-    log(f"scene built: {ntris} triangles, {built.data.edges.count} edges "
-        f"({time.time() - t0:.1f}s)")
+    # the BVH route's tree depth, as the JAX CLI prints it
+    a = built.arrays
+    depth = ""
+    if "geo.node_left" in a:
+        depth = tree_depth(a["geo.node_left"], a["geo.node_count"])
+        depth = f", BVH depth {depth}"
+    log(f"scene built: {ntris} triangles, {built.data.edges.count} edges"
+        f"{depth} ({time.time() - t0:.1f}s)")
 
     outdir = args.output or "."
     if main_rank:

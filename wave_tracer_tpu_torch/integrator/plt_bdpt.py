@@ -231,8 +231,8 @@ def _walk(data, keys, k, ro, rd, beta0, pdf_dir0, max_verts, eps,
         if use_fsd:
             zmax = torch.where(hit.valid, hit.t * 1.02 + env.x0,
                                8.0 * et.scene_radius)
-            eidx, ez, ecnt = edges_mod.edges_near_cone(edge_table, ro, rd,
-                                                       env, zmax, K)
+            eidx, ez, ecnt = edges_mod.edges_in_cone(
+                edge_table, data.edge_clusters, ro, rd, env, zmax, K)
             have_edges = ecnt > 0
             z_first = torch.where(have_edges, ez.min(1).values, BIG)
             fp_hit = env.major(torch.where(hit.valid, hit.t, 0.0))

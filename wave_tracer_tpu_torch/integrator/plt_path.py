@@ -152,8 +152,8 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
 
     # ---- edge sweep inside the beam envelope (FSD aperture feed)
     if edge_table.count > 0:
-        eidx, _, ecnt = edges_mod.edges_near_cone(edge_table, ro, rd, env,
-                                                  zmax, K)
+        eidx, _, ecnt = edges_mod.edges_in_cone(
+            edge_table, data.edge_clusters, ro, rd, env, zmax, K)
     else:
         eidx = torch.full((N, K), -1, dtype=torch.int32, device=dev)
         ecnt = torch.zeros((N,), dtype=torch.int32, device=dev)

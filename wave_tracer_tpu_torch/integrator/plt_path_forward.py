@@ -251,8 +251,8 @@ def trace_forward(data, lane_ids, base_key, sample_ids, *, sensor,
         zmax = torch.where(hit.valid, hit.t * 1.02 + env.x0,
                            8.0 * scene_radius)
         if fsd and edge_table.count > 0:
-            eidx, ez, ecnt = edges_mod.edges_near_cone(edge_table, ro, rd,
-                                                       env, zmax, K)
+            eidx, ez, ecnt = edges_mod.edges_in_cone(
+                edge_table, data.edge_clusters, ro, rd, env, zmax, K)
         else:
             eidx = full(-1, torch.int32, (K,))
             ez = full(torch.inf, shape=(K,))

@@ -72,8 +72,8 @@ POOL_LANES_CPU = 1 << 13
 BDPT_LANES_CUDA = 1 << 18
 BDPT_LANES_CPU = 1 << 12
 # the JAX renderer's ceiling on the edge count for FSD. Above 2048 edges
-# the JAX integrators take the clustered edge sweep, which the port lacks:
-# accel/edges.py raises there
+# the integrators take the clustered edge sweep (accel/edges.py::
+# edges_in_cone), as the JAX integrators do
 MAX_FSD_EDGES = 1 << 20
 
 def render_mode(scene, sensor, n_edges):

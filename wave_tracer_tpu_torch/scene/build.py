@@ -3,11 +3,14 @@
 Port of wave_tracer_tpu/scene/build.py for the ported subset. Collects
 every spectrum, complex spectrum, texture and material reachable from the
 host scene (and the sensors' response spectra), assigns table rows,
-merges all shapes into one triangle soup (kept in soup order: the
-all-pairs kernels need no BVH), classifies its wedge edges for free-space
-diffraction, and bakes the emitter and spectral-sampling tables into a
-dict keyed like the JAX SceneData (scene/bridge.py), which
-`scene_data_from_numpy` uploads.
+merges all shapes into one triangle soup, classifies its wedge edges for
+free-space diffraction (and clusters them for the clustered sweep), and
+bakes the emitter and spectral-sampling tables into a dict keyed like the
+JAX SceneData (scene/bridge.py), which `scene_data_from_numpy` uploads.
+Up to MXU_MAX_TRIS triangles the soup keeps its order (the all-pairs
+kernels need no BVH); above it, a BVH is built (accel/bvh.py) and every
+triangle table, the edge table's and the emitters' triangle ids included,
+is baked in its leaf order, as the JAX package bakes every scene.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from wave_tracer_tpu_torch.accel import bvh as bvh_mod
 from wave_tracer_tpu_torch.accel import edges as edges_mod
 from wave_tracer_tpu_torch.accel import trace as trace_mod
 from wave_tracer_tpu_torch.bsdf import model as bmodel
@@ -137,6 +141,9 @@ def bake_scene_arrays(scene: Scene):
         raise ValueError("scene has no triangles")
     soup = TriangleSoup.concatenate(soups)
     emitter_id = np.concatenate(emitter_id)
+    bvh = None
+    if trace_mod.takes_bvh(soup.num_tris):
+        bvh = bvh_mod.build_bvh(soup.positions)
 
     out = {}
 
@@ -144,16 +151,24 @@ def bake_scene_arrays(scene: Scene):
         out.update({f"{prefix}.{k}": v for k, v in d.items()})
 
     put("geo", trace_mod.from_soup(soup, np.concatenate(mat_id),
-                                   np.concatenate(shape_id), emitter_id))
+                                   np.concatenate(shape_id), emitter_id,
+                                   bvh))
+    # the other tables name triangles in the geometry's (device) order
+    positions, geo_n, areas = soup.positions, soup.geo_n, soup.areas()
+    if bvh is not None:
+        perm = bvh.tri_order
+        positions, geo_n, areas, emitter_id = (
+            positions[perm], geo_n[perm], areas[perm], emitter_id[perm])
     put("tables.spectra", bake_spectra(spectra))
     put("tables.textures", bake_textures(textures, sp_ids))
     put("tables.cspectra", bake_complex(cspectra))
     put("tables.materials", bake_materials(materials, tex_ids, sp_ids,
                                            csp_ids))
     put("emitters", bake_emitters(scene.emitters, sp_ids, emitter_id,
-                                  soup.areas(),
-                                  scene_radius=scene.world_radius()))
-    put("edges", edges_mod.classify_edges(soup.positions, soup.geo_n))
+                                  areas, scene_radius=scene.world_radius()))
+    edges = edges_mod.classify_edges(positions, geo_n)
+    put("edges", edges)
+    put("edge_clusters", edges_mod.build_edge_clusters(edges))
     per_sensor = [build_spectral_sampler(
         scene.emitters, s.response.sensitivity_spectrum())
         for s in scene.sensors]
