@@ -22,7 +22,9 @@ on the CPU.
 
 import dataclasses
 import hashlib
+import re
 import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +84,15 @@ def _flatten(obj, prefix=""):
     return {prefix[:-1]: np.asarray(obj)}
 
 
+def _leaf_order(soup, ids, tree):
+    """The port's soup of `soup` (a JAX package's) and the id arrays, in
+    the leaf order of `tree`, as scene/build.py hands them to from_soup."""
+    own = mesh.TriangleSoup(**{f: getattr(soup, f) for f in (
+        "positions", "normals", "uvs", "geo_n", "dpdu")})
+    return (own.take(tree.tri_order),
+            *(np.asarray(x)[tree.tri_order] for x in ids))
+
+
 @pytest.mark.parametrize("which", ["box_icosphere", "test_trace_sphere"])
 def test_numpy_build_equals_jax(which):
     soup = (_box_sphere_soup() if which == "box_icosphere"
@@ -98,7 +109,7 @@ def test_numpy_build_equals_jax(which):
     T = len(soup.positions)
     ids = (np.zeros(T), np.zeros(T), np.full(T, -1))
     jg = jtrace.from_soup(soup, *ids, a)
-    tg = ttrace.from_soup(soup, *ids, b)
+    tg = ttrace.from_soup(*_leaf_order(soup, ids, b), b)
     for k in ("node_pack", "tri_geom", "tri_attr", "p0", "e1", "e2"):
         np.testing.assert_array_equal(tg[k], np.asarray(getattr(jg, k)),
                                       err_msg=k)
@@ -145,6 +156,49 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
         native.build()
 
 
+def test_builders_and_kernels_share_constants():
+    """The C++ builder, the CUDA kernels and the Python modules agree on
+    the depth cap, the SAH bins, the leaf size and the stack depth."""
+    root = Path(bvh.__file__).resolve().parents[1]
+    cpp = (root / "native" / "bvh_builder.cpp").read_text()
+    cu = (root / "csrc" / "bvh_kernels.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const(cpp, "kMaxDepth") == bvh.MAX_DEPTH
+    assert const(cpp, "kNumBins") == bvh.N_BINS
+    assert const(cu, "LEAF_TILE") == bvh.LEAF_TILE
+    assert const(cu, "STACK") == bvh_kernels.STACK == bvh.MAX_DEPTH + 2
+
+
+@pytest.mark.parametrize("case", ["depth_cap", "float32_index",
+                                  "bridged_tree"])
+def test_untraversable_tree_refused(case, monkeypatch):
+    """A tree that K4/K5 would walk wrongly raises at the bake or the
+    bridge: a leaf of more than LEAF_TILE triangles (the depth cap cut
+    it), an index past float32's exact integers in node_pack, or a
+    bridged node_pack with such a leaf."""
+    if case == "float32_index":
+        z3, z1 = np.zeros((1, 3), np.float32), np.zeros(1, np.int32)
+        big = np.broadcast_to(np.int32(0), (bvh.MAX_PACKED_INDEX + 1,))
+        with pytest.raises(ValueError, match="float32"):
+            bvh.pack_nodes(bvh.FlatBVH(z3, z3, z1, z1, big))
+        return
+    monkeypatch.setattr(ttrace, "MXU_MAX_TRIS", 1024)
+    if case == "depth_cap":
+        monkeypatch.setattr(bvh, "MAX_DEPTH", 3)
+        with pytest.raises(ValueError, match="leaf of"):
+            bake_scene_arrays(_route_scene())
+        return
+    ta, _ = bake_scene_arrays(_route_scene())
+    bad = dict(ta)
+    bad["geo.node_pack"] = ta["geo.node_pack"].copy()
+    leaf = np.nonzero(bad["geo.node_pack"][:, 0] > 0)[0][0]
+    bad["geo.node_pack"][leaf, 0] = bvh.LEAF_TILE + 1
+    with pytest.raises(ValueError, match="leaf of"):
+        bridge.scene_data_from_numpy(bad, "cpu")
+
+
 @pytest.fixture(scope="module")
 def trees():
     """(JAX GeoArrays, the port's) of the box with the icosphere, on the
@@ -154,7 +208,8 @@ def trees():
     T = len(soup.positions)
     ids = (np.zeros(T), np.zeros(T), np.full(T, -1))
     jg = jtrace.from_soup(soup, *ids, jbvh.build_bvh(soup.positions))
-    d = ttrace.from_soup(soup, *ids, bvh.build_bvh(soup.positions))
+    tree = bvh.build_bvh(soup.positions)
+    d = ttrace.from_soup(*_leaf_order(soup, ids, tree), tree)
     tg = ttrace.GeoArrays(**{k: torch.from_numpy(d[k]) for k in (
         "p0", "e1", "e2", "tri_geom", "tri_attr", "mxu_center",
         "node_pack")})

@@ -362,10 +362,15 @@ def test_edges_near_cone(box):
 def test_edge_table_refuses_clustered_sizes(box):
     """Above MAX_UNCLUSTERED_EDGES edges the integrators' edge sweep
     (`edges_in_cone`) takes the clustered sweep, as the JAX integrators
-    do, and refuses a table that comes without its clusters; at or below
-    it the exact all-edges sweep runs. (The clustered sweep itself is
-    held against the JAX package in test_torch_edges_clustered.py.)"""
-    _, td = box
+    do; at or below it the exact all-edges sweep runs. The bridge
+    refuses a table that comes without its clusters. (The clustered sweep
+    itself is held against the JAX package in
+    test_torch_edges_clustered.py.)"""
+    jd, td = box
+    bare = {k: v for k, v in _flatten(jd).items()
+            if not k.startswith("edge_clusters.")}
+    with pytest.raises(KeyError, match="edge_clusters"):
+        scene_data_from_numpy(bare, "cpu")
     big = tedges.EdgeTable(**{
         k: getattr(td.edges, k).repeat_interleave(
             tedges.MAX_UNCLUSTERED_EDGES // td.edges.count + 1, dim=0)
@@ -375,8 +380,6 @@ def test_edge_table_refuses_clustered_sizes(box):
     rd = torch.tensor([[-0.6, 0.0, -0.8], [0.6, 0.0, -0.8]])
     env = tenv.initial(rd, 0.0, 0.6)
     zmax = torch.full((2,), 4.0)
-    with pytest.raises(ValueError, match="clusters"):
-        tedges.edges_in_cone(big, None, ro, rd, env, zmax, 8)
     clusters = tedges.EdgeClusters(**{
         k: torch.from_numpy(v) for k, v in tedges.build_edge_clusters(
             {k: getattr(big, k).numpy() for k in ("center", "p0", "p1")}
@@ -387,7 +390,8 @@ def test_edge_table_refuses_clustered_sizes(box):
     assert (got[2] > 0).all()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    got = tedges.edges_in_cone(td.edges, None, ro, rd, env, zmax, 8)
+    got = tedges.edges_in_cone(td.edges, td.edge_clusters, ro, rd, env,
+                               zmax, 8)
     ref = tedges.edges_near_cone(td.edges, ro, rd, env, zmax, 8)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)

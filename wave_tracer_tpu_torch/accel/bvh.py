@@ -1,9 +1,10 @@
 """Host-side binary BVH build (binned SAH), flattened to arrays.
 
 Port of wave_tracer_tpu/accel/bvh.py, the same algorithm: a binned-SAH
-binary tree over the triangles' bounds (16 bins on the widest centroid
-axis, leaves of at most 4 triangles, depth capped at MAX_DEPTH so that a
-traversal's per-ray stack stays small). Children are adjacent (right =
+binary tree over the triangles' bounds (N_BINS bins on the widest
+centroid axis, leaves of at most LEAF_TILE triangles, depth capped at
+MAX_DEPTH so that a traversal's per-ray stack stays small; `pack_nodes`
+refuses a tree whose capped leaves outgrow LEAF_TILE). Children are adjacent (right =
 left + 1) and a leaf names a contiguous range of `tri_order`, the
 permutation into the soup's triangles. Above NATIVE_THRESHOLD triangles
 the C++ builder (wave_tracer_tpu_torch/native) builds the same arrays;
@@ -18,6 +19,11 @@ from dataclasses import dataclass
 import numpy as np
 
 MAX_DEPTH = 30
+LEAF_TILE = 4      # the largest leaf; K4/K5 and their twins test this many
+N_BINS = 16        # SAH bins on the widest centroid axis
+# node_pack holds each node's `left` (a node or a triangle index) as
+# float32, exact up to 2^24
+MAX_PACKED_INDEX = 1 << 24
 
 
 @dataclass
@@ -54,8 +60,7 @@ def tree_depth(node_left, node_count) -> int:
 NATIVE_THRESHOLD = 4096   # use the C++ builder above this triangle count
 
 
-def build_bvh(positions: np.ndarray, max_leaf: int = 4,
-              n_bins: int = 16) -> FlatBVH:
+def build_bvh(positions: np.ndarray) -> FlatBVH:
     """Binned-SAH binary BVH over triangle soup positions (T, 3, 3).
 
     Above NATIVE_THRESHOLD triangles the C++ builder (native/) builds it,
@@ -64,7 +69,7 @@ def build_bvh(positions: np.ndarray, max_leaf: int = 4,
     T = len(positions)
     if T > NATIVE_THRESHOLD:
         from wave_tracer_tpu_torch import native
-        return native.build_bvh_native(positions, max_leaf)
+        return native.build_bvh_native(positions)
     if T == 0:
         return FlatBVH(np.zeros((1, 3), np.float32),
                        np.zeros((1, 3), np.float32),
@@ -95,7 +100,7 @@ def build_bvh(positions: np.ndarray, max_leaf: int = 4,
         node_min[ni] = bmin
         node_max[ni] = bmax
         n = e - s
-        if n <= max_leaf or depth >= MAX_DEPTH:
+        if n <= LEAF_TILE or depth >= MAX_DEPTH:
             node_left[ni] = s
             node_count[ni] = n
             continue
@@ -109,12 +114,12 @@ def build_bvh(positions: np.ndarray, max_leaf: int = 4,
             # all centroids identical: split in half
             mid = s + n // 2
         else:
-            scale = n_bins * (1.0 - 1e-7) / ext[axis]
+            scale = N_BINS * (1.0 - 1e-7) / ext[axis]
             bidx = ((c[:, axis] - cmin[axis]) * scale).astype(np.int64)
             # per-bin bounds + counts
-            counts = np.bincount(bidx, minlength=n_bins)
-            binmin = np.full((n_bins, 3), np.inf)
-            binmax = np.full((n_bins, 3), -np.inf)
+            counts = np.bincount(bidx, minlength=N_BINS)
+            binmin = np.full((N_BINS, 3), np.inf)
+            binmax = np.full((N_BINS, 3), -np.inf)
             np.minimum.at(binmin, bidx, tmin[ids])
             np.maximum.at(binmax, bidx, tmax[ids])
             # prefix/suffix areas
@@ -127,7 +132,7 @@ def build_bvh(positions: np.ndarray, max_leaf: int = 4,
             rmax = np.maximum.accumulate(binmax[::-1], axis=0)[::-1]
             lcnt = np.cumsum(counts)
             rcnt = np.cumsum(counts[::-1])[::-1]
-            cost = np.full(n_bins - 1, np.inf)
+            cost = np.full(N_BINS - 1, np.inf)
             la = areas(lmin, lmax)[:-1]
             ra = areas(rmin, rmax)[1:]
             valid = (lcnt[:-1] > 0) & (rcnt[1:] > 0)
@@ -163,15 +168,34 @@ def build_bvh(positions: np.ndarray, max_leaf: int = 4,
     )
 
 
+def check_traversable(node_count, num_nodes: int, num_tris: int):
+    """Raise unless K4/K5 walk this tree exactly: every leaf at most
+    LEAF_TILE triangles (a leaf cut by MAX_DEPTH may hold more, and the
+    rest could never be hit), and every index exact in node_pack's
+    float32 (`MAX_PACKED_INDEX`)."""
+    largest = int(np.max(node_count, initial=0))
+    if largest > LEAF_TILE:
+        raise ValueError(
+            f"the BVH has a leaf of {largest} triangles (its depth reached "
+            f"MAX_DEPTH = {MAX_DEPTH}); the traversal tests at most "
+            f"LEAF_TILE = {LEAF_TILE} per leaf")
+    if max(num_nodes, num_tris) > MAX_PACKED_INDEX:
+        raise ValueError(
+            f"{num_tris} triangles, {num_nodes} BVH nodes: node_pack holds "
+            f"indices as float32, exact only up to {MAX_PACKED_INDEX}")
+
+
 def pack_nodes(bvh: FlatBVH) -> np.ndarray:
     """(M, 16) f32 node rows, as the JAX package's `from_soup` packs them:
     [count, left, left child's min and max, right child's min and max,
-    pad2]; a leaf's child columns hold node 0's box (never read)."""
+    pad2]; a leaf's child columns hold node 0's box (never read). Raises
+    for a tree that K4/K5 cannot walk exactly (`check_traversable`)."""
     nmin = np.asarray(bvh.node_min, np.float32)
     nmax = np.asarray(bvh.node_max, np.float32)
     nleft = np.asarray(bvh.node_left, np.int64)
     ncount = np.asarray(bvh.node_count, np.int64)
     M = len(nleft)
+    check_traversable(ncount, M, len(bvh.tri_order))
     node_pack = np.zeros((max(M, 1), 16), np.float32)
     if M:
         node_pack[:, 0] = ncount

@@ -40,14 +40,13 @@ import ctypes
 import torch
 
 from wave_tracer_tpu_torch.accel import nvcc_build
-from wave_tracer_tpu_torch.accel.bvh import MAX_DEPTH
+from wave_tracer_tpu_torch.accel.bvh import LEAF_TILE, MAX_DEPTH
 from wave_tracer_tpu_torch.accel.ray_kernels import (check_primal,
                                                      outside_transforms)
 from wave_tracer_tpu_torch.ops.intersect import (BIG, ray_aabb, ray_tri,
                                                  safe_inverse)
 
-STACK = MAX_DEPTH + 2      # per-ray stack of node ids
-LEAF_TILE = 4              # the builder's largest leaf
+STACK = MAX_DEPTH + 2      # per-ray stack of node ids (the .cu's STACK)
 NODE_F = 16                # floats per node_pack row
 TRI_F = 12                 # floats per tri_geom row
 

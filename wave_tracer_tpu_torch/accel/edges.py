@@ -14,8 +14,8 @@ Above MAX_UNCLUSTERED_EDGES edges the integrators take the clustered
 sweep (`edges_in_cone` chooses, as the JAX integrators do): the edges are
 bucketed by the grid cell of their centre into clusters with bounding
 spheres (a host bake), and a lane tests its cone against the spheres,
-keeps the 8 nearest clusters and runs the exact entry test on their
-edges only. Plain torch: gathers and two top-k selections.
+keeps the N_CLUSTERS nearest clusters and runs the exact entry test on
+the first EDGES_PER_CLUSTER edges of each. Plain torch: gathers and two top-k selections.
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ from wave_tracer_tpu_torch.ops import cone_intersect as ci
 PLANAR_ANGLE_DEG = 160.0
 # above this edge count the JAX integrators switch to the clustered sweep
 MAX_UNCLUSTERED_EDGES = 2048
+# the clustered sweep: clusters kept per lane, edges tested per cluster
+N_CLUSTERS = 8
+EDGES_PER_CLUSTER = 64
 
 EDGE_KEYS = ("p0", "p1", "e", "n1", "n2", "t1", "t2", "alpha", "length",
              "center", "tri1", "tri2")
@@ -286,7 +289,7 @@ class EdgeClusters:
         return self.center.shape[0]
 
 
-def build_edge_clusters(edges: dict, grid: int | None = None) -> dict:
+def build_edge_clusters(edges: dict) -> dict:
     """Host bake of the edge table `edges` (numpy arrays keyed by
     EDGE_KEYS): bucket the edges by the grid cell of their centre, the
     grid sized so that clusters average ~32 edges → dict of numpy arrays
@@ -294,8 +297,7 @@ def build_edge_clusters(edges: dict, grid: int | None = None) -> dict:
     its edges' endpoints."""
     c = np.asarray(edges["center"])
     E = len(c)
-    if grid is None:
-        grid = max(2, int(round((max(E, 1) / 32.0) ** (1.0 / 3.0))))
+    grid = max(2, int(round((max(E, 1) / 32.0) ** (1.0 / 3.0))))
     if E == 0:
         return dict(center=np.zeros((1, 3), np.float32),
                     radius=np.zeros(1, np.float32),
@@ -333,13 +335,11 @@ def _smallest(z, k):
 
 
 def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
-                              ro, rd, env, zmax, K: int,
-                              n_clusters: int = 8,
-                              edges_per_cluster: int = 64):
+                              ro, rd, env, zmax, K: int):
     """Clustered exact cone-mode edge set: a conservative sphere prefilter
     per cluster (the major-axis radius encloses the elliptic envelope)
-    keeps each lane's n_clusters nearest clusters along its axis; the
-    exact cone–edge entries of their first edges_per_cluster edges give
+    keeps each lane's N_CLUSTERS nearest clusters along its axis; the
+    exact cone–edge entries of their first EDGES_PER_CLUSTER edges give
     the K earliest. Returns `edges_near_cone`'s (idx, z, count)."""
     N = ro.shape[0]
     dev = ro.device
@@ -354,12 +354,12 @@ def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
     reach = env.x0[:, None] + env.ta[:, None] * zc + clusters.radius[None]
     okc = (dist <= reach) & (zc - clusters.radius[None] <= zmax[:, None])
     zk = torch.where(okc, zc, math.inf)
-    zsel, sel = _smallest(zk, n_clusters)
+    zsel, sel = _smallest(zk, N_CLUSTERS)
     valid_cl = torch.isfinite(zsel)
 
     base = clusters.start[sel].long()
     cnt = clusters.count[sel]
-    offs = torch.arange(edges_per_cluster, device=dev)
+    offs = torch.arange(EDGES_PER_CLUSTER, device=dev)
     cand = base[..., None] + offs[None, None, :]
     in_range = (offs[None, None, :] < cnt[..., None]) & valid_cl[..., None]
     cand = cand.clamp(0, clusters.order.shape[0] - 1)
@@ -376,16 +376,12 @@ def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
             valid.sum(1, dtype=torch.int32))
 
 
-def edges_in_cone(edges: EdgeTable, clusters: EdgeClusters | None, ro, rd,
-                  env, zmax, K: int):
+def edges_in_cone(edges: EdgeTable, clusters: EdgeClusters, ro, rd, env,
+                  zmax, K: int):
     """The integrators' edge sweep: the clustered sweep above
     MAX_UNCLUSTERED_EDGES edges, the exact all-edges sweep at or below
     it (as the JAX integrators switch). Returns (idx, z, count)."""
     if edges.count > MAX_UNCLUSTERED_EDGES:
-        if clusters is None:
-            raise ValueError(f"{edges.count} edges > "
-                             f"{MAX_UNCLUSTERED_EDGES} need the edge "
-                             "clusters (scene.build_scene bakes them)")
         return edges_near_cone_clustered(edges, clusters, ro, rd, env, zmax,
                                          K)
     return edges_near_cone(edges, ro, rd, env, zmax, K)

@@ -85,18 +85,12 @@ class GeoArrays:
 
 def from_soup(soup, mat_id, shape_id, emitter_id,
               bvh: FlatBVH | None = None) -> dict:
-    """Host bake of a TriangleSoup + per-tri ids → dict of numpy arrays
-    {p0, e1, e2, tri_geom, tri_attr, mxu_center}, in soup order; with a
-    `bvh`, permuted into its leaf order (`bvh.tri_order`), as the JAX
-    package's `from_soup` does, plus node_pack (what the traversal
-    reads), node_left and node_count (the tree's shape, for its depth) and
-    tri_order (row i of the tables is soup triangle tri_order[i])."""
-    if bvh is not None:
-        perm = bvh.tri_order
-        soup = type(soup)(**{f: getattr(soup, f)[perm] for f in (
-            "positions", "normals", "uvs", "geo_n", "dpdu")})
-        mat_id, shape_id, emitter_id = (np.asarray(x)[perm] for x in (
-            mat_id, shape_id, emitter_id))
+    """Host bake of a TriangleSoup + per-tri ids, in device order → dict
+    of numpy arrays {p0, e1, e2, tri_geom, tri_attr, mxu_center}; with the
+    `bvh` whose leaf order the soup is in (`scene/build.py` permutes it),
+    also node_pack (what the traversal reads), node_left and node_count
+    (the tree's shape, for its depth) and tri_order (row i of the tables
+    is the unpermuted soup's triangle tri_order[i])."""
     p = soup.positions
     T = len(p)
     e1 = (p[:, 1] - p[:, 0]).astype(np.float32)

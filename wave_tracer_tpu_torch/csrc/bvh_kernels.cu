@@ -50,8 +50,8 @@
 namespace {
 
 constexpr int BLOCK = 128;
-constexpr int STACK = 32;            // MAX_DEPTH + 2
-constexpr int LEAF_TILE = 4;         // the builder's largest leaf
+constexpr int STACK = 32;            // accel/bvh_kernels.py STACK
+constexpr int LEAF_TILE = 4;         // accel/bvh.py LEAF_TILE
 constexpr float BIGF = 3.4e38f;
 
 struct V3 {

@@ -43,6 +43,13 @@ class TriangleSoup:
         e2 = self.positions[:, 2] - self.positions[:, 0]
         return 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
 
+    def take(self, order: np.ndarray) -> "TriangleSoup":
+        """The triangles `order` names, in that order."""
+        return TriangleSoup(positions=self.positions[order],
+                            normals=self.normals[order],
+                            uvs=self.uvs[order], geo_n=self.geo_n[order],
+                            dpdu=self.dpdu[order])
+
     @staticmethod
     def concatenate(soups: list["TriangleSoup"]) -> "TriangleSoup":
         return TriangleSoup(

@@ -64,16 +64,17 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def build_bvh_native(positions: np.ndarray, max_leaf: int = 4):
-    """C++ binned-SAH build of positions (T, 3, 3) → FlatBVH."""
-    from wave_tracer_tpu_torch.accel.bvh import FlatBVH
+def build_bvh_native(positions: np.ndarray):
+    """C++ binned-SAH build of positions (T, 3, 3) → FlatBVH, leaves of at
+    most LEAF_TILE triangles."""
+    from wave_tracer_tpu_torch.accel.bvh import LEAF_TILE, FlatBVH
 
     lib = build()
     pos = np.ascontiguousarray(positions, np.float32)
     T = len(pos)
     fp = ctypes.POINTER(ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int32)
-    n_nodes = lib.wt_bvh_build(pos.ctypes.data_as(fp), T, max_leaf)
+    n_nodes = lib.wt_bvh_build(pos.ctypes.data_as(fp), T, LEAF_TILE)
     node_min = np.zeros((n_nodes, 3), np.float32)
     node_max = np.zeros((n_nodes, 3), np.float32)
     node_left = np.zeros(n_nodes, np.int32)

@@ -6,14 +6,14 @@ dotted field paths of the JAX package's SceneData pytree ("geo.p0",
 "edges.tri1", ...), to a SceneData of torch tensors on `device`. The
 port's own `build_scene` bakes such a dict; a SceneData baked by the JAX
 package, flattened with np.asarray on its leaves, loads the same way.
-Optional keys: "geo.node_pack", the packed BVH a scene above
-MXU_MAX_TRIS triangles is traced with (a JAX bake's tree is loaded, so
-the port walks the JAX tree; the port's own bake writes one only above
-that count), and "edge_clusters.*", the clustered edge sweep's index
-(built here from the edge table where a dict lacks it or holds one of
-another table). Keys the port does not read (Pallas feature layouts,
-triangle clusters, the node arrays besides node_pack) are ignored: the
-kernel rows are rebuilt here from p0/e1/e2/mxu_center.
+Both bakes write "edge_clusters.*", the clustered edge sweep's index,
+and it is required as the edge table is. One key is optional:
+"geo.node_pack", the packed BVH a scene above MXU_MAX_TRIS triangles is
+traced with (a JAX bake's tree is loaded, so the port walks the JAX tree;
+the port's own bake writes one only above that count). Keys the port does
+not read (Pallas feature layouts, triangle clusters, the node arrays
+besides node_pack) are ignored: the kernel rows are rebuilt here from
+p0/e1/e2/mxu_center.
 
 The tables learn here which row types and features they hold (the
 `has_*` flags of the material, texture and emitter tables), so that the
@@ -29,9 +29,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from wave_tracer_tpu_torch.accel.bvh import check_traversable
 from wave_tracer_tpu_torch.accel.edges import (CLUSTER_KEYS, EDGE_KEYS,
-                                               EdgeClusters, EdgeTable,
-                                               build_edge_clusters)
+                                               EdgeClusters, EdgeTable)
 from wave_tracer_tpu_torch.accel.trace import GeoArrays
 from wave_tracer_tpu_torch.bsdf import table as mtab
 from wave_tracer_tpu_torch.bsdf.device import Tables
@@ -60,6 +60,8 @@ KEYS = tuple([f"geo.{k}" for k in GEO_KEYS]
              + [f"emitters.{k}" for k in EMITTER_KEYS]
              + [f"spectral.{k}" for k in SPECTRAL_KEYS]
              + [f"edges.{k}" for k in EDGE_KEYS])
+# the clustered edge sweep's index, required as KEYS are
+CLUSTER_ROWS = tuple(f"edge_clusters.{k}" for k in CLUSTER_KEYS)
 
 
 @dataclass
@@ -70,7 +72,7 @@ class SceneData:
     emitters: etab.EmitterTable
     spectral: SpectralSampler      # for the primary sensor
     edges: EdgeTable               # classified wedge edges (FSD)
-    edge_clusters: EdgeClusters | None = None   # the clustered sweep's index
+    edge_clusters: EdgeClusters    # the clustered sweep's index
 
 
 def _check_ported(a):
@@ -91,10 +93,10 @@ def _check_ported(a):
 
 def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     """Upload the flat numpy dict (see module doc) to `device`."""
-    missing = [k for k in KEYS if k not in arrays]
+    missing = [k for k in KEYS + CLUSTER_ROWS if k not in arrays]
     if missing:
         raise KeyError(f"scene arrays lack {missing}")
-    a = {k: np.asarray(arrays[k]) for k in KEYS}
+    a = {k: np.asarray(arrays[k]) for k in KEYS + CLUSTER_ROWS}
     _check_ported(a)
 
     def t(key, dtype=None):
@@ -104,8 +106,11 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     f32, i32 = torch.float32, torch.int32
     p0, e1, e2 = t("geo.p0", f32), t("geo.e1", f32), t("geo.e2", f32)
     center = t("geo.mxu_center", f32)
-    node_pack = (torch.tensor(np.asarray(arrays["geo.node_pack"])).to(
-        device=device, dtype=f32) if "geo.node_pack" in arrays else None)
+    node_pack = None
+    if "geo.node_pack" in arrays:
+        pack = np.asarray(arrays["geo.node_pack"])
+        check_traversable(pack[:, 0], len(pack), len(a["geo.p0"]))
+        node_pack = torch.tensor(pack).to(device=device, dtype=f32)
     geo = GeoArrays(p0=p0, e1=e1, e2=e2, tri_geom=t("geo.tri_geom", f32),
                     tri_attr=t("geo.tri_attr", f32), mxu_center=center,
                     node_pack=node_pack)
@@ -149,26 +154,10 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
         {k: a[f"spectral.{k}"] for k in SPECTRAL_KEYS}, device)
     edges = EdgeTable(**{k: t(f"edges.{k}", i32 if k in ("tri1", "tri2")
                                 else f32) for k in EDGE_KEYS})
+    clusters = EdgeClusters(**{k: t(f"edge_clusters.{k}", f32 if k in (
+        "center", "radius") else i32) for k in CLUSTER_KEYS})
     return SceneData(geo=geo, tables=tables, emitters=emitters,
-                     spectral=spectral, edges=edges,
-                     edge_clusters=edge_clusters_from_numpy(arrays, device))
-
-
-def edge_clusters_from_numpy(arrays: dict, device) -> EdgeClusters:
-    """The dict's "edge_clusters.*" where it holds them for its edge table
-    (their `order` names every edge), else those built from "edges.*"."""
-    E = len(np.asarray(arrays["edges.center"]))
-    keys = [f"edge_clusters.{k}" for k in CLUSTER_KEYS]
-    if all(k in arrays for k in keys) and \
-            len(np.asarray(arrays["edge_clusters.order"])) == E:
-        cl = {k: np.asarray(arrays[f"edge_clusters.{k}"])
-              for k in CLUSTER_KEYS}
-    else:
-        cl = build_edge_clusters({k: np.asarray(arrays[f"edges.{k}"])
-                                  for k in ("center", "p0", "p1")})
-    return EdgeClusters(**{
-        k: torch.tensor(v).to(device=device, dtype=torch.float32 if k in (
-            "center", "radius") else torch.int32) for k, v in cl.items()})
+                     spectral=spectral, edges=edges, edge_clusters=clusters)
 
 
 def spectral_from_numpy(arrays: dict, device) -> SpectralSampler:

@@ -140,33 +140,32 @@ def bake_scene_arrays(scene: Scene):
     if not soups:
         raise ValueError("scene has no triangles")
     soup = TriangleSoup.concatenate(soups)
-    emitter_id = np.concatenate(emitter_id)
+    mat_id, shape_id, emitter_id = (np.concatenate(x) for x in (
+        mat_id, shape_id, emitter_id))
     bvh = None
     if trace_mod.takes_bvh(soup.num_tris):
+        # every table below names triangles in the BVH's leaf order
         bvh = bvh_mod.build_bvh(soup.positions)
+        perm = bvh.tri_order
+        soup = soup.take(perm)
+        mat_id, shape_id, emitter_id = (x[perm] for x in (
+            mat_id, shape_id, emitter_id))
 
     out = {}
 
     def put(prefix, d):
         out.update({f"{prefix}.{k}": v for k, v in d.items()})
 
-    put("geo", trace_mod.from_soup(soup, np.concatenate(mat_id),
-                                   np.concatenate(shape_id), emitter_id,
-                                   bvh))
-    # the other tables name triangles in the geometry's (device) order
-    positions, geo_n, areas = soup.positions, soup.geo_n, soup.areas()
-    if bvh is not None:
-        perm = bvh.tri_order
-        positions, geo_n, areas, emitter_id = (
-            positions[perm], geo_n[perm], areas[perm], emitter_id[perm])
+    put("geo", trace_mod.from_soup(soup, mat_id, shape_id, emitter_id, bvh))
     put("tables.spectra", bake_spectra(spectra))
     put("tables.textures", bake_textures(textures, sp_ids))
     put("tables.cspectra", bake_complex(cspectra))
     put("tables.materials", bake_materials(materials, tex_ids, sp_ids,
                                            csp_ids))
     put("emitters", bake_emitters(scene.emitters, sp_ids, emitter_id,
-                                  areas, scene_radius=scene.world_radius()))
-    edges = edges_mod.classify_edges(positions, geo_n)
+                                  soup.areas(),
+                                  scene_radius=scene.world_radius()))
+    edges = edges_mod.classify_edges(soup.positions, soup.geo_n)
     put("edges", edges)
     put("edge_clusters", edges_mod.build_edge_clusters(edges))
     per_sensor = [build_spectral_sampler(
