@@ -8,7 +8,9 @@ Drives the port's main paths through the entry points a user calls
 for scene files `python -m wave_tracer_tpu_torch render scene.xml`, and
 across processes `parallel.dist.render_distributed` and the CLI's
 `--distributed`; scenes above 2^17 triangles through the BVH route and a
-city above 2048 wedge edges through the clustered edge sweep)
+city above 2048 wedge edges through the clustered edge sweep; the wave
+path under each WT_CONE_QUERY mode, the threefry sampler and the
+clustered ball query)
 on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
@@ -272,6 +274,28 @@ Phases (each raises on failure; nothing is caught):
      edges) at 256x256 x 8, depth 4, UTD: every edge sweep clustered, K1
      and K2 launch, K4/K5 do not; paths/s; at 32x32 x 4 on the card and on
      the CPU at phase 15's coverage bars
+ 29. the JAX package's other cone queries (WT_CONE_QUERY), the triangle
+     clusters and the threefry sampler, with the variables set in-process
+     and restored: the triangle-cluster bake's seconds at 81,932 and
+     327,692 triangles; (a) tris_near_cone ("topk"),
+     tris_near_cone_2pass and tris_near_cone_clustered on 4,096 seeded
+     cones about the scale scene's icosphere, and tris_in_ball_clustered
+     on 4,096 balls near it, CUDA-event ms per call beside K3's minima
+     on the same cones; card vs the port's CPU (topk on the first 64
+     cones, 2pass on 512, the others on all): slots equal on >= 99.5%, z
+     within 1e-5 relative; (b) the wave box at 256x256 x 8 spp, depth 8,
+     under topk, 2pass, clustered and mxu: paths/s (one render each), K3
+     launched under mxu only; at 64x64 x 1 spp, depth 5, card vs CPU at
+     the wave bars; (c) the scale scene at 256x256 x 1 spp, depth 8,
+     under the default (K3), clustered and 2pass: paths/s; (d)
+     WT_SAMPLER=uniform: 262,144 lanes' threefry keys and uniform draws
+     bit-equal card vs CPU, the wave box at 32x32 x 4 spp, depth 5, card
+     vs CPU at the wave bars, and at full width; (e) the bdpt box with a
+     1,280-triangle icosphere at 32x32 x 4 spp, depth 5, with
+     WT_TRI_CLUSTER_MIN=1024: the blocked-flux ball query takes the
+     clustered index on both devices, card vs CPU at phase 13's bars.
+     Launches of (b)-(e) under "launches_by_path"; readings under the K3
+     row's "cone_queries"
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path" (the gradient
      modes of phases 19, 23 and 24, the batched renders of phase 21 and
@@ -2966,6 +2990,354 @@ def check_city(build_scene):
 KERNELS = ("closest", "anyhit", "cone_minz")    # K1, K2, K3's counts
 
 
+# ---- phase 29: the JAX package's other cone queries (WT_CONE_QUERY), the
+# triangle clusters, the clustered ball query and the threefry sampler
+
+CONE_QUERIES = ("topk", "2pass", "clustered")
+QUERY_CONES = 4096
+# cones the CPU side checks per query: the exact all-triangles test of
+# topk takes about 18 s for 128 cones there, the 2-pass pretest about 1 s
+# for 512
+CPU_CONES = {"topk": 64, "2pass": 512, "clustered": QUERY_CONES}
+CLUSTER_MIN_LOW = 1024      # WT_TRI_CLUSTER_MIN of the clustered-ball check
+
+
+class env_var:
+    """Set (value) or unset (None) an environment variable for a block,
+    restoring it after."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        import os
+        self.prev = os.environ.get(self.name)
+        if self.value is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        import os
+        if self.prev is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.prev
+
+
+def query_cones(N, seed, center, radius):
+    """tests/test_trace.py's cone generator about a sphere (center,
+    radius): origins at 3 radii, aimed within half a radius of its
+    centre, x0 in [0.005, 0.05]·radius, ta in [0, 0.08]."""
+    r = np.random.default_rng(seed)
+    ro = r.normal(size=(N, 3))
+    ro = center + 3.0 * radius * ro / np.linalg.norm(ro, axis=1,
+                                                     keepdims=True)
+    rd = center + 0.5 * radius * r.normal(size=(N, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    x = np.cross(rd, [0.0, 0.57, 0.8])
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cols = (ro, rd, x, r.uniform(0.005, 0.05, N) * radius,
+            r.uniform(0.0, 0.08, N), np.ones(N))
+    return [np.asarray(c, np.float32) for c in cols]
+
+
+def run_query(name, data, cols, dev, K):
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    from wave_tracer_tpu_torch.wave.envelope import EnvState
+    ro, rd, x, x0, ta, e = (torch.from_numpy(c).to(dev) for c in cols)
+    env = EnvState(x=x, x0=x0, ta=ta, e=e)
+    zmax = torch.full((ro.shape[0],), 10.0, device=dev)
+    if name == "clustered":
+        return trace_mod.tris_near_cone_clustered(
+            data.geo, data.tri_clusters, ro, rd, env, zmax, K)
+    fn = {"topk": trace_mod.tris_near_cone,
+          "2pass": trace_mod.tris_near_cone_2pass}[name]
+    return fn(data.geo, ro, rd, env, zmax, K)
+
+
+def check_query_vs_cpu(name, got, want, tag):
+    """Slots equal on >= 99.5%, z within 1e-5 relative where they do."""
+    gi, gz, gc = (x.cpu().numpy() for x in got)
+    wi, wz, wc = (x.numpy() for x in want)
+    slots = (gi == wi).mean()
+    check(slots >= 0.995 and (gc == wc).mean() >= 0.995,
+          f"{tag} {name}: slots {slots:.5f}, counts "
+          f"{(gc == wc).mean():.5f}")
+    same = (gi == wi) & (wi >= 0)
+    rel = np.abs(gz[same] - wz[same]) / np.maximum(np.abs(wz[same]), 1e-30)
+    check(rel.size == 0 or rel.max() <= 1e-5,
+          f"{tag} {name}: z rel {rel.max() if rel.size else 0:.3g}")
+    return float(slots), float(rel.max()) if rel.size else 0.0
+
+
+def check_queries(wbig, cpu):
+    """29a: the three cone set queries and the clustered ball query over
+    the scale scene (81,932 triangles) on QUERY_CONES seeded cones about
+    the icosphere, card against the port's CPU (CPU_CONES of them), with
+    CUDA-event ms per call beside K3's minima on the same cones."""
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    from wave_tracer_tpu_torch.integrator.path_compact import FSD_SLOTS
+    from wave_tracer_tpu_torch.integrator.traversal import segment_boundaries
+    from wave_tracer_tpu_torch.wave.envelope import EnvState
+    center, radius = np.array([2.78, 1.2, 2.78]), 0.9
+    cols = query_cones(QUERY_CONES, 2900, center, radius)
+    data = wbig.data
+    out = {}
+    for name in CONE_QUERIES:
+        got = run_query(name, data, cols, "cuda", FSD_SLOTS)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: run_query(name, data, cols, "cuda", FSD_SLOTS),
+                     3)
+        n = CPU_CONES[name]
+        t0 = time.perf_counter()
+        want = run_query(name, cpu, [c[:n] for c in cols], "cpu", FSD_SLOTS)
+        cpu_s = time.perf_counter() - t0
+        slots, rel = check_query_vs_cpu(
+            name, [x[:n] for x in got], want, "phase 29a")
+        hits = int(got[2].sum().item())
+        check(hits > QUERY_CONES, f"phase 29a {name}: {hits} encounters")
+        out[name] = dict(ms=ms, cpu_cones=n, cpu_s=cpu_s, slots_equal=slots,
+                         z_rel_max=rel, encounters=hits)
+    # K3's per-boundary minima on the same cones (the default query)
+    ro, rd, x, x0, ta, e = (torch.from_numpy(c).cuda() for c in cols)
+    env = EnvState(x=x, x0=x0, ta=ta, e=e)
+    zmax = torch.full((QUERY_CONES,), 10.0, device="cuda")
+    bounds = segment_boundaries(torch.full((QUERY_CONES,), 5e-7,
+                                           device="cuda"))
+    out["k3_minima_ms"] = cuda_ms(lambda: trace_mod.cone_boundary_minz(
+        data.geo, ro, rd, env, bounds, zmax), 3)
+    # the clustered ball query: balls about points near the icosphere
+    r = np.random.default_rng(2901)
+    u = r.normal(size=(QUERY_CONES, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    c = (center + radius * u * r.uniform(0.9, 1.1, (QUERY_CONES, 1))
+         ).astype(np.float32)
+    rad = (radius * r.uniform(0.02, 0.3, QUERY_CONES)).astype(np.float32)
+
+    def ball(d, dev):
+        return trace_mod.tris_in_ball_clustered(
+            d.geo, d.tri_clusters, torch.from_numpy(c).to(dev),
+            torch.from_numpy(rad).to(dev), 8)
+    got = ball(data, "cuda")
+    ms = cuda_ms(lambda: ball(data, "cuda"), 3)
+    want = ball(cpu, "cpu")
+    gi, gd, gc = (x.cpu().numpy() for x in got)
+    wi, wd, wc = (x.numpy() for x in want)
+    check((gi == wi).mean() >= 0.995 and (gc == wc).mean() >= 0.995
+          and wc.sum() > QUERY_CONES,
+          f"phase 29a ball: ids {(gi == wi).mean():.5f}, counts "
+          f"{(gc == wc).mean():.5f}, {wc.sum()} found")
+    out["ball_clustered"] = dict(ms=ms, ids_equal=float((gi == wi).mean()),
+                                 found=int(wc.sum()))
+    print(f"phase 29a: N={QUERY_CONES} cones over {data.geo.num_tris} tris "
+          f"({data.tri_clusters.num_clusters} clusters), ms per call: "
+          + ", ".join(f"{k} {out[k]['ms']:.3f}" for k in CONE_QUERIES)
+          + f"; K3 minima {out['k3_minima_ms']:.3f}; ball (clustered) "
+          f"{out['ball_clustered']['ms']:.3f}. Card vs CPU: "
+          + ", ".join(f"{k} on {out[k]['cpu_cones']} cones slots "
+                      f"{out[k]['slots_equal']:.4f} (z rel "
+                      f"{out[k]['z_rel_max']:.2g}, CPU {out[k]['cpu_s']:.1f} s)"
+                      for k in CONE_QUERIES)
+          + f"; ball ids {out['ball_clustered']['ids_equal']:.4f}",
+          flush=True)
+    return out
+
+
+def mode_render(built, mode, spp=None, device="cuda"):
+    """render_scene under WT_CONE_QUERY=mode, its launches counted."""
+    from wave_tracer_tpu_torch.render import render_scene
+    with env_var("WT_CONE_QUERY", mode or None):
+        zero_counts()
+        img, st = render_scene(built, spp=spp, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return img, st, launch_counts()
+
+
+def check_mode_launches(mode, launches, tag):
+    set_query = mode in CONE_QUERIES
+    check(launches["closest"] > 0 and launches["anyhit"] > 0
+          and (launches["cone_minz"] == 0) == set_query
+          and launches["cone_minz_winners"] == 0
+          and launches["bvh_closest"] == launches["bvh_any"] == 0,
+          f"{tag} {mode or 'default'}: launched {launches}")
+
+
+WAVE_BARS = dict(mean_rtol=0.02, px_tol=1e-2, px_frac=0.90,
+                 counter_rtol=0.02, corr=0.999,
+                 counters=("rays_cast", "surface_interactions",
+                           "fsd_interactions", "diffusive_traversals",
+                           "sum_path_depth", "cone_tri_tests"))
+
+
+def check_mode_renders(build_scene, wbox, wbig):
+    """29b: the full-width wave box (256x256 x 8 spp, depth 8) under each
+    mode (one render each), and at 64x64 x 1 spp, depth 5, card vs CPU at
+    the wave bars; 29c: the scale scene at 256x256 x 1 spp, depth 8,
+    under clustered and 2pass beside K3's default render of the same
+    lanes."""
+    out, launches = {}, {}
+    small = build_scene(box_scene(64, 1, 5, fsd=True), device="cuda")
+    small_cpu = small.on("cpu")
+    for mode in CONE_QUERIES + ("mxu",):
+        img, st, n = mode_render(wbox, mode)
+        check_wave_render(img, st, (256, 256, 3), f"phase 29b {mode}")
+        check_mode_launches(mode, n, "phase 29b")
+        img_c, st_c, _ = mode_render(small, mode)
+        img_h, st_h, _ = mode_render(small_cpu, mode, device="cpu")
+        frac = compare_images(img_c, img_h, st_c, st_h, f"phase 29b {mode}",
+                              **WAVE_BARS)
+        out[f"wave_{mode}"] = dict(paths_per_sec=st["paths_per_sec"],
+                                   seconds=st["seconds"],
+                                   vs_cpu_64=float(frac))
+        launches[f"wave_{mode}"] = n
+    print("phase 29b: wave box 256x256 8 spp depth 8 (one render each): "
+          + ", ".join(f"{k[5:]} {v['paths_per_sec']:.1f} paths/s"
+                      for k, v in out.items())
+          + "; 64x64 1 spp depth 5 cuda vs cpu within the wave bars: "
+          + ", ".join(f"{k[5:]} {v['vs_cpu_64']:.4f}"
+                      for k, v in out.items()), flush=True)
+    for mode in ("", "clustered", "2pass"):
+        img, st, n = mode_render(wbig, mode, spp=1)
+        check_wave_render(img, st, (256, 256, 3), f"phase 29c {mode}")
+        check_mode_launches(mode, n, "phase 29c")
+        key = f"scale_{mode or 'k3'}"
+        out[key] = dict(paths_per_sec=st["paths_per_sec"],
+                        seconds=st["seconds"],
+                        diffusive=st["device_counters"][
+                            "diffusive_traversals"])
+        launches[key] = n
+    print("phase 29c: wave box + icosphere (81,932 tris) 256x256 1 spp "
+          "depth 8: " + ", ".join(
+              f"{k[6:]} {out[k]['paths_per_sec']:.1f} paths/s "
+              f"({out[k]['seconds']:.3f} s, diffusive "
+              f"{out[k]['diffusive']:.0f})"
+              for k in ("scale_k3", "scale_clustered", "scale_2pass")),
+          flush=True)
+    return out, launches
+
+
+def check_threefry(build_scene, wbox):
+    """29d: WT_SAMPLER=uniform: the threefry words and uniform draws of
+    POOL lanes bit-equal card vs CPU, the wave box at 32x32 x 4 spp,
+    depth 5, card vs CPU at the wave bars, and at full width (one
+    render)."""
+    from wave_tracer_tpu_torch.sampling import rng
+    with env_var("WT_SAMPLER", "uniform"):
+        r = np.random.default_rng(2910)
+        pix = torch.from_numpy(r.integers(0, 65536, POOL))
+        sid = torch.from_numpy(r.integers(0, 8, POOL))
+        depth = torch.from_numpy(r.integers(0, 8, POOL))
+        base = rng.make_base_key(0)
+        check(isinstance(base, tuple), f"phase 29d: base key {base}")
+        draws = {}
+        for dev in ("cuda", "cpu"):
+            s = rng.depth_key_v(rng.sample_key(base, pix.to(dev),
+                                               sid.to(dev)), depth.to(dev))
+            draws[dev] = [s["key"].cpu(), rng.uniform(s, rng.D_RR).cpu(),
+                          rng.uniform(s, rng.D_FSD, 34).cpu()]
+        for a, b in zip(draws["cuda"], draws["cpu"]):
+            check(torch.equal(a, b), "phase 29d: threefry draws differ "
+                  "card vs CPU")
+        small = build_scene(box_scene(32, 4, 5, fsd=True), device="cuda")
+        img_c, st_c, _ = mode_render(small, None)
+        img_h, st_h, _ = mode_render(small.on("cpu"), None, device="cpu")
+        frac = compare_images(img_c, img_h, st_c, st_h, "phase 29d",
+                              **WAVE_BARS)
+        img, st, n = mode_render(wbox, None)
+    check_wave_render(img, st, (256, 256, 3), "phase 29d")
+    check_mode_launches("", n, "phase 29d")
+    out = dict(paths_per_sec=st["paths_per_sec"], seconds=st["seconds"],
+               vs_cpu_32=float(frac))
+    print(f"phase 29d: WT_SAMPLER=uniform: {POOL} lanes' keys and draws "
+          f"bit-equal card vs CPU; wave box 32x32 4 spp depth 5 cuda vs "
+          f"cpu {frac:.4f} of pixels within the bar; 256x256 8 spp depth "
+          f"8: {st['paths_per_sec']:.1f} paths/s (one render)", flush=True)
+    return out, n
+
+
+def check_clustered_ball(build_scene):
+    """29e: the bdpt box with a 1,280-triangle icosphere inside it at
+    32x32 x 4 spp, depth 5, with WT_TRI_CLUSTER_MIN lowered to 1,024: the
+    blocked-flux ball query takes the clustered index on the card and on
+    the CPU (its calls counted), card vs CPU at phase 13's bdpt bars."""
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    from wave_tracer_tpu_torch.geometry import mesh
+    from wave_tracer_tpu_torch.scene.model import Shape
+    scene = bdpt_scene(32, 4, 5)
+    scene.shapes.append(Shape(mesh.sphere([0.3, 0.6, -0.2], 0.4,
+                                          tessellation=24),
+                              scene.shapes[0].material))
+    built = build_scene(scene, device="cuda")
+    check(built.data.geo.num_tris == 1292,
+          f"phase 29e: {built.data.geo.num_tris} tris")
+    calls = {"cuda": 0, "cpu": 0}
+    real = trace_mod.tris_in_ball_clustered
+
+    def spy(geo, *a, **kw):
+        calls[geo.p0.device.type] += 1
+        return real(geo, *a, **kw)
+
+    trace_mod.tris_in_ball_clustered = spy
+    try:
+        with env_var("WT_TRI_CLUSTER_MIN", str(CLUSTER_MIN_LOW)):
+            img_c, st_c, n = mode_render(built, None)
+            img_h, st_h, _ = mode_render(built.on("cpu"), None,
+                                         device="cpu")
+    finally:
+        trace_mod.tris_in_ball_clustered = real
+    check(calls["cuda"] > 0 and calls["cpu"] > 0,
+          f"phase 29e: clustered ball calls {calls}")
+    check(st_c["mode"] == st_h["mode"] == "bdpt", "phase 29e: mode")
+    frac = compare_images(
+        img_c, img_h, st_c, st_h, "phase 29e", mean_rtol=0.02, px_tol=1e-2,
+        px_frac=0.90, counter_rtol=0.02, corr=0.999,
+        counters=("rays_cast", "surface_interactions", "fsd_interactions",
+                  "sum_path_depth", "shadow_rays"))
+    for k, rtol in (("edge_sweep_hits", 0.08), ("null_interactions", 0.18)):
+        a, b = st_c["device_counters"][k], st_h["device_counters"][k]
+        check(abs(a - b) <= rtol * max(b, 1.0),
+              f"phase 29e: counter {k} {a} vs {b}")
+    print(f"phase 29e: bdpt box + icosphere (1,292 tris) 32x32 4 spp depth "
+          f"5, WT_TRI_CLUSTER_MIN={CLUSTER_MIN_LOW}: clustered ball calls "
+          f"{calls}; cuda vs cpu {frac:.4f} of pixels within the bar; "
+          f"launches {n}", flush=True)
+    return dict(vs_cpu_32=float(frac), clustered_calls=calls), n
+
+
+def tri_cluster_bake_s(built):
+    """Host seconds of the triangle-cluster bake of `built`'s tables."""
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    a = built.arrays
+    t0 = time.perf_counter()
+    trace_mod.build_tri_clusters(a["geo.p0"], a["geo.e1"], a["geo.e2"],
+                                 cap=trace_mod.TRI_CAP)
+    return time.perf_counter() - t0
+
+
+def check_phase29(build_scene, wbox, wbig, large):
+    """Phase 29 (a)-(e); returns (readings, launches by path)."""
+    t0 = time.perf_counter()
+    bake = {"scale_81932": tri_cluster_bake_s(wbig),
+            "large_327692": tri_cluster_bake_s(large)}
+    print(f"phase 29: the triangle-cluster bake: "
+          f"{bake['scale_81932']:.2f} s at 81,932 tris, "
+          f"{bake['large_327692']:.2f} s at 327,692", flush=True)
+    cpu = wbig.on("cpu").data
+    out = dict(tri_cluster_bake_s=bake, queries=check_queries(wbig, cpu))
+    del cpu
+    renders, launches = check_mode_renders(build_scene, wbox, wbig)
+    out["renders"] = renders
+    out["threefry"], launches["wave_threefry"] = check_threefry(build_scene,
+                                                                wbox)
+    out["clustered_ball"], launches["bdpt_clustered_ball"] = \
+        check_clustered_ball(build_scene)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 29: {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def each_launched(counts):
     """K1, K2 and K3 each launched in the run that `counts` read (K3's
     winner build is counted apart as well, under cone_minz_winners)."""
@@ -3496,6 +3868,11 @@ def main():
     city = check_city(build_scene)
     large_launches = large_out["launches"]
 
+    # ---- phase 29: the other cone queries, the clustered ball query and
+    # the threefry sampler
+    p29, l29 = check_phase29(build_scene, wbox, wbig, large)
+    extra_launches.update(l29)
+
     # ---- phase 11
     def row(name, src, replaces, key, stats, main=None, **extra):
         bound_ms, bound_by = stats["bound"]
@@ -3574,7 +3951,7 @@ def main():
             geometry_gradients=g26,
             distributed={k: v for k, v in d27.items()
                          if not k.startswith("launches")},
-            at_327692_tris=large_out["k3"]),
+            at_327692_tris=large_out["k3"], cone_queries=p29),
         row("bvh_closest_hit", "bvh_kernels.cu",
             "wave_tracer_tpu/accel/trace.py:250", "bvh_closest", k4,
             main=large_launches, tpu_kernel=None,

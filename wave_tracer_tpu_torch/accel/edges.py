@@ -3,7 +3,9 @@ exact cone-mode edge query.
 
 Port of wave_tracer_tpu/accel/edges.py (`EdgeTable`, `classify_edges`,
 `_exact_cone_entries`, `edges_near_cone`, `EdgeClusters`,
-`build_edge_clusters`, `edges_near_cone_clustered`). The classification
+`build_edge_clusters`, `edges_near_cone_clustered`, and the ball and ray
+queries no integrator calls: `edges_in_ball`, `edges_near_ray`,
+`edges_near_ray_clustered`). The classification
 is numpy host code: a vectorized hash join over quantized vertex
 positions finds triangle pairs sharing two vertices and builds wedge
 records carrying both outward face normals, the face tangents and the
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from wave_tracer_tpu_torch.accel import select
 from wave_tracer_tpu_torch.math import vec
 from wave_tracer_tpu_torch.ops import cone_intersect as ci
 
@@ -238,34 +241,18 @@ def edges_near_cone(edges: EdgeTable, ro, rd, env, zmax, K: int,
     count (N,) i32)."""
     E = edges.count
     N = ro.shape[0]
-    dev = ro.device
     if E == 0:
-        return (torch.full((N, K), -1, dtype=torch.int32, device=dev),
-                torch.full((N, K), math.inf, device=dev),
-                torch.zeros((N,), dtype=torch.int32, device=dev))
+        return select.empty_set(N, K, ro.device)
+
+    def keys(s, n):
+        z, ok = _exact_cone_entries(ro, rd, env,
+                                    edges.p0[None, s:s + n].expand(N, n, 3),
+                                    edges.p1[None, s:s + n].expand(N, n, 3),
+                                    zmax)
+        return torch.where(ok, z, math.inf)
     # padded edges are masked out, so a tile of min(tile, E) gives the
     # same result without (N, 1024, 3) temporaries for a 16-edge scene
-    tile = min(tile, E)
-    bz = torch.full((N, K), math.inf, device=dev)
-    bidx = torch.full((N, K), -1, dtype=torch.int32, device=dev)
-    for s in range(0, E, tile):
-        tp0 = edges.p0[s:s + tile]
-        tp1 = edges.p1[s:s + tile]
-        n = tp0.shape[0]
-        z, ok = _exact_cone_entries(ro, rd, env,
-                                    tp0[None].expand(N, n, 3),
-                                    tp1[None].expand(N, n, 3), zmax)
-        ids = torch.arange(s, s + n, dtype=torch.int32, device=dev)
-        zk = torch.where(ok, z, math.inf)
-        cat_z = torch.cat([bz, zk], dim=1)
-        cat_i = torch.cat([bidx, ids[None].expand(N, n)], dim=1)
-        # stable ascending sort = top_k of −z with ties to lower index
-        sz, sel = torch.sort(cat_z, dim=1, stable=True)
-        bz = sz[:, :K]
-        bidx = torch.gather(cat_i, 1, sel[:, :K])
-    valid = torch.isfinite(bz)
-    return (torch.where(valid, bidx, -1), bz,
-            valid.sum(1, dtype=torch.int32))
+    return select.tiled_smallest(N, E, K, min(tile, E), ro.device, keys)
 
 
 # ---------------------------------------------------------------------------
@@ -327,13 +314,6 @@ def build_edge_clusters(edges: dict) -> dict:
                 count=counts.astype(np.int32), order=order.astype(np.int32))
 
 
-def _smallest(z, k):
-    """(values, indices) of the k smallest of each row, ascending, ties to
-    the lower index (jax.lax.top_k of −z); k may exceed the row."""
-    sz, sel = torch.sort(z, dim=1, stable=True)
-    return sz[:, :k], sel[:, :k]
-
-
 def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
                               ro, rd, env, zmax, K: int):
     """Clustered exact cone-mode edge set: a conservative sphere prefilter
@@ -344,17 +324,14 @@ def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
     N = ro.shape[0]
     dev = ro.device
     if edges.count == 0:
-        return (torch.full((N, K), -1, dtype=torch.int32, device=dev),
-                torch.full((N, K), math.inf, device=dev),
-                torch.zeros((N,), dtype=torch.int32, device=dev))
+        return select.empty_set(N, K, dev)
     w = clusters.center[None, :, :] - ro[:, None, :]
     zc = (w * rd[:, None, :]).sum(-1).clamp_min(0.0)
     closest = ro[:, None, :] + zc[..., None] * rd[:, None, :]
     dist = torch.linalg.vector_norm(closest - clusters.center[None], dim=-1)
     reach = env.x0[:, None] + env.ta[:, None] * zc + clusters.radius[None]
     okc = (dist <= reach) & (zc - clusters.radius[None] <= zmax[:, None])
-    zk = torch.where(okc, zc, math.inf)
-    zsel, sel = _smallest(zk, N_CLUSTERS)
+    zsel, sel = select.smallest(torch.where(okc, zc, math.inf), N_CLUSTERS)
     valid_cl = torch.isfinite(zsel)
 
     base = clusters.start[sel].long()
@@ -368,12 +345,113 @@ def edges_near_cone_clustered(edges: EdgeTable, clusters: EdgeClusters,
     ei = eidx.long()
     z, ok = _exact_cone_entries(ro, rd, env, edges.p0[ei], edges.p1[ei],
                                 zmax)
-    zq = torch.where(ok & in_range, z, math.inf)
-    best_z, selk = _smallest(zq, K)
-    best_i = torch.gather(eidx, 1, selk)
-    valid = torch.isfinite(best_z)
-    return (torch.where(valid, best_i, -1), best_z,
-            valid.sum(1, dtype=torch.int32))
+    return select.pick(torch.where(ok & in_range, z, math.inf), eidx, K)
+
+
+# ---------------------------------------------------------------------------
+# ball and ray queries (plain torch; no integrator calls them)
+# ---------------------------------------------------------------------------
+
+def edges_in_ball(edges: EdgeTable, center, radius, K: int,
+                  tile: int = 1024):
+    """The K nearest edges whose segment meets the ball (center (N, 3),
+    radius (N,)), nearest first. Returns (idx (N, K) i32 −1-padded, dist
+    (N, K) inf-padded, count (N,) i32)."""
+    E = edges.count
+    N = center.shape[0]
+    dev = center.device
+    if E == 0:
+        return select.empty_set(N, K, dev)
+    d = edges.p1 - edges.p0
+
+    def keys(s, n):
+        tp0, td = edges.p0[s:s + n], d[s:s + n]
+        tl = edges.length[s:s + n]
+        w = center[:, None, :] - tp0[None]
+        t_par = ((w * td[None]).sum(-1)
+                 / (tl * tl).clamp_min(1e-30)[None]).clamp(0.0, 1.0)
+        q = tp0[None] + t_par[..., None] * td[None]
+        dist = torch.linalg.vector_norm(center[:, None, :] - q, dim=-1)
+        return torch.where(dist <= radius[:, None], dist, math.inf)
+    return select.tiled_smallest(N, E, K, tile, dev, keys)
+
+
+def _ray_segment_keys(ro, rd, x0, tan_alpha, zmax, p0, ed, ll):
+    """Closest approach of rays (ro, rd) (N, 3) to segments p0 + u·ed (N or
+    1, n, 3) of lengths ll: the ray parameter z of each pair where the
+    segment comes within x0 + tanα·z of the ray at 0 < z < zmax, else
+    inf. (N, n)."""
+    w0 = ro[:, None, :] - p0
+    b = (rd[:, None, :] * ed).sum(-1)
+    c = (ll * ll).clamp_min(1e-30)
+    ddot = (rd[:, None, :] * w0).sum(-1)
+    edot = (ed * w0).sum(-1)
+    denom = c - b * b
+    u = ((b * -ddot + edot) / torch.where(denom < 1e-20, 1e-20, denom)
+         ).clamp(0.0, 1.0)
+    z = (-ddot + b * u).clamp_min(0.0)
+    u = ((z * b + edot) / c).clamp(0.0, 1.0)       # u of the clamped z
+    q = p0 + u[..., None] * ed
+    pr = ro[:, None, :] + z[..., None] * rd[:, None, :]
+    dist = torch.linalg.vector_norm(pr - q, dim=-1)
+    ok = (dist <= x0[:, None] + tan_alpha[:, None] * z) & (z > 1e-7) \
+        & (z < zmax[:, None])
+    return torch.where(ok, z, math.inf)
+
+
+def edges_near_ray(edges: EdgeTable, ro, rd, x0, tan_alpha, zmax, K: int,
+                   tile: int = 1024):
+    """Edges inside the swept circular envelope x0 + tanα·z of each ray
+    segment (0, zmax): the K earliest by the ray parameter z of closest
+    approach. Returns (idx (N, K) −1-padded, z (N, K), count (N,))."""
+    E = edges.count
+    N = ro.shape[0]
+    dev = ro.device
+    if E == 0:
+        return select.empty_set(N, K, dev)
+    ed = edges.p1 - edges.p0
+
+    def keys(s, n):
+        return _ray_segment_keys(ro, rd, x0, tan_alpha, zmax,
+                                 edges.p0[None, s:s + n], ed[None, s:s + n],
+                                 edges.length[None, s:s + n])
+    return select.tiled_smallest(N, E, K, tile, dev, keys)
+
+
+def edges_near_ray_clustered(edges: EdgeTable, clusters: EdgeClusters, ro,
+                             rd, x0, tan_alpha, zmax, K: int,
+                             n_clusters: int = 8,
+                             edges_per_cluster: int = 64):
+    """Clustered `edges_near_ray`: the swept envelope against the cluster
+    spheres (each lane's n_clusters earliest by the closest-approach z of
+    the sphere's centre), then the exact segment test on the first
+    edges_per_cluster edges of each. The same contract."""
+    N = ro.shape[0]
+    dev = ro.device
+    if edges.count == 0:
+        return select.empty_set(N, K, dev)
+    w = clusters.center[None, :, :] - ro[:, None, :]
+    zc = (w * rd[:, None, :]).sum(-1).clamp_min(0.0)
+    closest = ro[:, None, :] + zc[..., None] * rd[:, None, :]
+    dist = torch.linalg.vector_norm(closest - clusters.center[None], dim=-1)
+    reach = x0[:, None] + tan_alpha[:, None] * zc + clusters.radius[None]
+    okc = (dist <= reach) & (zc - clusters.radius[None] <= zmax[:, None])
+    zsel, sel = select.smallest(torch.where(okc, zc, math.inf), n_clusters)
+    valid_cl = torch.isfinite(zsel)
+    base = clusters.start[sel].long()
+    cnt = clusters.count[sel]
+    offs = torch.arange(edges_per_cluster, device=dev)
+    cand = (base[..., None] + offs[None, None, :]).clamp(
+        0, clusters.order.shape[0] - 1)
+    in_range = ((offs[None, None, :] < cnt[..., None])
+                & valid_cl[..., None]).reshape(N, -1)
+    eidx = clusters.order[cand].reshape(N, -1)
+    ei = eidx.long()
+    p0 = edges.p0[ei]
+    zq = _ray_segment_keys(ro, rd, x0, tan_alpha, zmax, p0,
+                           edges.p1[ei] - p0,
+                           edges.length[ei].clamp_min(1e-12))
+    return select.pick(torch.where(in_range, zq, math.inf), eidx, K)
 
 
 def edges_in_cone(edges: EdgeTable, clusters: EdgeClusters, ro, rd, env,

@@ -13,21 +13,32 @@ triangle count as the JAX package chooses them:
   traversal kernels K4/K5 (accel/bvh_kernels.py).
 
 The cone sweep (`cone_boundary_minz`) runs through K3
-(accel/cone_kernels.py) on either route. The ball query of the bdpt
-blocked-flux integral (`tris_in_ball`) is plain torch.
+(accel/cone_kernels.py) on either route. The rest is plain torch, as
+none of it reaches a Pallas kernel in the JAX package: the cone set
+queries of WT_CONE_QUERY (`tris_near_cone`, `tris_near_cone_2pass`,
+`tris_near_cone_clustered` over the triangle clusters `TriClusters`,
+which the bake builds), the ball query of the bdpt and Fraunhofer
+blocked-flux integral (`tris_in_ball`, and `tris_in_ball_clustered`
+above `tri_cluster_min()` triangles), and the all-triangles
+Möller–Trumbore queries `trace_brute` / `occluded_brute`, which no
+integrator calls.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from wave_tracer_tpu_torch.accel import (bvh_kernels, cone_kernels,
-                                         ray_kernels)
+                                         ray_kernels, select)
 from wave_tracer_tpu_torch.accel.bvh import FlatBVH, pack_nodes
+from wave_tracer_tpu_torch.ops import cone_intersect as ci
+from wave_tracer_tpu_torch.ops import intersect as isect
+from wave_tracer_tpu_torch.wave.envelope import EnvState
 
 # above this triangle count the ray queries take the BVH route (K4/K5), as
 # the JAX package's do (its all-pairs MXU intersector stops there)
@@ -285,6 +296,17 @@ def _point_tri_dist(p, a, e1, e2, gn):
 # lane chunk of the ball query: at most this many (lane, triangle) pairs
 # of temporaries at once
 _BALL_PAIRS = 1 << 22
+# the same for the cone set queries, on the CPU and on the card (its
+# memory holds larger chunks, and each chunk is hundreds of launches)
+_CONE_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 24}
+
+
+def _chunked(N, width, dev, query):
+    """query(lanes) → (idx, key, count) over lane slices of at most
+    _CONE_PAIRS[dev] // width lanes, concatenated."""
+    step = max(1, _CONE_PAIRS[torch.device(dev).type] // max(width, 1))
+    parts = [query(slice(s, s + step)) for s in range(0, N, step)]
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def tris_in_ball(geo: GeoArrays, center, radius, K: int, tile: int = 512):
@@ -293,9 +315,8 @@ def tris_in_ball(geo: GeoArrays, center, radius, K: int, tile: int = 512):
     (idx (N, K) i32, −1-padded, dist (N, K), inf-padded, count (N,) i32).
 
     Plain torch over triangle tiles of min(tile, T) (padding is masked
-    anyway), in lane chunks of at most _BALL_PAIRS pairs; used by the bdpt
-    blocked-flux integral. Unlike the JAX package, no clustered variant:
-    its TPU path never takes one."""
+    anyway), in lane chunks of at most _BALL_PAIRS pairs; the bdpt
+    blocked-flux integral's query up to `tri_cluster_min()` triangles."""
     T = geo.num_tris
     N = center.shape[0]
     dev = center.device
@@ -327,6 +348,433 @@ def tris_in_ball(geo: GeoArrays, center, radius, K: int, tile: int = 512):
     valid = torch.isfinite(bdist)
     return (torch.where(valid, bidx, -1), bdist,
             valid.sum(1, dtype=torch.int32))
+
+
+def _cone_local(ro, rd, xh, yh, ecc, p):
+    """World points p (n, J, 3) → the lanes' local scaled cone frame (x
+    along the major axis, y scaled by the eccentricity, z along the
+    ray)."""
+    u = p - ro[:, None, :]
+    return torch.stack([(u * xh[:, None, :]).sum(-1),
+                        ecc * (u * yh[:, None, :]).sum(-1),
+                        (u * rd[:, None, :]).sum(-1)], dim=-1)
+
+
+def _exact_entries(row, ro, rd, env, zmin, zmax):
+    """Exact elliptic cone–triangle entry z of the candidate rows
+    (n, J, 12) of tri_geom per lane: (z, ok) (n, J)."""
+    xh = env.x
+    yh = torch.linalg.cross(rd, xh, dim=-1)
+    ecc = env.e[:, None]
+    a = row[..., 0:3]
+    A = _cone_local(ro, rd, xh, yh, ecc, a)
+    B = _cone_local(ro, rd, xh, yh, ecc, a + row[..., 3:6])
+    C = _cone_local(ro, rd, xh, yh, ecc, a + row[..., 6:9])
+    n, J = row.shape[:2]
+    z, _, ok = ci.intersect_cone_tri(
+        env.x0[:, None], env.ta[:, None], A, B, C,
+        torch.full((n, J), zmin, device=row.device),
+        zmax[:, None].expand(n, J))
+    return z, ok
+
+
+def _lanes(c, ro, rd, env, zmax, exclude_tri):
+    """The lanes c of a cone query's arguments."""
+    return (ro[c], rd[c],
+            EnvState(x=env.x[c], x0=env.x0[c], ta=env.ta[c], e=env.e[c]),
+            zmax[c], exclude_tri[c])
+
+
+def _no_exclusion(N, dev):
+    return torch.full((N,), -1, dtype=torch.int32, device=dev)
+
+
+def tris_near_cone(geo: GeoArrays, ro, rd, env, zmax, K: int,
+                   tile: int = 512, zmin: float = 1e-7, exclude_tri=None):
+    """The triangle set that meets the elliptic cone envelope, by the
+    exact cone–triangle entry test on every triangle (the top-K query of
+    WT_CONE_QUERY=topk). env the lanes' EnvState; the cone rides (ro,
+    rd). Returns (idx (N, K) i32 −1-padded, z (N, K) entry distances
+    ascending, inf-padded, count (N,) i32), ties to the lower id. Plain
+    torch over triangle tiles of min(tile, T), in lane chunks."""
+    T = geo.num_tris
+    N = ro.shape[0]
+    dev = ro.device
+    if T == 0:
+        return select.empty_set(N, K, dev)
+    if exclude_tri is None:
+        exclude_tri = _no_exclusion(N, dev)
+    tile = min(tile, T)
+
+    def query(c):
+        l_ro, l_rd, l_env, l_zmax, l_ex = _lanes(c, ro, rd, env, zmax,
+                                                 exclude_tri)
+        n = l_ro.shape[0]
+
+        def keys(s, t):
+            z, ok = _exact_entries(
+                geo.tri_geom[None, s:s + t].expand(n, t, 12), l_ro, l_rd,
+                l_env, zmin, l_zmax)
+            ids = torch.arange(s, s + t, dtype=torch.int32, device=dev)
+            return torch.where(ok & (ids[None] != l_ex[:, None]), z,
+                               math.inf)
+        return select.tiled_smallest(n, T, K, tile, dev, keys)
+    return _chunked(N, tile, dev, query)
+
+
+def tris_near_ray(geo: GeoArrays, ro, rd, x0, tan_alpha, zmax, K: int,
+                  tile: int = 512):
+    """`tris_near_cone` for a circular cone of initial radius x0 and
+    tan(half angle) tan_alpha about each ray (eccentricity 1)."""
+    N = ro.shape[0]
+    dev = ro.device
+    ax = torch.linalg.cross(rd, torch.tensor([0.0, 0.709, 0.705],
+                                             device=dev).expand_as(rd),
+                            dim=-1)
+    ln = torch.linalg.vector_norm(ax, dim=-1, keepdim=True)
+    alt = torch.linalg.cross(rd, torch.tensor([1.0, 0.0, 0.0],
+                                              device=dev).expand_as(rd),
+                             dim=-1)
+    ax = torch.where(ln < 1e-6, alt, ax)
+    ax = ax / torch.linalg.vector_norm(ax, dim=-1,
+                                       keepdim=True).clamp_min(1e-12)
+    env = EnvState(x=ax, x0=torch.as_tensor(x0, device=dev).expand(N),
+                   ta=torch.as_tensor(tan_alpha, device=dev).expand(N),
+                   e=torch.ones((N,), device=dev))
+    return tris_near_cone(geo, ro, rd, env, zmax, K, tile=tile)
+
+
+def tris_near_cone_2pass(geo: GeoArrays, ro, rd, env, zmax, K: int,
+                         J: int = 32, tile: int = 512, zmin: float = 1e-7,
+                         exclude_tri=None):
+    """Two-pass cone set (WT_CONE_QUERY=2pass): a bounding-sphere pretest
+    over all triangles keeps each lane's J earliest candidates (by the
+    earliest z the sphere allows), then the exact entry test runs on those
+    J only. `tris_near_cone`'s contract; approximate only through the J
+    cap."""
+    T = geo.num_tris
+    N = ro.shape[0]
+    dev = ro.device
+    if T == 0:
+        return select.empty_set(N, K, dev)
+    if exclude_tri is None:
+        exclude_tri = _no_exclusion(N, dev)
+    tile = min(tile, T)
+
+    def query(c):
+        l_ro, l_rd, l_env, l_zmax, l_ex = _lanes(c, ro, rd, env, zmax,
+                                                 exclude_tri)
+
+        def keys(s, t):
+            ta_, t1, t2 = geo.p0[s:s + t], geo.e1[s:s + t], geo.e2[s:s + t]
+            # per-tile bounding spheres (shared across lanes)
+            cen = ta_ + (t1 + t2) / 3.0
+            r1 = ((ta_ - cen) ** 2).sum(-1)
+            r2 = ((ta_ + t1 - cen) ** 2).sum(-1)
+            r3 = ((ta_ + t2 - cen) ** 2).sum(-1)
+            rad = torch.sqrt(torch.maximum(torch.maximum(r1, r2), r3))[None]
+            w = cen[None] - l_ro[:, None, :]
+            zc = (w * l_rd[:, None, :]).sum(-1).clamp_min(0.0)
+            d2 = (w * w).sum(-1) - zc * zc
+            reach = l_env.x0[:, None] + l_env.ta[:, None] * zc + rad
+            ids = torch.arange(s, s + t, dtype=torch.int32, device=dev)
+            ok = (d2 <= reach * reach) & (zc - rad <= l_zmax[:, None]) \
+                & (zc + rad > zmin) & (ids[None] != l_ex[:, None])
+            return torch.where(ok, (zc - rad).clamp_min(0.0), math.inf)
+        cand, bz, _ = select.tiled_smallest(l_ro.shape[0], T, J, tile, dev,
+                                            keys)
+        z, ok = _exact_entries(geo.tri_geom[cand.clamp_min(0).long()], l_ro,
+                               l_rd, l_env, zmin, l_zmax)
+        return select.pick(torch.where(ok & torch.isfinite(bz), z, math.inf),
+                           cand, K)
+    return _chunked(N, tile, dev, query)
+
+
+# ---------------------------------------------------------------------------
+# two-level clustered triangle-set queries (sublinear cone and ball sweeps)
+# ---------------------------------------------------------------------------
+
+# the clustered queries' shape: clusters expanded per lane, candidates
+# taken per cluster (the bake splits clusters at TRI_CAP, so a query with
+# TRI_CAP candidates per cluster sees every member)
+TRI_N_CLUSTERS = int(os.environ.get("WT_TRI_NCL", 12))
+TRI_CAP = int(os.environ.get("WT_TRI_CAP", 64))
+
+TRI_CLUSTER_KEYS = ("center", "radius", "start", "count", "order")
+
+
+def tri_cluster_min(device) -> int:
+    """Above this triangle count the bdpt and Fraunhofer blocked-flux ball
+    query takes the clustered index: 16,384 on the CPU, 2^30 (never) on
+    the card, as the JAX package chooses by platform;
+    WT_TRI_CLUSTER_MIN overrides it (read per call)."""
+    env = os.environ.get("WT_TRI_CLUSTER_MIN")
+    if env:
+        return int(env)
+    return 16384 if torch.device(device).type == "cpu" else 1 << 30
+
+
+@dataclass
+class TriClusters:
+    """Bounding-sphere clusters over grid cells of triangle centroids."""
+    center: torch.Tensor   # (M, 3)
+    radius: torch.Tensor   # (M,)
+    start: torch.Tensor    # (M,) i32 into `order`
+    count: torch.Tensor    # (M,) i32
+    order: torch.Tensor    # (T,) i32 triangle rows grouped by cluster
+
+    @property
+    def num_clusters(self):
+        return self.center.shape[0]
+
+
+def build_tri_clusters(p0, e1, e2, grid: int | None = None,
+                       target: int = 32, cap: int = 64) -> dict:
+    """Host bake (numpy, float64): bucket the triangles by the grid cell of
+    their centroid → dict of numpy arrays keyed by TRI_CLUSTER_KEYS; each
+    cluster's sphere covers its triangles' vertices. The grid grows (×1.5
+    + 1, at most 6 times, up to 128) until the occupied cells average at
+    most `target` triangles, and a cell of more than `cap` triangles is
+    split into chunks of at most `cap`."""
+    p0 = np.asarray(p0, np.float64)
+    e1 = np.asarray(e1, np.float64)
+    e2 = np.asarray(e2, np.float64)
+    T = len(p0)
+    if T == 0:
+        return dict(center=np.zeros((1, 3), np.float32),
+                    radius=np.zeros(1, np.float32),
+                    start=np.zeros(1, np.int32), count=np.zeros(1, np.int32),
+                    order=np.zeros(0, np.int32))
+    c = p0 + (e1 + e2) / 3.0
+    lo = c.min(axis=0)
+    ext = np.maximum(c.max(axis=0) - lo, 1e-9)
+    if grid is None:
+        grid = max(2, int(round((max(T, 1) / float(target))
+                                ** (1.0 / 3.0))))
+        for _ in range(6):
+            cell = np.minimum((c - lo) / ext * grid,
+                              grid - 1e-4).astype(np.int64)
+            key = (cell[:, 0] * grid + cell[:, 1]) * grid + cell[:, 2]
+            occupied = len(np.unique(key))
+            if T / max(occupied, 1) <= target or grid >= 128:
+                break
+            grid = int(grid * 1.5) + 1
+    cell = np.minimum((c - lo) / ext * grid, grid - 1e-4).astype(np.int64)
+    key = (cell[:, 0] * grid + cell[:, 1]) * grid + cell[:, 2]
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    cell_starts = np.concatenate([[0], np.nonzero(np.diff(key_s))[0] + 1])
+    cell_counts = np.diff(np.concatenate([cell_starts, [T]]))
+    starts, counts = [], []
+    for s, n in zip(cell_starts, cell_counts):
+        for off in range(0, n, cap):
+            starts.append(s + off)
+            counts.append(min(cap, n - off))
+    starts = np.asarray(starts, np.int64)
+    counts = np.asarray(counts, np.int64)
+    M = len(starts)
+    center = np.zeros((M, 3), np.float32)
+    radius = np.zeros(M, np.float32)
+    A, B, C = p0, p0 + e1, p0 + e2
+    for m in range(M):
+        ids = order[starts[m]: starts[m] + counts[m]]
+        pts = np.concatenate([A[ids], B[ids], C[ids]])
+        ctr = 0.5 * (pts.min(axis=0) + pts.max(axis=0))
+        center[m] = ctr
+        radius[m] = np.sqrt(((pts - ctr) ** 2).sum(axis=1).max())
+    return dict(center=center, radius=radius, start=starts.astype(np.int32),
+                count=counts.astype(np.int32), order=order.astype(np.int32))
+
+
+def _nearest_clusters(key, ok, n_clusters):
+    """Each lane's n_clusters clusters of least key (n, M) among those
+    `ok`: (sel (n, n_cl), valid (n, n_cl))."""
+    z, sel = select.smallest(torch.where(ok, key, math.inf), n_clusters)
+    return sel, torch.isfinite(z)
+
+
+def _clusters_near_cone(clusters: TriClusters, ro, rd, x0, ta, zmax,
+                        n_clusters: int):
+    """The n_clusters clusters whose spheres touch the swept envelope r(z)
+    = x0 + ta·z earliest, by the earliest entry z a sphere allows (a
+    cluster whose centre projects later can still hold the nearest
+    triangles). Returns (sel (N, n_cl), valid (N, n_cl))."""
+    cc, cr = clusters.center[None], clusters.radius[None]
+    w = cc - ro[:, None, :]
+    zc = (w * rd[:, None, :]).sum(-1).clamp_min(0.0)
+    closest = ro[:, None, :] + zc[..., None] * rd[:, None, :]
+    dist = torch.linalg.vector_norm(closest - cc, dim=-1)
+    ok = (dist <= x0[:, None] + ta[:, None] * zc + cr) \
+        & (zc - cr <= zmax[:, None])
+    return _nearest_clusters((zc - cr).clamp_min(0.0), ok, n_clusters)
+
+
+def _cluster_candidates(clusters: TriClusters, sel, valid_cl, cap: int):
+    """Expand the selected clusters into (N, n_cl·cap) candidate triangle
+    rows and their in-range mask (a cluster longer than cap is cut)."""
+    N = sel.shape[0]
+    base = clusters.start[sel].long()
+    cnt = clusters.count[sel]
+    offs = torch.arange(cap, device=sel.device)
+    cand = base[..., None] + offs[None, None, :]
+    in_range = (offs[None, None, :] < cnt[..., None]) & valid_cl[..., None]
+    cand = cand.clamp(0, clusters.order.shape[0] - 1)
+    return clusters.order[cand].reshape(N, -1), in_range.reshape(N, -1)
+
+
+def tris_near_cone_clustered(geo: GeoArrays, clusters: TriClusters, ro, rd,
+                             env, zmax, K: int, n_clusters: int | None = None,
+                             tris_per_cluster: int | None = None,
+                             zmin: float = 1e-7, exclude_tri=None):
+    """Clustered cone set (WT_CONE_QUERY=clustered): the envelope against
+    the cluster spheres (`_clusters_near_cone`), then the exact entry test
+    on the candidate lists of each lane's n_clusters earliest clusters
+    only. `tris_near_cone`'s contract (a triangle is in one cluster only,
+    so no dedup)."""
+    N = ro.shape[0]
+    dev = ro.device
+    if geo.num_tris == 0:
+        return select.empty_set(N, K, dev)
+    if exclude_tri is None:
+        exclude_tri = _no_exclusion(N, dev)
+    n_clusters = n_clusters or TRI_N_CLUSTERS
+    tris_per_cluster = tris_per_cluster or TRI_CAP
+
+    def query(c):
+        l_ro, l_rd, l_env, l_zmax, l_ex = _lanes(c, ro, rd, env, zmax,
+                                                 exclude_tri)
+        sel, valid_cl = _clusters_near_cone(clusters, l_ro, l_rd, l_env.x0,
+                                            l_env.ta, l_zmax, n_clusters)
+        tidx, in_range = _cluster_candidates(clusters, sel, valid_cl,
+                                             tris_per_cluster)
+        z, ok = _exact_entries(geo.tri_geom[tidx.long()], l_ro, l_rd, l_env,
+                               zmin, l_zmax)
+        ok = ok & in_range & (tidx != l_ex[:, None])
+        return select.pick(torch.where(ok, z, math.inf), tidx, K)
+    return _chunked(N, max(clusters.num_clusters,
+                           n_clusters * tris_per_cluster), dev, query)
+
+
+def tris_in_ball_clustered(geo: GeoArrays, clusters: TriClusters, center,
+                           radius, K: int, n_clusters: int | None = None,
+                           tris_per_cluster: int | None = None):
+    """Clustered `tris_in_ball`: ball against the cluster spheres, then
+    exact point–triangle distances (normals from e1 × e2) on the candidate
+    lists of each lane's n_clusters nearest clusters (by the least
+    distance a sphere allows). The same contract, nearest first;
+    approximate where more clusters than n_clusters meet a ball."""
+    N = center.shape[0]
+    dev = center.device
+    if geo.num_tris == 0:
+        return select.empty_set(N, K, dev)
+    n_clusters = n_clusters or TRI_N_CLUSTERS
+    tris_per_cluster = tris_per_cluster or TRI_CAP
+    cc, cr = clusters.center[None], clusters.radius[None]
+
+    def query(c):
+        cen, rad = center[c], radius[c]
+        d = torch.linalg.vector_norm(cc - cen[:, None, :], dim=-1)
+        sel, valid_cl = _nearest_clusters(
+            (d - cr).clamp_min(0.0), d <= rad[:, None] + cr, n_clusters)
+        tidx, in_range = _cluster_candidates(clusters, sel, valid_cl,
+                                             tris_per_cluster)
+        row = geo.tri_geom[tidx.long()]
+        a, t1, t2 = row[..., 0:3], row[..., 3:6], row[..., 6:9]
+        gn = torch.linalg.cross(t1, t2, dim=-1)
+        gn = gn / torch.linalg.vector_norm(gn, dim=-1,
+                                           keepdim=True).clamp_min(1e-30)
+        dist = _point_tri_dist(cen[:, None, :], a, t1, t2, gn)
+        ok = in_range & (dist <= rad[:, None])
+        return select.pick(torch.where(ok, dist, math.inf), tidx, K)
+    return _chunked(N, max(clusters.num_clusters,
+                           n_clusters * tris_per_cluster), dev, query)
+
+
+def cone_tri_entry_point(geo: GeoArrays, ro, rd, env, tri, zmin, zmax):
+    """Entry distance and world point of each lane's cone into ONE
+    triangle tri (N,) i32 (−1: invalid). Returns (z (N,), p (N, 3),
+    valid (N,))."""
+    row = geo.tri_geom[tri.clamp_min(0).long()]
+    xh = env.x
+    yh = torch.linalg.cross(rd, xh, dim=-1)
+
+    def to_local(p):
+        u = p - ro
+        return torch.stack([(u * xh).sum(-1), env.e * (u * yh).sum(-1),
+                            (u * rd).sum(-1)], dim=-1)
+
+    A = to_local(row[:, 0:3])
+    B = to_local(row[:, 0:3] + row[:, 3:6])
+    C = to_local(row[:, 0:3] + row[:, 6:9])
+    z, p, ok = ci.intersect_cone_tri(env.x0, env.ta, A, B, C, zmin, zmax)
+    inv_e = 1.0 / env.e.clamp_min(1.0)
+    pw = ro + p[..., 0:1] * xh + (p[..., 1] * inv_e)[..., None] * yh \
+        + p[..., 2:3] * rd
+    return z, pw, ok & (tri >= 0)
+
+
+# ---------------------------------------------------------------------------
+# plain all-triangles ray queries (Möller–Trumbore); callable, unused by the
+# integrators, whose routes are K1/K2 and K4/K5
+# ---------------------------------------------------------------------------
+
+_TRI_TILE = 512
+
+
+def trace_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None):
+    """Closest hit over all triangles by two-sided Möller–Trumbore, in
+    triangle tiles. Returns (t, tri, u, v): t = BIG and tri = −1 on a
+    miss; ties to the lower id."""
+    T = geo.num_tris
+    N = ro.shape[0]
+    dev = ro.device
+    if exclude_tri is None:
+        exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    best_t = torch.full((N,), isect.BIG, device=dev)
+    best_i = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((N,), device=dev)
+    best_v = torch.zeros((N,), device=dev)
+    rows = torch.arange(N, device=dev)
+    for s in range(0, T, _TRI_TILE):
+        sl = slice(s, s + _TRI_TILE)
+        t, u, v, hit = isect.ray_tri(ro[:, None, :], rd[:, None, :],
+                                     geo.p0[None, sl], geo.e1[None, sl],
+                                     geo.e2[None, sl], tmin[:, None],
+                                     tmax[:, None])
+        ids = torch.arange(s, s + t.shape[1], dtype=torch.int32,
+                           device=dev)
+        hit = hit & (ids[None] != exclude_tri[:, None])
+        t = torch.where(hit, t, isect.BIG)
+        j = torch.argmin(t, dim=1)
+        tt = t[rows, j]
+        better = tt < best_t
+        best_t = torch.where(better, tt, best_t)
+        best_i = torch.where(better, (s + j).to(torch.int32), best_i)
+        best_u = torch.where(better, u[rows, j], best_u)
+        best_v = torch.where(better, v[rows, j], best_v)
+    best_i = torch.where(best_t < isect.BIG, best_i, -1)
+    return best_t, best_i, best_u, best_v
+
+
+def occluded_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
+                   exclude_tri2=None, exclude_tri3=None):
+    """Any hit in (tmin, tmax] over all triangles, up to three excluded
+    ids per ray. Returns bool (N,)."""
+    N = ro.shape[0]
+    ex = ray_kernels._exclusions(N, ro.device, exclude_tri, exclude_tri2,
+                                 exclude_tri3)
+    occ = torch.zeros((N,), dtype=torch.bool, device=ro.device)
+    for s in range(0, geo.num_tris, _TRI_TILE):
+        sl = slice(s, s + _TRI_TILE)
+        _, _, _, hit = isect.ray_tri(ro[:, None, :], rd[:, None, :],
+                                     geo.p0[None, sl], geo.e1[None, sl],
+                                     geo.e2[None, sl], tmin[:, None],
+                                     tmax[:, None])
+        ids = torch.arange(s, s + hit.shape[1], dtype=torch.int32,
+                           device=ro.device)
+        keep = (ids[None, :, None] != ex[:, None, :]).all(-1)
+        occ = occ | (hit & keep).any(1)
+    return occ
 
 
 @dataclass

@@ -449,3 +449,7 @@ def apply_normalmap(tables: Tables, mat_id, uv, k, sf, duv=None):
     return frame_mod.Frame(t=torch.where(use, perturbed.t, sf.t),
                            b=torch.where(use, perturbed.b, sf.b),
                            n=torch.where(use, perturbed.n, sf.n))
+
+
+def vecz(v):
+    return v[..., 2]

@@ -79,6 +79,8 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
                     w_spectral=w_spectral, sens=sens,
                     splat_pos=pxy.to(torch.float32) + jitter,
                     depth=torch.zeros((n,), dtype=torch.int64, device=dev))
+        if "key" in keys:               # the threefry sampler's lane keys
+            meta["key"] = keys["key"]
         return ps, meta
 
     def to_values(ps, meta):
@@ -122,7 +124,8 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
                 next_id += slots.numel()
         # 3. one bounce for the whole pool
         dkeys = rng.depth_key_v(
-            {"idx": meta["idx"], "strm": meta["strm"]}, meta["depth"])
+            {k: meta[k] for k in ("idx", "strm", "key") if k in meta},
+            meta["depth"])
         if wave:
             ps = wave_bounce(data, data.edges, ps, dkeys, meta["k"],
                              meta["depth"], eps=eps, mis=mis, fsd=True,

@@ -90,16 +90,24 @@ def _select(cond, a, b):
     return torch.where(cond.view(cond.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def _blocked_flux(geo, ro, rd, fx, fy, z_int, dz, x0, ta, sigma):
+def _blocked_flux(geo, ro, rd, fx, fy, z_int, dz, x0, ta, sigma,
+                  tri_clusters=None):
     """Fraction of beam power blocked by geometry inside the interaction
-    region: ball-query triangles, clip them to the z-slab in beam
-    coordinates, cone-project onto the cross-section, and integrate the
-    Gaussian wavefront over each clipped polygon."""
+    region: ball-query triangles (through `tri_clusters` above
+    `trace.tri_cluster_min()` triangles, as the JAX integrators route it),
+    clip them to the z-slab in beam coordinates, cone-project onto the
+    cross-section, and integrate the Gaussian wavefront over each clipped
+    polygon."""
     N = ro.shape[0]
     r_env = x0 + ta * z_int
     r_ball = torch.sqrt(r_env ** 2 + dz ** 2) * 1.05
     wp = ro + z_int[:, None] * rd
-    idx, _, _ = trace_mod.tris_in_ball(geo, wp, r_ball, K_TRI)
+    if tri_clusters is not None \
+            and geo.num_tris > trace_mod.tri_cluster_min(wp.device):
+        idx, _, _ = trace_mod.tris_in_ball_clustered(geo, tri_clusters, wp,
+                                                     r_ball, K_TRI)
+    else:
+        idx, _, _ = trace_mod.tris_in_ball(geo, wp, r_ball, K_TRI)
     i = idx.clamp_min(0).long()
     ok = idx >= 0
 
@@ -145,7 +153,7 @@ def _fsd_interaction(data, dkeys, k, ro, rd, env, eidx, z_int, eps):
                                      fp_int.clamp_min(1e-9), k, subdiv=SUBDIV)
     dz = (Z_SCALE * fp_int).clamp_min(4.0 * eps)
     blocked = _blocked_flux(data.geo, ro, rd, fx, fy, z_int, dz, env.x0,
-                            env.ta, sigma)
+                            env.ta, sigma, tri_clusters=data.tri_clusters)
     recp_I = 1.0 / (1.0 - blocked).clamp_min(0.05)
     uR = rng.uniform(dkeys, rng.D_FSD, 4 * M_RIS + 1)
     xi, asf_v, _, vs = fr.sample_xi_sir(

@@ -14,14 +14,20 @@ call over the 2K+1 legs of every lane, tracing only the legs that are
 read) → emission MIS → NEE (K2, surface lanes only) →
 interaction (surface | FSD | null) → the next deferred aperture → RR.
 
-Only the default cone query of the JAX module is ported (the
-per-boundary minima of `accel.trace.cone_boundary_minz`); its
-WT_CONE_QUERY alternatives are not.
+The cone query follows WT_CONE_QUERY, read per bounce as the JAX module
+reads it: unset or "mxu", the per-boundary minima of
+`accel.trace.cone_boundary_minz` (K3 on the card, its plain version on
+the CPU); "topk", "2pass" or "clustered", a K-capped encounter set from
+`tris_near_cone`, `tris_near_cone_2pass` or `tris_near_cone_clustered`
+(plain torch; none reaches a Pallas kernel in the JAX package) fed to
+`traversal.schedule`. The cone-test counter counts what each query
+tests per lane, as in the JAX module.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -142,13 +148,35 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
                        8.0 * et.scene_radius)
 
     # ---- hybrid ballistic/diffusive traversal: a closed-form schedule
-    # over the per-boundary earliest cone–triangle encounters (K3)
+    # over the cone–triangle encounters. By default (and "mxu") the
+    # per-boundary earliest encounters (K3); WT_CONE_QUERY = topk, 2pass
+    # or clustered takes a K-capped encounter set from the plain torch
+    # queries instead (read per call, as the JAX bounce reads it)
     lam = (2.0 * math.pi) / k.clamp_min(1e-9)
-    bounds = traversal_mod.segment_boundaries(lam)
-    zc, tcnt = trace_mod.cone_boundary_minz(geo, ro, rd, env, bounds, zmax,
-                                            exclude_tri=st["exclude"])
-    tr = traversal_mod.schedule_from_minz(hit.t, hit.valid, zc, env, lam,
-                                          zmax)
+    q_mode = os.environ.get("WT_CONE_QUERY", "")
+    if q_mode in ("topk", "2pass", "clustered"):
+        args = (ro, rd, env, zmax, K)
+        if q_mode == "topk":
+            _, tz, tcnt = trace_mod.tris_near_cone(
+                geo, *args, exclude_tri=st["exclude"])
+            cone_tests_per_lane = float(geo.num_tris)
+        elif q_mode == "2pass":       # exact tests on J = 32 candidates
+            _, tz, tcnt = trace_mod.tris_near_cone_2pass(
+                geo, *args, exclude_tri=st["exclude"])
+            cone_tests_per_lane = 32.0
+        else:
+            _, tz, tcnt = trace_mod.tris_near_cone_clustered(
+                geo, data.tri_clusters, *args, exclude_tri=st["exclude"])
+            cone_tests_per_lane = float(trace_mod.TRI_N_CLUSTERS
+                                        * trace_mod.TRI_CAP)
+        tr = traversal_mod.schedule(hit.t, hit.valid, tz, env, lam, zmax)
+    else:
+        bounds = traversal_mod.segment_boundaries(lam)
+        zc, tcnt = trace_mod.cone_boundary_minz(
+            geo, ro, rd, env, bounds, zmax, exclude_tri=st["exclude"])
+        tr = traversal_mod.schedule_from_minz(hit.t, hit.valid, zc, env,
+                                              lam, zmax)
+        cone_tests_per_lane = float(geo.num_tris)
 
     # ---- edge sweep inside the beam envelope (FSD aperture feed)
     if edge_table.count > 0:
@@ -335,7 +363,7 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
             cnt(lane & tr.ballistic), cnt(lane & tr.diffusive),
             torch.full((), (2.0 + shadow_legs) * N
                        * trace_mod.ray_tests_per_lane(geo), device=dev),
-            torch.full((), float(N) * geo.num_tris, device=dev)])
+            torch.full((), N * cone_tests_per_lane, device=dev)])
         hist = torch.bincount(tri_hist_bin(tcnt), weights=lane.to(f32),
                               minlength=N_TRI_HIST)
         stats = stats + torch.cat([add, hist.to(f32)])

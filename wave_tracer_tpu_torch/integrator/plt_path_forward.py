@@ -141,7 +141,8 @@ def _fraunhofer(data, dkeys, k, ro, rd, env, eidx, z_int, fp_int, dist_src,
                                           fy, sigma, fpc, k[c], curv=curv)
         blocked = _blocked_flux(data.geo, ro[c], rd[c], fx, fy, z_int[c],
                                 (Z_SCALE * fp_int[c]).clamp_min(4.0 * eps),
-                                env.x0[c], env.ta[c], sigma)
+                                env.x0[c], env.ta[c], sigma,
+                                tri_clusters=data.tri_clusters)
         xi, _, _, vs = fr.sample_xi_sir(
             fap, uR[c, :4 * M].reshape(n, M, 4), uR[c, 4 * M])
         wo_l, ok_wo = fr.xi_to_wo(xi, scale)

@@ -1,12 +1,13 @@
 """Hybrid ballistic/diffusive traversal — closed-form segment schedule.
 
 Port of wave_tracer_tpu/integrator/traversal.py (`segment_boundaries`,
-`schedule_from_minz`, `region_depth`). Per path the reference alternates
+`schedule`, `schedule_from_minz`, `region_depth`). Per path the reference alternates
 ballistic segments of B_j = min(8·2^(2j+1), 65536) wavelengths with
 diffusive full-cone attempts at each segment boundary. The boundaries
 d_j = Σ B_i·λ depend only on λ, so the schedule is per-lane masked
 arithmetic over one ray trace and the per-boundary earliest cone
-encounters of `accel.trace.cone_boundary_minz`.
+encounters: those of `accel.trace.cone_boundary_minz` (K3), or the
+earliest of a K-capped encounter list (`schedule`).
 """
 
 from __future__ import annotations
@@ -40,6 +41,21 @@ class TraversalResult:
     diffusive: torch.Tensor  # (N,) bool — interaction from a cone region
     z_region: torch.Tensor   # (N,) region start (diffusive) / hit z
     escaped: torch.Tensor    # (N,) bool — no interaction within dist_max
+
+
+def schedule(t_ray, ray_hit, tz, env, lam, dist_max,
+             tol_scale: float = 1e-3):
+    """The ballistic/diffusive schedule from a K-capped encounter list: tz
+    (N, K) ascending exact cone–triangle entry distances, inf-padded (the
+    set queries of accel/trace.py under WT_CONE_QUERY). The earliest
+    encounter ≥ each boundary takes the place of `schedule_from_minz`'s
+    zc column; the rule is the same. tol_scale is unused, as in the JAX
+    package."""
+    bounds = segment_boundaries(lam)
+    zc = torch.stack([torch.where(tz >= bounds[:, j:j + 1], tz,
+                                  torch.inf).amin(1)
+                      for j in range(MAX_SEGMENTS)], dim=1)
+    return schedule_from_minz(t_ray, ray_hit, zc, env, lam, dist_max)
 
 
 def schedule_from_minz(t_ray, ray_hit, zc, env, lam, dist_max):

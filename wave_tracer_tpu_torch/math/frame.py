@@ -1,7 +1,8 @@
 """Orthonormal frames as batched (t, b, n) triplets.
 
 Port of wave_tracer_tpu/math/frame.py: Frame with to_local/to_world,
-build_orthogonal_frame and build_shading_frame over (..., 3) tensors.
+build_orthogonal_frame, build_shading_frame and rotate_frame over (..., 3)
+tensors.
 """
 
 from __future__ import annotations
@@ -59,3 +60,10 @@ def build_shading_frame(n, dpdu) -> Frame:
     deg = degenerate[..., None]
     return Frame(t=torch.where(deg, fallback.t, t),
                  b=torch.where(deg, fallback.b, b), n=n)
+
+
+def rotate_frame(R, f: Frame) -> Frame:
+    """Apply an orthogonal 3×3 matrix R (..., 3, 3) to the frame."""
+    def app(v):
+        return torch.einsum("...ij,...j->...i", R, v)
+    return Frame(t=app(f.t), b=app(f.b), n=app(f.n))

@@ -1,7 +1,8 @@
 """Special functions for wave optics: the Faddeeva function and the UTD
 transition function.
 
-Port of wave_tracer_tpu/math/special.py (`faddeeva`, `utd_transition`).
+Port of wave_tracer_tpu/math/special.py (`faddeeva`, `faddeeva_any`,
+`erfc_complex`, `erf_complex`, `fresnel_cs`, `utd_transition`).
 w(z) is Weideman's rational approximation (J.A.C. Weideman, "Computation
 of the Complex Error Function", SIAM J. Numer. Anal. 31 (1994)
 1497-1518): one fixed-degree polynomial in the Möbius-transformed
@@ -51,6 +52,32 @@ def faddeeva(z):
         p = p * Zm + ak
     denom = L - iz
     return 2.0 * p / (denom * denom) + (1.0 / math.sqrt(math.pi)) / denom
+
+
+def faddeeva_any(z):
+    """w(z) on the whole plane: for Im z < 0, w(z) = 2·e^{−z²} − w(−z)."""
+    upper = z.imag >= 0
+    wu = faddeeva(torch.where(upper, z, -z))
+    wl = 2.0 * torch.exp(-(z * z)) - wu
+    return torch.where(upper, wu, wl)
+
+
+def erfc_complex(z):
+    """erfc(z) = e^{−z²}·w(iz)."""
+    return torch.exp(-(z * z)) * faddeeva_any(1j * z)
+
+
+def erf_complex(z):
+    return 1.0 - erfc_complex(z)
+
+
+def fresnel_cs(t):
+    """Fresnel integrals C(t), S(t) = ∫₀ᵗ cos/sin(π u²/2) du of real t,
+    by C + iS = (1 + i)/2 · erf(√π/2 · (1 − i)·t). Returns (C, S)."""
+    t = torch.as_tensor(t)
+    zc = (math.sqrt(math.pi) / 2.0) * (1.0 - 1.0j) * t.to(torch.complex64)
+    cs = (1.0 + 1.0j) / 2.0 * erf_complex(zc)
+    return cs.real, cs.imag
 
 
 def utd_transition(x):

@@ -1,7 +1,7 @@
 """Batched 3D vector helpers over trailing-axis-(3,) torch tensors.
 
-Port of wave_tracer_tpu/math/vec.py (the helpers the classical and wave
-bounces use). A "vec3" is a tensor of shape (..., 3).
+Port of wave_tracer_tpu/math/vec.py. A "vec3" is a tensor of shape
+(..., 3).
 """
 
 from __future__ import annotations
@@ -48,3 +48,28 @@ def safe_length(a, eps: float = 1e-30):
 def safe_sqrt(x, eps: float = 1e-30):
     """sqrt with an epsilon floor."""
     return torch.sqrt(x.clamp_min(eps))
+
+
+def reflect(wi, n):
+    """Mirror direction of wi about n (both pointing away from the
+    surface)."""
+    return 2.0 * vdot(wi, n) * n - wi
+
+
+def vec3(x, y, z):
+    """Stack three f32 scalars or tensors, broadcast, into (..., 3)."""
+    return torch.stack(torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=torch.float32) for c in (x, y, z))),
+        dim=-1)
+
+
+def x_(v):
+    return v[..., 0]
+
+
+def y_(v):
+    return v[..., 1]
+
+
+def z_(v):
+    return v[..., 2]

@@ -1,6 +1,7 @@
 """Primitive intersection tests of the BVH traversal (plain torch).
 
-Port of wave_tracer_tpu/ops/intersect.py (`ray_aabb`, `ray_tri`, `BIG`).
+Port of wave_tracer_tpu/ops/intersect.py (`ray_aabb`, `ray_tri`, `BIG`,
+and the point queries `point_segment_dist2`, `tri_point_closest`).
 `ray_tri` is the two-sided Möller–Trumbore test, which the BVH route
 traces with; the all-pairs kernel K1 tests by Plücker sides instead
 (accel/ray_kernels.py), so the two routes may break a tie on a shared
@@ -73,3 +74,37 @@ def safe_inverse(rd):
     kept, +1e-30 for 0), as the JAX traversals guard it."""
     tiny = torch.where(rd < 0, -1e-30, 1e-30).to(rd.dtype)
     return 1.0 / torch.where(rd.abs() < 1e-30, tiny, rd)
+
+
+def point_segment_dist2(p, a, b):
+    """Squared distance from points p to segments [a, b], all (..., 3),
+    and the segment parameter of the closest point: (dist2, t)."""
+    ab = b - a
+    tproj = (((p - a) * ab).sum(-1)
+             / (ab * ab).sum(-1).clamp_min(1e-30)).clamp(0.0, 1.0)
+    d = p - (a + tproj[..., None] * ab)
+    return (d * d).sum(-1), tproj
+
+
+def tri_point_closest(p, p0, p1, p2):
+    """Squared distance from points p to triangles (p0, p1, p2), all
+    (..., 3): to the plane projection where it falls inside the triangle,
+    else to the nearest edge."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    n = torch.linalg.cross(e1, e2, dim=-1)
+    nn = (n * n).sum(-1, keepdim=True).clamp_min(1e-30)
+    proj = p - ((p - p0) * n).sum(-1, keepdim=True) / nn * n
+    d00 = (e1 * e1).sum(-1)
+    d01 = (e1 * e2).sum(-1)
+    d11 = (e2 * e2).sum(-1)
+    d20 = ((proj - p0) * e1).sum(-1)
+    d21 = ((proj - p0) * e2).sum(-1)
+    denom = (d00 * d11 - d01 * d01).clamp_min(1e-30)
+    v = (d11 * d20 - d01 * d21) / denom
+    w = (d00 * d21 - d01 * d20) / denom
+    inside = (v >= 0) & (w >= 0) & (v + w <= 1)
+    d2_edge = torch.minimum(torch.minimum(point_segment_dist2(p, p0, p1)[0],
+                                          point_segment_dist2(p, p1, p2)[0]),
+                            point_segment_dist2(p, p2, p0)[0])
+    return torch.where(inside, ((p - proj) ** 2).sum(-1), d2_edge)

@@ -1,7 +1,7 @@
 """Mueller operators — batched (..., 4, 4) torch tensors.
 
 Port of wave_tracer_tpu/polarization/mueller.py: identity, isotropic
-scale, frame rotation, depolarizer, the Fresnel interaction matrices built
+scale, frame rotation, depolarizer, ideal linear polarizer, the Fresnel interaction matrices built
 from complex Jones amplitudes in the S/P basis, and their application and
 composition.
 """
@@ -42,6 +42,19 @@ def depolarizer(scale):
     M = scale.new_zeros(scale.shape + (4, 4))
     M[..., 0, 0] = scale
     return M
+
+
+def linear_polarizer(theta):
+    """Ideal linear polarizer at angle θ to the frame's x-axis."""
+    c = torch.cos(2.0 * theta)
+    s = torch.sin(2.0 * theta)
+    z = torch.zeros_like(theta)
+    h = 0.5 * torch.ones_like(theta)
+    rows = [torch.stack([h, h * c, h * s, z], dim=-1),
+            torch.stack([h * c, h * c * c, h * s * c, z], dim=-1),
+            torch.stack([h * s, h * s * c, h * s * s, z], dim=-1),
+            torch.stack([z, z, z, z], dim=-1)]
+    return torch.stack(rows, dim=-2)
 
 
 def from_jones_sp(a_s, a_p, scale=None):

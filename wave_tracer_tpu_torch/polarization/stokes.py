@@ -1,7 +1,6 @@
 """Stokes vectors with attached reference frames — batched torch.
 
-Port of wave_tracer_tpu/polarization/stokes.py (the parts the
-integrators use). S = (I, Q, U, V) as (..., 4); a frame is the transverse
+Port of wave_tracer_tpu/polarization/stokes.py. S = (I, Q, U, V) as (..., 4); a frame is the transverse
 x-axis (..., 3) plus the propagation direction (..., 3).
 """
 
@@ -16,6 +15,15 @@ def unpolarized(I):
     """Stokes vector for unpolarized intensity I (...,) → (..., 4)."""
     z = torch.zeros_like(I)
     return torch.stack([I, z, z, z], dim=-1)
+
+
+def intensity(S):
+    return S[..., 0]
+
+
+def dop(S):
+    """Degree of polarization √(Q² + U² + V²)/I."""
+    return torch.sqrt((S[..., 1:] ** 2).sum(-1)) / S[..., 0].clamp_min(1e-30)
 
 
 def rotation_angle(x_from, x_to, d):

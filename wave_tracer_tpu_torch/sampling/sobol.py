@@ -141,3 +141,9 @@ def sample_dims(index, dims, seed):
                         dtype=torch.int64, device=seed.device)
     s = _owen_scramble(bits, _hash(seed + salt))
     return s.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def sample2(index, dim_pair: int, seed):
+    """A (u1, u2) pair from dimensions 2·dim_pair and 2·dim_pair + 1."""
+    return sample_dims(index, [2 * dim_pair, 2 * dim_pair + 1],
+                       seed[..., None].expand(seed.shape + (2,)))

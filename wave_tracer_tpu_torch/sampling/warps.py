@@ -1,7 +1,6 @@
 """Sampling warps: unit square -> disk / hemisphere / triangle.
 
-Port of wave_tracer_tpu/sampling/warps.py (the warps the integrators
-use). All take u of shape (..., 2); directions are in the local frame
+Port of wave_tracer_tpu/sampling/warps.py. The warps take u of shape (..., 2); directions are in the local frame
 (z = normal) and pdfs are solid-angle densities.
 """
 
@@ -14,6 +13,17 @@ import torch
 INV_PI = 1.0 / math.pi
 INV_2PI = 1.0 / (2.0 * math.pi)
 INV_4PI = 1.0 / (4.0 * math.pi)
+
+
+def uniform_hemisphere(u):
+    z = u[..., 0]
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_hemisphere_pdf():
+    return INV_2PI
 
 
 def uniform_sphere(u):
@@ -70,3 +80,17 @@ def uniform_triangle(u):
     b0 = 1.0 - su0
     b1 = u[..., 1] * su0
     return torch.stack([b0, b1], dim=-1)
+
+
+def uniform_cone_pdf(solid_angle):
+    return 1.0 / solid_angle
+
+
+def gaussian2d(n01, sigma):
+    """Standard-normal draws n01 (..., 2) → an isotropic 2D Gaussian of
+    std sigma (...,)."""
+    return n01 * sigma[..., None]
+
+
+def solid_angle_of_cone(cos_cutoff):
+    return 2.0 * math.pi * (1.0 - cos_cutoff)

@@ -7,12 +7,13 @@ dotted field paths of the JAX package's SceneData pytree ("geo.p0",
 port's own `build_scene` bakes such a dict; a SceneData baked by the JAX
 package, flattened with np.asarray on its leaves, loads the same way.
 Both bakes write "edge_clusters.*", the clustered edge sweep's index,
-and it is required as the edge table is. One key is optional:
-"geo.node_pack", the packed BVH a scene above MXU_MAX_TRIS triangles is
-traced with (a JAX bake's tree is loaded, so the port walks the JAX tree;
-the port's own bake writes one only above that count). Keys the port does
-not read (Pallas feature layouts, triangle clusters, the node arrays
-besides node_pack) are ignored: the kernel rows are rebuilt here from
+and "tri_clusters.*", the triangle clusters of the clustered cone and
+ball queries; both are required as the edge table is. One key is
+optional: "geo.node_pack", the packed BVH a scene above MXU_MAX_TRIS
+triangles is traced with (a JAX bake's tree is loaded, so the port walks
+the JAX tree; the port's own bake writes one only above that count). Keys
+the port does not read (Pallas feature layouts, the node arrays besides
+node_pack) are ignored: the kernel rows are rebuilt here from
 p0/e1/e2/mxu_center.
 
 The tables learn here which row types and features they hold (the
@@ -32,7 +33,8 @@ import torch
 from wave_tracer_tpu_torch.accel.bvh import check_traversable
 from wave_tracer_tpu_torch.accel.edges import (CLUSTER_KEYS, EDGE_KEYS,
                                                EdgeClusters, EdgeTable)
-from wave_tracer_tpu_torch.accel.trace import GeoArrays
+from wave_tracer_tpu_torch.accel.trace import (TRI_CLUSTER_KEYS, GeoArrays,
+                                               TriClusters)
 from wave_tracer_tpu_torch.bsdf import table as mtab
 from wave_tracer_tpu_torch.bsdf.device import Tables
 from wave_tracer_tpu_torch.emitter import table as etab
@@ -60,8 +62,10 @@ KEYS = tuple([f"geo.{k}" for k in GEO_KEYS]
              + [f"emitters.{k}" for k in EMITTER_KEYS]
              + [f"spectral.{k}" for k in SPECTRAL_KEYS]
              + [f"edges.{k}" for k in EDGE_KEYS])
-# the clustered edge sweep's index, required as KEYS are
-CLUSTER_ROWS = tuple(f"edge_clusters.{k}" for k in CLUSTER_KEYS)
+# the clustered edge sweep's and the clustered triangle queries' indexes,
+# required as KEYS are
+CLUSTER_ROWS = tuple([f"edge_clusters.{k}" for k in CLUSTER_KEYS]
+                     + [f"tri_clusters.{k}" for k in TRI_CLUSTER_KEYS])
 
 
 @dataclass
@@ -73,6 +77,7 @@ class SceneData:
     spectral: SpectralSampler      # for the primary sensor
     edges: EdgeTable               # classified wedge edges (FSD)
     edge_clusters: EdgeClusters    # the clustered sweep's index
+    tri_clusters: TriClusters      # the clustered cone/ball queries' index
 
 
 def _check_ported(a):
@@ -156,8 +161,11 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
                                 else f32) for k in EDGE_KEYS})
     clusters = EdgeClusters(**{k: t(f"edge_clusters.{k}", f32 if k in (
         "center", "radius") else i32) for k in CLUSTER_KEYS})
+    tri_clusters = TriClusters(**{k: t(f"tri_clusters.{k}", f32 if k in (
+        "center", "radius") else i32) for k in TRI_CLUSTER_KEYS})
     return SceneData(geo=geo, tables=tables, emitters=emitters,
-                     spectral=spectral, edges=edges, edge_clusters=clusters)
+                     spectral=spectral, edges=edges, edge_clusters=clusters,
+                     tri_clusters=tri_clusters)
 
 
 def spectral_from_numpy(arrays: dict, device) -> SpectralSampler:

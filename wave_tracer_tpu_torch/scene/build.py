@@ -4,7 +4,8 @@ Port of wave_tracer_tpu/scene/build.py for the ported subset. Collects
 every spectrum, complex spectrum, texture and material reachable from the
 host scene (and the sensors' response spectra), assigns table rows,
 merges all shapes into one triangle soup, classifies its wedge edges for
-free-space diffraction (and clusters them for the clustered sweep), and
+free-space diffraction (and clusters them for the clustered sweep),
+clusters the triangles for the clustered cone and ball queries, and
 bakes the emitter and spectral-sampling tables into a dict keyed like the
 JAX SceneData (scene/bridge.py), which `scene_data_from_numpy` uploads.
 Up to MXU_MAX_TRIS triangles the soup keeps its order (the all-pairs
@@ -157,6 +158,10 @@ def bake_scene_arrays(scene: Scene):
         out.update({f"{prefix}.{k}": v for k, v in d.items()})
 
     put("geo", trace_mod.from_soup(soup, mat_id, shape_id, emitter_id, bvh))
+    # cap = the query's candidates per cluster (WT_TRI_CAP), so that a
+    # query sees every member of a cluster
+    put("tri_clusters", trace_mod.build_tri_clusters(
+        out["geo.p0"], out["geo.e1"], out["geo.e2"], cap=trace_mod.TRI_CAP))
     put("tables.spectra", bake_spectra(spectra))
     put("tables.textures", bake_textures(textures, sp_ids))
     put("tables.cspectra", bake_complex(cspectra))

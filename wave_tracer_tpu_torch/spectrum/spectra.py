@@ -27,6 +27,14 @@ K_VISIBLE_MIN = TWO_PI / (830e-9)   # rad/m  (λ = 830 nm)
 K_VISIBLE_MAX = TWO_PI / (360e-9)   # rad/m  (λ = 360 nm)
 
 
+def wavelength_to_wavenumber(lam_m):
+    return TWO_PI / np.asarray(lam_m)
+
+
+def wavenumber_to_wavelength(k):
+    return TWO_PI / np.asarray(k)
+
+
 class Spectrum:
     """Base: a real spectral density over wavenumber k [rad/m]."""
     is_discrete: bool = False
