@@ -10,7 +10,8 @@ across processes `parallel.dist.render_distributed` and the CLI's
 `--distributed`; scenes above 2^17 triangles through the BVH route and a
 city above 2048 wedge edges through the clustered edge sweep; the wave
 path under each WT_CONE_QUERY mode, the threefry sampler and the
-clustered ball query)
+clustered ball query; the ray routes of WT_TRACE_BACKEND below 2^17
+triangles, WT_COMPACT_MODE and WT_COMPACT_LANES)
 on one CUDA card — the
 classical plt_path renderer (fsd=False) and the wave-optical plt_path
 (fsd=True: hybrid cone traversal + deferred coherent FSD), both through
@@ -259,7 +260,8 @@ Phases (each raises on failure; nothing is caught):
      FSD-leg width) random segments with one to three exclusions; words
      bit-equal; times from CUDA events, bounds from the twins' counts of
      the nodes and triangles each ray visits. (b) The scale cell's 81,932
-     triangles through the BVH for this check only, against K1/K2 on
+     triangles through the BVH (baked under WT_TRACE_BACKEND=bvh; phase
+     30 renders it), against K1/K2 on
      262,144 rays and segments: ids on >= 99.9%, t within rtol 1e-4 /
      atol 1e-5 where they agree, occlusion on >= 99.9%. (c) render_scene
      of the large scene at 256x256 x 4 spp, depth 8: K4, K5 and K3 launch,
@@ -296,6 +298,30 @@ Phases (each raises on failure; nothing is caught):
      clustered index on both devices, card vs CPU at phase 13's bars.
      Launches of (b)-(e) under "launches_by_path"; readings under the K3
      row's "cone_queries"
+ 30. the JAX package's last switches, set in-process and restored: (a)
+     the classical box + icosphere (81,932 triangles) at 256x256 x 8 spp,
+     depth 8, with WT_TRACE_BACKEND unset (K1/K2, the default bake) and
+     with the bake and the render under WT_TRACE_BACKEND=bvh (a BVH of the
+     same triangles, K4/K5): each one's paths/s (median of three),
+     launches and the CUDA-event ms per launch of every ray kernel in its
+     render; the bvh image at the classical bars of phase 5 against the
+     default route's render of the same bake (its triangle order sets
+     the NEE draws); the bvh bake at 64x64 x 4 spp on the card and on the
+     CPU (the twins) at those bars. (b) The wave scale scene at 256x256 x
+     1 spp, depth 8, under bvh: K3's launches equal the default's, K4/K5
+     launch as K1/K2 do by default; paths/s of both. (c) The wave box (12
+     triangles) under brute at 256x256 x 8 spp, depth 8: K1, K2, K4 and
+     K5 launch 0 times, K3 as in phase 8; paths/s (median of three); at
+     64x64 x 1 spp, depth 5, card vs CPU at the wave bars; the same for
+     the wave box with the 1,280-triangle icosphere (1,292 triangles, the
+     brute queries' row slices at the FSD legs' full width: one render,
+     its paths/s and peak memory). (d) WT_COMPACT_LANES=16384 on the wave
+     box at 64x64 x 8 spp: the stats report 16,384 lanes, the image at
+     the wave bars of the default width's (the counters a width cannot
+     move). WT_COMPACT_MODE is read by no code of the port (one driver
+     for both values), so no phase renders under it. Launches under
+     "launches_by_path" ("route_*", "compact_*"); readings under the K4
+     row's "route_switch"
  11. (last) prints the kernels' JSON line (each kernel's launches on the
      wave main path, per path under "launches_by_path" (the gradient
      modes of phases 19, 23 and 24, the batched renders of phase 21 and
@@ -310,9 +336,10 @@ Phases (each raises on failure; nothing is caught):
      launches in phase 26 and phases 26-27's readings; the launches of
      phases 26-28 under "launches_by_path"; K3 at 327,692 triangles under
      "at_327692_tris"; rows for K4 and K5, whose "launches" are the large
-     scene's, with phase 28's readings; the script fails if K4 or K5
-     launched on any path below 2^17 triangles) and, last, the result
-     JSON line
+     scene's, with phase 28's readings and phase 30's under
+     "route_switch"; the script fails if K4 or K5 launched on any path
+     below 2^17 triangles but phase 30's bvh override paths, by name)
+     and, last, the result JSON line
 
 Each paths/s reading (phases 4, 6, 8, 10 and 16, and 12, 14 and 17 where
 a render takes under 30 s) is the median of three renders, the one whose launches
@@ -3338,6 +3365,252 @@ def check_phase29(build_scene, wbox, wbig, large):
     return out, launches
 
 
+# ---- phase 30: the JAX package's last switches: WT_TRACE_BACKEND's brute
+# and BVH routes below 2^17 triangles (K4/K5 at any size), WT_COMPACT_MODE
+# and WT_COMPACT_LANES
+
+CLASSICAL_BARS = dict(mean_rtol=0.01, px_tol=1e-3, px_frac=0.98,
+                      counter_rtol=0.005,
+                      counters=("rays_cast", "shadow_rays",
+                                "surface_interactions", "rr_terminations",
+                                "sum_path_depth"))
+# the route switch's override paths: the only ones on which K4/K5 may
+# launch below 2^17 triangles
+BVH_OVERRIDE_PATHS = ("route_classical_scale_bvh", "route_classical_64_bvh",
+                      "route_wave_scale_bvh")
+LANES_CAP = 16384           # WT_COMPACT_LANES of 30d
+# 30d's bars: the wave bars over the counters a pool's width cannot move
+# (the wave bounce counts surface and FSD interactions and cone tests over
+# every lane of the pool, idle ones included)
+LANE_BARS = dict(WAVE_BARS, counters=("rays_cast", "rr_terminations",
+                                      "sum_path_depth", "edge_sweep_hits",
+                                      "diffusive_traversals"))
+
+
+def route_render(built, backend, spp=None, device="cuda", **kw):
+    """render_scene's outputs under WT_TRACE_BACKEND=backend (None:
+    unset), then its launches counted from zero."""
+    from wave_tracer_tpu_torch.render import render_scene
+    with env_var("WT_TRACE_BACKEND", backend):
+        zero_counts()
+        out = render_scene(built, spp=spp, device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return (*out, launch_counts())
+
+
+def route_rate(built, backend, st):
+    """rate_line under WT_TRACE_BACKEND=backend."""
+    with env_var("WT_TRACE_BACKEND", backend):
+        return rate_line(built, st)
+
+
+def check_routes(rk, bk, ck, build_scene, big, bbig, bake_s, wbig, card):
+    """30a: the classical scale scene (81,932 triangles) at 256x256 x 8
+    spp, depth 8, with the variable unset (K1/K2, the default bake: the
+    user's path) and with the bake and the render under
+    WT_TRACE_BACKEND=bvh (K4/K5 over a BVH of the same triangles); each
+    one's paths/s (median of three), launches and the CUDA-event ms per
+    launch of each ray kernel in its render. The bvh render's image is
+    held at the classical bars against the default route's render of the
+    same bake (the tree's leaf order is a triangle order of its own, and
+    NEE picks a lamp triangle by its row, so only one bake gives the same
+    draws); then the bvh bake at 64x64 x 4 spp, card against CPU (the
+    twins), at the classical bars. 30b: the wave scale scene at 256x256 x
+    1 spp, depth 8, under bvh beside the default: K3's launches equal,
+    K4/K5 in place of K1/K2. `bbig` is the classical scale cell baked
+    under bvh (phase 28b), in `bake_s` seconds."""
+    out, launches = {}, {}
+    img_d, st_d, n = route_render(big, None)
+    check(n["closest"] > 0 and n["anyhit"] > 0 and n["bvh_closest"] == 0
+          and n["bvh_any"] == 0, f"phase 30a default: launched {n}")
+    check_render(img_d, st_d, (256, 256, 3), "phase 30a default")
+    launches["route_classical_scale_default"] = n
+    rate_d = route_rate(big, None, st_d)
+    calls = summarize_calls(rk, timed_render(rk, ck, big)[0], 81932,
+                            "phase 30a default")
+    geo = bbig.data.geo
+    check(geo.num_tris == 81932 and geo.node_pack is not None
+          and geo.ray_table is not None,
+          "phase 30a: the bvh bake has no tree or no K1/K2 tables")
+    route_render(bbig, "bvh", spp=1)                   # warm-up
+    img_b, st_b, n = route_render(bbig, "bvh")
+    check(n["bvh_closest"] > 0 and n["bvh_any"] > 0 and n["closest"] == 0
+          and n["anyhit"] == 0 and n["cone_minz"] == 0,
+          f"phase 30a bvh: launched {n}")
+    check_render(img_b, st_b, (256, 256, 3), "phase 30a bvh")
+    launches["route_classical_scale_bvh"] = n
+    rate_b = route_rate(bbig, "bvh", st_b)
+    with env_var("WT_TRACE_BACKEND", "bvh"):
+        bcalls = timed_bvh_render(bk, ck, bbig)
+    in_bvh = {k: dict(launches=len(v), ms_per_launch=sum(v) / len(v),
+                      ms_max=max(v)) for k, v in bcalls.items()}
+    img_s, st_s, n = route_render(bbig, None)
+    launches["route_classical_scale_bvh_bake_default"] = n
+    frac = compare_images(img_b, img_s, st_b, st_s, "phase 30a bvh vs K1",
+                          **CLASSICAL_BARS)
+    mean_rel = float(np.abs(img_b.mean() / img_d.mean() - 1.0))
+    print(f"phase 30a: classical box + icosphere (81,932 tris) 256x256 8 "
+          f"spp depth 8 [{card}]: default (K1/K2) {rate_d}); bvh (K4/K5, "
+          f"bake {bake_s:.2f} s, {geo.node_pack.shape[0]} nodes) {rate_b}); "
+          f"bvh vs K1/K2 on the same bake: {frac:.4f} of pixels within the "
+          f"classical bar; image mean vs the default bake's {mean_rel:.4f}",
+          flush=True)
+    print("phase 30a: ms per launch in the render: default "
+          + "; ".join(f"{k} {v['launches']} x {v['ms_per_launch']:.3f}"
+                      for k, v in calls.items())
+          + "; bvh " + "; ".join(
+              f"{k} {v['launches']} x {v['ms_per_launch']:.3f}"
+              for k, v in in_bvh.items()), flush=True)
+    out["classical_scale"] = dict(
+        default=dict(paths_per_sec=st_d["paths_per_sec"], rate=rate_d,
+                     in_render=calls),
+        bvh=dict(paths_per_sec=st_b["paths_per_sec"], rate=rate_b,
+                 in_render=in_bvh, bake_s=bake_s,
+                 bvh_nodes=int(geo.node_pack.shape[0])),
+        bvh_vs_k1_same_bake=float(frac), mean_vs_default_bake=mean_rel)
+    with env_var("WT_TRACE_BACKEND", "bvh"):
+        small = build_scene(box_scene(64, 4, 8, icosphere=True),
+                            device="cuda")
+    img_c, st_c, n = route_render(small, "bvh")
+    check(n["bvh_closest"] > 0 and n["closest"] == 0,
+          f"phase 30a 64x64: launched {n}")
+    launches["route_classical_64_bvh"] = n
+    t0 = time.perf_counter()
+    img_h, st_h, _ = route_render(small.on("cpu"), "bvh", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    frac = compare_images(img_c, img_h, st_c, st_h, "phase 30a 64x64",
+                          **CLASSICAL_BARS)
+    out["classical_64_vs_cpu"] = float(frac)
+    print(f"phase 30a: bvh 64x64 4 spp depth 8: cuda vs cpu (the twins, "
+          f"{cpu_s:.1f} s): {frac:.4f} of pixels within the bar", flush=True)
+    # 30b: the wave scale scene at 1 spp
+    img_d, st_d, nd = route_render(wbig, None, spp=1)
+    with env_var("WT_TRACE_BACKEND", "bvh"):
+        bwbig = build_scene(box_scene(256, 4, 8, icosphere=True, fsd=True),
+                            device="cuda")
+    route_render(bwbig, "bvh", spp=1)                  # warm-up
+    img_b, st_b, nb = route_render(bwbig, "bvh", spp=1)
+    check_wave_render(img_b, st_b, (256, 256, 3), "phase 30b bvh")
+    check(nb["cone_minz"] == nd["cone_minz"] > 0 and nb["closest"] == 0
+          and nb["anyhit"] == 0 and nb["bvh_closest"] > 0
+          and nb["bvh_any"] > 0 and nd["closest"] > 0 and nd["anyhit"] > 0
+          and nd["bvh_closest"] == nd["bvh_any"] == 0,
+          f"phase 30b: launched {nb}, by default {nd}")
+    launches["route_wave_scale_default"] = nd
+    launches["route_wave_scale_bvh"] = nb
+    out["wave_scale_1spp"] = dict(
+        default=st_d["paths_per_sec"], bvh=st_b["paths_per_sec"])
+    print(f"phase 30b: wave box + icosphere (81,932 tris) 256x256 1 spp "
+          f"depth 8 [{card}]: default {st_d['paths_per_sec']:.1f} paths/s, "
+          f"bvh {st_b['paths_per_sec']:.1f} paths/s (one render each); "
+          f"launches {nb}", flush=True)
+    return out, launches
+
+
+def check_brute_sphere(build_scene, card):
+    """30c, the brute route at its width: the wave box with the
+    1,280-triangle icosphere (1,292 triangles, bench.py's sphere) under
+    WT_TRACE_BACKEND=brute at 256x256 x 8 spp, depth 8 (two fills of the
+    2^18-lane pool; the FSD legs' any-hit queries test millions of
+    segments against every triangle, in row slices): K1, K2, K4 and K5
+    launch 0 times, K3 does; paths/s of one render; at 64x64 x 1 spp,
+    depth 5, card vs CPU at the wave bars."""
+    out, launches = {}, {}
+    sphere = build_scene(box_scene(256, 8, 8, icosphere=True, fsd=True,
+                                   tessellation=SMALL_TESSELLATION),
+                         device="cuda")
+    check(sphere.data.geo.num_tris == 1292,
+          f"phase 30c sphere: {sphere.data.geo.num_tris} triangles")
+    torch.cuda.reset_peak_memory_stats()
+    img, st, n = route_render(sphere, "brute")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_wave_render(img, st, (256, 256, 3), "phase 30c sphere")
+    check(n["closest"] == n["anyhit"] == n["bvh_closest"] == n["bvh_any"]
+          == 0 and n["cone_minz"] > 0, f"phase 30c sphere: launched {n}")
+    launches["route_wave_sphere_brute"] = n
+    small = build_scene(box_scene(64, 1, 5, icosphere=True, fsd=True,
+                                  tessellation=SMALL_TESSELLATION),
+                        device="cuda")
+    img_c, st_c, n = route_render(small, "brute")
+    launches["route_wave_sphere_64_brute"] = n
+    t0 = time.perf_counter()
+    img_h, st_h, _ = route_render(small.on("cpu"), "brute", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    frac = compare_images(img_c, img_h, st_c, st_h, "phase 30c sphere 64x64",
+                          **WAVE_BARS)
+    out["wave_sphere_brute"] = dict(
+        paths_per_sec=st["paths_per_sec"], seconds=st["seconds"],
+        peak_gib=peak, vs_cpu_64=float(frac), cpu_64_s=cpu_s)
+    print(f"phase 30c: wave box + icosphere (1,292 tris) 256x256 8 spp "
+          f"depth 8 under brute [{card}]: {st['paths_per_sec']:.1f} paths/s "
+          f"(one render, {st['seconds']:.3f} s, peak {peak:.2f} GiB "
+          f"allocated); 64x64 1 spp depth 5 cuda vs cpu ({cpu_s:.1f} s): "
+          f"{frac:.4f} of pixels within the wave bar", flush=True)
+    return out, launches
+
+
+def check_brute_and_pool(build_scene, wbox, wave_launches, card):
+    """30c: the wave box (12 triangles) under WT_TRACE_BACKEND=brute at
+    256x256 x 8 spp, depth 8: K1, K2, K4 and K5 launch 0 times, K3 as by
+    default; paths/s (median of three); at 64x64 x 1 spp, depth 5, card
+    vs CPU at the wave bars; then check_brute_sphere. 30d:
+    WT_COMPACT_LANES=LANES_CAP on the wave box at 64x64 x 8 spp: the stats
+    report the capped width, the image within the wave bars of the
+    default width's (LANE_BARS)."""
+    out, launches = {}, {}
+    img, st, n = route_render(wbox, "brute")
+    check_wave_render(img, st, (256, 256, 3), "phase 30c")
+    check(n["closest"] == n["anyhit"] == n["bvh_closest"] == n["bvh_any"]
+          == n["cone_minz_winners"] == 0
+          and n["cone_minz"] == wave_launches["cone_minz"],
+          f"phase 30c: launched {n}")
+    launches["route_wave_box_brute"] = n
+    rate = route_rate(wbox, "brute", st)
+    small = build_scene(box_scene(64, 1, 5, fsd=True), device="cuda")
+    img_c, st_c, n = route_render(small, "brute")
+    launches["route_wave_64_brute"] = n
+    img_h, st_h, _ = route_render(small.on("cpu"), "brute", device="cpu")
+    frac = compare_images(img_c, img_h, st_c, st_h, "phase 30c 64x64",
+                          **WAVE_BARS)
+    out["wave_box_brute"] = dict(paths_per_sec=st["paths_per_sec"],
+                                 rate=rate, vs_cpu_64=float(frac))
+    print(f"phase 30c: wave box 256x256 8 spp depth 8 under brute "
+          f"[{card}]: {rate}); 64x64 1 spp depth 5 cuda vs cpu: {frac:.4f} "
+          f"of pixels within the wave bar", flush=True)
+    more, l2 = check_brute_sphere(build_scene, card)
+    out.update(more)
+    launches.update(l2)
+    lanes = build_scene(box_scene(64, 8, 8, fsd=True), device="cuda")
+    img_d, st_d, _ = route_render(lanes, None)
+    with env_var("WT_COMPACT_LANES", str(LANES_CAP)):
+        img_l, st_l, n = route_render(lanes, None)
+    launches["compact_lanes_16384"] = n
+    check(st_d["pool_lanes"] == 64 * 64 * 8 and st_l["pool_lanes"]
+          == LANES_CAP, f"phase 30d: pool {st_d['pool_lanes']} and "
+          f"{st_l['pool_lanes']}")
+    frac = compare_images(img_l, img_d, st_l, st_d, "phase 30d", **LANE_BARS)
+    out["compact"] = dict(lanes_cap=LANES_CAP, lanes_vs_default=float(frac))
+    print(f"phase 30d: WT_COMPACT_LANES={LANES_CAP}: pool "
+          f"{st_l['pool_lanes']} (default {st_d['pool_lanes']}), "
+          f"{frac:.4f} of pixels within the wave bar", flush=True)
+    return out, launches
+
+
+def check_phase30(rk, bk, ck, build_scene, big, bbig, bake_s, wbox, wbig,
+                  wave_launches, card):
+    """Phase 30 (a)-(d); returns (readings, launches by path)."""
+    t0 = time.perf_counter()
+    out, launches = check_routes(rk, bk, ck, build_scene, big, bbig, bake_s,
+                                 wbig, card)
+    more, l2 = check_brute_and_pool(build_scene, wbox, wave_launches, card)
+    out.update(more)
+    launches.update(l2)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 30: {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def each_launched(counts):
     """K1, K2 and K3 each launched in the run that `counts` read (K3's
     winner build is counted apart as well, under cone_minz_winners)."""
@@ -3840,7 +4113,6 @@ def main():
            if k.startswith(("gloo_", "nccl_"))}}
 
     # ---- phase 28: large scenes
-    from wave_tracer_tpu_torch.accel import trace as trace_mod
     t0 = time.perf_counter()
     large = build_scene(box_scene(256, 4, 8, icosphere=True, fsd=True,
                                   tessellation=LARGE_TESSELLATION),
@@ -3852,17 +4124,14 @@ def main():
           f"large scene: {large.data.geo.num_tris} tris, not baked for the "
           "BVH route")
     k4, k5 = check_bvh_kernels(bk, large.data.geo, POOL, n_legs, 2800)
-    limit = trace_mod.MXU_MAX_TRIS
-    trace_mod.MXU_MAX_TRIS = 0           # the scale cell through the BVH
-    try:
+    t0 = time.perf_counter()
+    with env_var("WT_TRACE_BACKEND", "bvh"):   # the scale cell's BVH bake
         big_bvh = build_scene(box_scene(256, 8, 8, icosphere=True),
                               device="cuda")
-    finally:
-        trace_mod.MXU_MAX_TRIS = limit
+    big_bvh_s = time.perf_counter() - t0
     vs_all_pairs = check_bvh_vs_all_pairs(
         bk, rk, big.data.geo, big_bvh.data.geo,
         big_bvh.arrays["geo.tri_order"], POOL, 2802)
-    del big_bvh
     large_out = check_large_scene(bk, ck, build_scene, large, bake_s,
                                   rate10)
     city = check_city(build_scene)
@@ -3872,6 +4141,12 @@ def main():
     # the threefry sampler
     p29, l29 = check_phase29(build_scene, wbox, wbig, large)
     extra_launches.update(l29)
+
+    # ---- phase 30: WT_TRACE_BACKEND's routes below 2^17 triangles,
+    # WT_COMPACT_MODE and WT_COMPACT_LANES
+    p30, l30 = check_phase30(rk, bk, ck, build_scene, big, big_bvh,
+                             big_bvh_s, wbox, wbig, wave_launches, card)
+    extra_launches.update(l30)
 
     # ---- phase 11
     def row(name, src, replaces, key, stats, main=None, **extra):
@@ -3963,18 +4238,20 @@ def main():
                               bvh_nodes=large_out["bvh_nodes"],
                               bvh_depth=large_out["bvh_depth"],
                               small_vs_cpu=large_out["small_vs_cpu"]),
-            city=city),
+            city=city, route_switch=p30),
         row("bvh_any_hit", "bvh_kernels.cu",
             "wave_tracer_tpu/accel/trace.py:392", "bvh_any", k5,
             main=large_launches, tpu_kernel=None,
             in_large_render={k: large_out["in_render"].get(k) for k in
                              ("bvh_any_legs", "bvh_any_nee")}),
     ]
-    # below 2^17 triangles nothing takes the BVH route
+    # below 2^17 triangles no default path takes the BVH route: only the
+    # large scene and phase 30's override paths, by name
     for r in kernels[3:]:
         moved = {k: v for k, v in r["launches_by_path"].items()
                  if v and k not in ("large_scene_wave",
-                                    "large_scene_small_card")}
+                                    "large_scene_small_card")
+                 + BVH_OVERRIDE_PATHS}
         check(not moved, f"{r['name']} launched on {moved}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -268,7 +268,7 @@ def test_xi_wo_round_trip():
     assert back.mean() > 0.5
     np.testing.assert_allclose(txi.numpy()[back], xi[back], rtol=1e-3,
                                atol=1e-5)
-    ap = tfr.empty_fr_aperture(3, 24)
+    ap = tfr.empty_fr_aperture(3, 24, device="cpu")
     assert not ap.valid.any() and ap.a_b.dtype == torch.complex64
 
 

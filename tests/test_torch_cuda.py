@@ -1,4 +1,5 @@
-"""K1/K2/K3, K4/K5 (the BVH route), the classical, wave, coverage, city
+"""K1/K2/K3, K4/K5 (the BVH route, and its small trees below 2^17
+triangles), the brute route, the classical, wave, coverage, city
 and materials-box renders, the
 mask and the CLI on a CUDA card against the plain torch versions. Marked `gpu`: each test skips without a
 card. This file imports no
@@ -826,6 +827,137 @@ def test_bvh_kernels_match_twins(cuda, monkeypatch):
         assert torch.equal(o_k, bk._anyhit_ref(*a5))
         o_n = bk.any_hit(*a5, need)
         assert torch.equal(o_n[need], o_k[need]) and not o_n[~need].any()
+
+
+SMALL_TREES = ("leaf_root", "single_split", "box_icosphere")
+
+
+def small_tree(case):
+    """(positions in the tree's leaf order (T, 3, 3), FlatBVH) of a small
+    BVH: a root that is a leaf (3 triangles), one split (8 triangles in
+    two far clusters: a root and two leaves), and the box with bench.py's
+    sphere at 1,280 triangles (1,292)."""
+    from wave_tracer_tpu_torch.accel import bvh
+    r = np.random.default_rng(SMALL_TREES.index(case))
+    if case == "box_icosphere":
+        scene = make_box_scene(res=8, spp=1, icosphere=True, tessellation=24)
+        pos = np.concatenate([s.soup.positions for s in scene.shapes])
+    else:
+        T = 3 if case == "leaf_root" else 8
+        pos = r.normal(size=(T, 3, 3)) * 0.3
+        pos[:, :, 0] += np.where(np.arange(T) < T // 2, -2.0, 2.0)[:, None]
+        pos = pos.astype(np.float32)
+    tree = bvh.build_bvh(pos)
+    return pos[tree.tri_order], tree
+
+
+def small_tree_tables(case, dev):
+    """(node_pack, tri_geom) on `dev`, and the positions, of small_tree."""
+    from wave_tracer_tpu_torch.accel import bvh
+    pos, tree = small_tree(case)
+    tri_geom = np.zeros((len(pos), 12), np.float32)
+    tri_geom[:, 0:3] = pos[:, 0]
+    tri_geom[:, 3:6] = pos[:, 1] - pos[:, 0]
+    tri_geom[:, 6:9] = pos[:, 2] - pos[:, 0]
+    return (torch.from_numpy(bvh.pack_nodes(tree)).to(dev),
+            torch.from_numpy(tri_geom).to(dev), pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SMALL_TREES)
+def test_bvh_kernels_on_small_trees(cuda, case):
+    """K4 and K5 against their twins, words bit for bit, on trees below
+    2^17 triangles (WT_TRACE_BACKEND=bvh takes K4/K5 from 2,049
+    triangles, and any tree a bridged JAX bake brings): rays from around
+    the triangles' bounds, a third excluding their first hit, K5 with up
+    to three exclusions; both with a need mask, K4 with carried hits."""
+    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
+    nodes, tris, pos = small_tree_tables(case, cuda)
+    assert (len(nodes) == 1) == (case == "leaf_root")
+    assert len(nodes) == 3 or case != "single_split"
+    r = np.random.default_rng(7)
+    N = 8192
+    lo, hi = pos.min((0, 1)) - 0.5, pos.max((0, 1)) + 0.5
+    ro = torch.from_numpy(r.uniform(lo, hi, (N, 3)).astype(np.float32))
+    rd = torch.from_numpy(r.normal(size=(N, 3)).astype(np.float32))
+    ro, rd = ro.to(cuda), (rd / rd.norm(dim=-1, keepdim=True)).to(cuda)
+    tmin = torch.full((N,), 1e-4, device=cuda)
+    tmax = torch.full((N,), 1e30, device=cuda)
+    none = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+    _, first = bk.closest_hit(nodes, tris, ro, rd, tmin, tmax, none)
+    assert (first >= 0).any().item()
+    some = torch.from_numpy(r.random(N) < 1 / 3).to(cuda)
+    ex = torch.where(some, first, -1).to(torch.int32)
+    args = (nodes, tris, ro, rd, tmin, tmax, ex)
+    t_k, i_k = bk.closest_hit(*args)
+    t_r, i_r = bk._closest_ref(*args)
+    assert torch.equal(i_k, i_r)
+    assert torch.equal(t_k.view(torch.int32), t_r.view(torch.int32))
+    need = torch.from_numpy(r.random(N) < 0.5).to(cuda)
+    carry = (torch.full((N,), 2.0, device=cuda),
+             torch.full((N,), 1, dtype=torch.int32, device=cuda))
+    t_n, i_n = bk.closest_hit(*args, need, carry)
+    assert torch.equal(i_n[need], i_k[need])
+    assert (i_n[~need] == 1).all() and (t_n[~need] == 2.0).all()
+    ex3 = torch.from_numpy(np.where(
+        r.random((N, 3)) < 0.4, r.integers(0, len(pos), (N, 3)),
+        -1).astype(np.int32)).to(cuda)
+    ex3[:, 0] = ex
+    a5 = (nodes, tris, ro, rd, tmin, torch.full((N,), 2.0, device=cuda), ex3)
+    o_k = bk.any_hit(*a5)
+    assert torch.equal(o_k, bk._anyhit_ref(*a5))
+    o_n = bk.any_hit(*a5, need)
+    assert torch.equal(o_n[need], o_k[need]) and not o_n[~need].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [None, 97], ids=["one_slice", "sliced"])
+def test_brute_route_on_card(cuda, monkeypatch, rows):
+    """The brute route (WT_TRACE_BACKEND=brute) on the card: trace and
+    occluded with need/carry make no host sync and launch no kernel of
+    the port; hits and occlusion equal the CPU's, t bit for bit, u and v
+    within 1e-6 (a fused multiply-add may round a cross product of the
+    carried rows' solve once where the CPU rounds twice). `rows`: the
+    card's row slices cut to 97 rows (43 slices) as well."""
+    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    monkeypatch.setenv("WT_TRACE_BACKEND", "brute")
+    if rows is not None:
+        monkeypatch.setattr(trace_mod, "_CONE_PAIRS",
+                            dict(trace_mod._CONE_PAIRS, cuda=12 * rows))
+    geo = build_scene(make_box_scene(res=8, spp=1), device=cuda).data.geo
+    r = np.random.default_rng(8)
+    N = 4096
+    ro = torch.from_numpy(r.uniform(-0.9, 0.9, (N, 3)).astype(np.float32))
+    ro[:, 1] += 1.0
+    rd = torch.from_numpy(r.normal(size=(N, 3)).astype(np.float32))
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    tmin, tmax = torch.full((N,), 1e-4), torch.full((N,), 1.5)
+    need = torch.from_numpy(r.random(N) < 0.5)
+    carry = (torch.full((N,), 0.5), torch.full((N,), 3, dtype=torch.int32))
+    cpu = [x.to(cuda) for x in (ro, rd, tmin, tmax, need, *carry)]
+    for counts in (rk.LAUNCHES, ck.LAUNCHES, bk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = trace_mod.trace(geo, *cpu[:4], need=cpu[4],
+                              carry=(cpu[5], cpu[6]))
+        occ = trace_mod.occluded(geo, *cpu[:4], need=cpu[4])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(v == 0 for c in (rk.LAUNCHES, bk.LAUNCHES) for v in c.values())
+    hgeo = build_scene(make_box_scene(res=8, spp=1), device="cpu").data.geo
+    want = trace_mod.trace(hgeo, ro, rd, tmin, tmax, need=need, carry=carry)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)
+    assert torch.equal(occ.cpu(),
+                       trace_mod.occluded(hgeo, ro, rd, tmin, tmax,
+                                          need=need))
+    assert (want[1][need] >= 0).float().mean() > 0.5
 
 
 @pytest.mark.gpu

@@ -84,7 +84,7 @@ class TestDistributions:
     def test_piecewise_linear_sampling_matches_pdf(self):
         x = np.array([0.0, 1.0, 2.0, 4.0])
         f = np.array([0.0, 2.0, 1.0, 0.0])
-        d = tdist.build_piecewise_linear(x, f)
+        d = tdist.build_piecewise_linear(x, f, device="cpu")
         np.testing.assert_allclose(float(d.total), 3.5, rtol=1e-6)
         u = torch.linspace(0.001, 0.999, 4001)
         xs, pdf = d.sample(u)
@@ -97,14 +97,15 @@ class TestDistributions:
 
     def test_piecewise_linear_integral(self):
         x = np.linspace(0, np.pi, 200)
-        d = tdist.build_piecewise_linear(x, np.sin(x))
+        d = tdist.build_piecewise_linear(x, np.sin(x), device="cpu")
         np.testing.assert_allclose(float(d.integral(0.0, np.pi)), 2.0,
                                    rtol=1e-3)
         np.testing.assert_allclose(float(d.integral(0.5, 1.0)),
                                    np.cos(0.5) - np.cos(1.0), rtol=1e-3)
 
     def test_discrete(self):
-        d = tdist.build_discrete([1.0, 2.0, 3.0], [1.0, 2.0, 1.0])
+        d = tdist.build_discrete([1.0, 2.0, 3.0], [1.0, 2.0, 1.0],
+                                device="cpu")
         i, pos, pmf = d.sample(torch.tensor(0.5))
         assert int(i) == 1 and float(pos) == 2.0
         np.testing.assert_allclose(float(pmf), 0.5)
@@ -116,7 +117,7 @@ class TestDistributions:
         f = np.abs(r.normal(size=40))
         f[5:8] = 0.0
         jd, td = jdist.build_piecewise_linear(x, f), \
-            tdist.build_piecewise_linear(x, f)
+            tdist.build_piecewise_linear(x, f, device="cpu")
         for k in ("x", "f", "cdf", "total"):
             np.testing.assert_array_equal(getattr(td, k).numpy(),
                                           np.asarray(getattr(jd, k)))
@@ -130,7 +131,7 @@ class TestDistributions:
                jd.integral(jnp.asarray(lo), jnp.asarray(hi)), rtol=1e-5)
         w = r.random(17)
         jq, tq = jdist.build_discrete(x[:17], w), \
-            tdist.build_discrete(x[:17], w)
+            tdist.build_discrete(x[:17], w, device="cpu")
         i, pos, pmf = tq.sample(_t(u))
         ji, jpos, jpmf = jq.sample(jnp.asarray(u))
         np.testing.assert_array_equal(i.numpy(), np.asarray(ji))

@@ -424,7 +424,7 @@ def test_build_aperture(apertures):
                     tfsd.aperture_face_tris(td.edges, tap)):
         _close(a, b, "face tris")
     je = jfsd.empty_aperture(4, 8)
-    te = tfsd.empty_aperture(4, 8)
+    te = tfsd.empty_aperture(4, 8, device="cpu")
     for f in ("v", "edge_idx", "valid", "w"):
         _close(getattr(je, f), getattr(te, f), f"empty {f}")
 

@@ -1,27 +1,34 @@
 """Scene geometry on the device, ray-query dispatch, hit attributes.
 
-Port of wave_tracer_tpu/accel/trace.py. Two routes, chosen by the
-triangle count as the JAX package chooses them:
+Port of wave_tracer_tpu/accel/trace.py. Three routes for the ray
+queries (`trace`, `occluded`), named by `route(num_tris)` as the JAX
+package's `trace` / `occluded` choose them:
 
-* up to MXU_MAX_TRIS triangles, the all-pairs kernels K1/K2
-  (accel/ray_kernels.py). The port's own bake keeps such a scene in soup
-  order and builds no BVH; a table bridged from the JAX package keeps its
-  BVH order (and its tree, unused here).
-* above it, the BVH route: the bake permutes the triangles into the leaf
-  order of a binned-SAH BVH (accel/bvh.py) and packs its nodes
-  (`node_pack`), and `trace_bvh` / `occluded_bvh` walk it with the
+* "kernels": up to MXU_MAX_TRIS triangles, the all-pairs kernels K1/K2
+  (accel/ray_kernels.py), the JAX package's choice on the TPU. The
+  port's own bake keeps such a scene in soup order and builds no BVH; a
+  table bridged from the JAX package keeps its BVH order and its tree.
+* "bvh": above MXU_MAX_TRIS triangles the bake permutes the triangles
+  into the leaf order of a binned-SAH BVH (accel/bvh.py) and packs its
+  nodes (`node_pack`), and `trace_bvh` / `occluded_bvh` walk it with the
   traversal kernels K4/K5 (accel/bvh_kernels.py).
+* "brute": the all-triangles Möller–Trumbore queries `trace_brute` /
+  `occluded_brute` (plain torch, as the JAX package's are jnp code).
+
+WT_TRACE_BACKEND (read at each call, as the JAX package's `_tpu_like`
+reads it) = bvh, brute or cpu leaves the all-pairs kernels as the JAX
+package's CPU route does: brute up to BRUTE_THRESHOLD triangles, the BVH
+above (K4/K5 at any size; the bake builds the tree under the same
+value). Unset, auto, mxu or any other value keeps the default above.
 
 The cone sweep (`cone_boundary_minz`) runs through K3
-(accel/cone_kernels.py) on either route. The rest is plain torch, as
+(accel/cone_kernels.py) on every route. The rest is plain torch, as
 none of it reaches a Pallas kernel in the JAX package: the cone set
 queries of WT_CONE_QUERY (`tris_near_cone`, `tris_near_cone_2pass`,
 `tris_near_cone_clustered` over the triangle clusters `TriClusters`,
-which the bake builds), the ball query of the bdpt and Fraunhofer
+which the bake builds) and the ball query of the bdpt and Fraunhofer
 blocked-flux integral (`tris_in_ball`, and `tris_in_ball_clustered`
-above `tri_cluster_min()` triangles), and the all-triangles
-Möller–Trumbore queries `trace_brute` / `occluded_brute`, which no
-integrator calls.
+above `tri_cluster_min()` triangles).
 """
 
 from __future__ import annotations
@@ -43,11 +50,25 @@ from wave_tracer_tpu_torch.wave.envelope import EnvState
 # above this triangle count the ray queries take the BVH route (K4/K5), as
 # the JAX package's do (its all-pairs MXU intersector stops there)
 MXU_MAX_TRIS = 1 << 17
+# off the all-pairs kernels (WT_TRACE_BACKEND=bvh|brute|cpu), the brute
+# queries up to this triangle count and the BVH above, as in the JAX package
+BRUTE_THRESHOLD = 2048
+_OFF_KERNELS = ("bvh", "brute", "cpu")
 
 
 def takes_bvh(num_tris: int) -> bool:
-    """Whether a scene of `num_tris` triangles takes the BVH route."""
+    """Whether a scene of `num_tris` triangles takes the BVH route by
+    default (what the default bake builds a tree for)."""
     return num_tris > MXU_MAX_TRIS
+
+
+def route(num_tris: int) -> str:
+    """The ray queries' route for `num_tris` triangles: "kernels" (K1/K2),
+    "bvh" (K4/K5) or "brute", as the JAX package's trace/occluded choose
+    under WT_TRACE_BACKEND (read at each call; see the module doc)."""
+    if os.environ.get("WT_TRACE_BACKEND", "auto") in _OFF_KERNELS:
+        return "brute" if num_tris <= BRUTE_THRESHOLD else "bvh"
+    return "bvh" if takes_bvh(num_tris) else "kernels"
 
 
 @dataclass
@@ -135,9 +156,12 @@ def from_soup(soup, mat_id, shape_id, emitter_id,
 def _nodes(geo):
     if geo.node_pack is None:
         raise ValueError(
-            f"{geo.num_tris} triangles > MXU_MAX_TRIS = {MXU_MAX_TRIS} take "
-            "the BVH route, and this GeoArrays has no node_pack (bake the "
-            "scene with scene.build_scene)")
+            f"{geo.num_tris} triangles take the BVH route (above "
+            f"MXU_MAX_TRIS = {MXU_MAX_TRIS}, or above BRUTE_THRESHOLD = "
+            f"{BRUTE_THRESHOLD} under WT_TRACE_BACKEND=bvh|brute|cpu; now "
+            f"{os.environ.get('WT_TRACE_BACKEND')!r}), and this GeoArrays "
+            "has no node_pack: bake the scene with scene.build_scene under "
+            "the same WT_TRACE_BACKEND")
     return geo.node_pack
 
 
@@ -179,16 +203,20 @@ def trace(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None, need=None,
     `need` (N,) bool names the rows to trace (None: all); the others take
     `carry`, the (t, tri) of their last trace (a miss if None), untraced:
     the caller passes it for rows whose ray, tmin, tmax and exclusion are
-    those of that trace. Up to MXU_MAX_TRIS triangles K1, above it the
-    BVH route (`trace_bvh`)."""
+    those of that trace. K1, `trace_bvh` (K4) or `trace_brute`, by
+    `route`."""
     if geo.num_tris == 0:
         N = ro.shape[0]
         z = torch.zeros((N,), dtype=torch.float32, device=ro.device)
         return (torch.full_like(z, ray_kernels._BIG_F32),
                 torch.full((N,), -1, dtype=torch.int32, device=ro.device),
                 z, z.clone())
-    if takes_bvh(geo.num_tris):
+    way = route(geo.num_tris)
+    if way == "bvh":
         return trace_bvh(geo, ro, rd, tmin, tmax, exclude_tri, need, carry)
+    if way == "brute":
+        return trace_brute(geo, ro, rd, tmin, tmax, exclude_tri, need,
+                           carry)
     return ray_kernels.trace_rays(geo, ro, rd, tmin, tmax, exclude_tri,
                                   need, carry)
 
@@ -197,14 +225,18 @@ def occluded(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
              exclude_tri2=None, exclude_tri3=None, need=None):
     """Any hit within (tmin, tmax]. `need` (N,) bool names the rows whose
     result is read (None: all); the others return False and are not
-    traced. Returns bool (N,). Up to MXU_MAX_TRIS triangles K2, above it
-    the BVH route (`occluded_bvh`)."""
+    traced. Returns bool (N,). K2, `occluded_bvh` (K5) or
+    `occluded_brute`, by `route`."""
     if geo.num_tris == 0:
         return torch.zeros((ro.shape[0],), dtype=torch.bool,
                            device=ro.device)
-    if takes_bvh(geo.num_tris):
+    way = route(geo.num_tris)
+    if way == "bvh":
         return occluded_bvh(geo, ro, rd, tmin, tmax, exclude_tri,
                             exclude_tri2, exclude_tri3, need)
+    if way == "brute":
+        return occluded_brute(geo, ro, rd, tmin, tmax, exclude_tri,
+                              exclude_tri2, exclude_tri3, need)
     return ray_kernels.occluded_rays(geo, ro, rd, tmin, tmax, exclude_tri,
                                      exclude_tri2, exclude_tri3, need)
 
@@ -224,7 +256,7 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
     as the JAX package's exact-AD plain query gives it: zc is the kernel's
     value bit for bit, plus (z − z) with the second term detached. With
     no derivative in play nothing more runs. K3 on either route (the JAX
-    package's dense sweep computes the same minima above MXU_MAX_TRIS)."""
+    package's dense sweep computes the same minima on every route)."""
     N, B = bounds.shape
     dev = ro.device
     if geo.num_tris == 0:
@@ -259,9 +291,9 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
 
 def ray_tests_per_lane(geo: GeoArrays) -> float:
     """Ray–triangle pair tests one trace/occluded call issues per lane:
-    every triangle on the all-pairs route; 0 on the BVH route, whose count
-    depends on the data (as the JAX package reports it)."""
-    return 0.0 if takes_bvh(geo.num_tris) else float(geo.num_tris)
+    every triangle on the all-pairs and brute routes; 0 on the BVH route,
+    whose count depends on the data (as the JAX package reports it)."""
+    return 0.0 if route(geo.num_tris) == "bvh" else float(geo.num_tris)
 
 
 def _point_tri_dist(p, a, e1, e2, gn):
@@ -296,8 +328,9 @@ def _point_tri_dist(p, a, e1, e2, gn):
 # lane chunk of the ball query: at most this many (lane, triangle) pairs
 # of temporaries at once
 _BALL_PAIRS = 1 << 22
-# the same for the cone set queries, on the CPU and on the card (its
-# memory holds larger chunks, and each chunk is hundreds of launches)
+# the same for the cone set queries and the brute ray queries, on the CPU
+# and on the card (its memory holds larger chunks, and each chunk is
+# hundreds of launches)
 _CONE_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 24}
 
 
@@ -714,28 +747,31 @@ def cone_tri_entry_point(geo: GeoArrays, ro, rd, env, tri, zmin, zmax):
 
 
 # ---------------------------------------------------------------------------
-# plain all-triangles ray queries (Möller–Trumbore); callable, unused by the
-# integrators, whose routes are K1/K2 and K4/K5
+# plain all-triangles ray queries (Möller–Trumbore): the "brute" route
 # ---------------------------------------------------------------------------
 
 _TRI_TILE = 512
 
 
-def trace_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None):
-    """Closest hit over all triangles by two-sided Möller–Trumbore, in
-    triangle tiles. Returns (t, tri, u, v): t = BIG and tri = −1 on a
-    miss; ties to the lower id."""
-    T = geo.num_tris
+def _row_slices(N, T, dev):
+    """Row slices of the brute queries: at most _CONE_PAIRS[dev] (row,
+    triangle) pairs of temporaries at once (each of Möller–Trumbore's
+    vectors is rows × tile × 3 floats), and one slice when N is 0."""
+    step = max(1, _CONE_PAIRS[torch.device(dev).type]
+               // max(min(_TRI_TILE, T), 1))
+    return [slice(s, s + step) for s in range(0, max(N, 1), step)]
+
+
+def _closest_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri):
+    """trace_brute's closest hit of one row slice, without need/carry."""
     N = ro.shape[0]
     dev = ro.device
-    if exclude_tri is None:
-        exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
     best_t = torch.full((N,), isect.BIG, device=dev)
     best_i = torch.full((N,), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((N,), device=dev)
     best_v = torch.zeros((N,), device=dev)
     rows = torch.arange(N, device=dev)
-    for s in range(0, T, _TRI_TILE):
+    for s in range(0, geo.num_tris, _TRI_TILE):
         sl = slice(s, s + _TRI_TILE)
         t, u, v, hit = isect.ray_tri(ro[:, None, :], rd[:, None, :],
                                      geo.p0[None, sl], geo.e1[None, sl],
@@ -752,18 +788,45 @@ def trace_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None):
         best_i = torch.where(better, (s + j).to(torch.int32), best_i)
         best_u = torch.where(better, u[rows, j], best_u)
         best_v = torch.where(better, v[rows, j], best_v)
-    best_i = torch.where(best_t < isect.BIG, best_i, -1)
     return best_t, best_i, best_u, best_v
 
 
-def occluded_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
-                   exclude_tri2=None, exclude_tri3=None):
-    """Any hit in (tmin, tmax] over all triangles, up to three excluded
-    ids per ray. Returns bool (N,)."""
+def trace_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
+                need=None, carry=None):
+    """Closest hit over all triangles by two-sided Möller–Trumbore, in
+    row slices (_row_slices) and triangle tiles, with `trace`'s contract.
+    Returns (t, tri, u, v): t = BIG and tri = −1 on a miss; ties to the
+    lower id. Derivatives flow through the winner's Möller–Trumbore t, u
+    and v, as through the JAX package's trace_brute. Every row is tested
+    (a host sync would cost more than the rows); rows off `need` then
+    take `carry` (a miss if None) bit for bit, with u/v and t's
+    derivative from the carried triangle (`ray_kernels.solve_hits`, as
+    the K1 route gives them)."""
     N = ro.shape[0]
-    ex = ray_kernels._exclusions(N, ro.device, exclude_tri, exclude_tri2,
-                                 exclude_tri3)
-    occ = torch.zeros((N,), dtype=torch.bool, device=ro.device)
+    dev = ro.device
+    if exclude_tri is None:
+        exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    parts = [_closest_brute(geo, ro[r], rd[r], tmin[r], tmax[r],
+                            exclude_tri[r])
+             for r in _row_slices(N, geo.num_tris, dev)]
+    best_t, best_i, best_u, best_v = (torch.cat(x) for x in zip(*parts))
+    best_i = torch.where(best_t < isect.BIG, best_i, -1)
+    if need is None:
+        return best_t, best_i, best_u, best_v
+    if carry is None:
+        carry = (torch.full_like(best_t, isect.BIG),
+                 torch.full_like(best_i, -1))
+    primal = ray_kernels.primal
+    ct, ci, cu, cv = ray_kernels.solve_hits(
+        geo.tri_geom, ro, rd, primal(carry[0], torch.float32),
+        primal(carry[1], torch.int32))
+    return (torch.where(need, best_t, ct), torch.where(need, best_i, ci),
+            torch.where(need, best_u, cu), torch.where(need, best_v, cv))
+
+
+def _any_brute(geo: GeoArrays, ro, rd, tmin, tmax, ex):
+    """occluded_brute's any hit of one row slice, without need."""
+    occ = torch.zeros((ro.shape[0],), dtype=torch.bool, device=ro.device)
     for s in range(0, geo.num_tris, _TRI_TILE):
         sl = slice(s, s + _TRI_TILE)
         _, _, _, hit = isect.ray_tri(ro[:, None, :], rd[:, None, :],
@@ -775,6 +838,19 @@ def occluded_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
         keep = (ids[None, :, None] != ex[:, None, :]).all(-1)
         occ = occ | (hit & keep).any(1)
     return occ
+
+
+def occluded_brute(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
+                   exclude_tri2=None, exclude_tri3=None, need=None):
+    """Any hit in (tmin, tmax] over all triangles, up to three excluded
+    ids per ray, in row slices (_row_slices) and triangle tiles, with
+    `occluded`'s contract: rows off `need` are False. Returns bool (N,)."""
+    N = ro.shape[0]
+    ex = ray_kernels._exclusions(N, ro.device, exclude_tri, exclude_tri2,
+                                 exclude_tri3)
+    occ = torch.cat([_any_brute(geo, ro[r], rd[r], tmin[r], tmax[r], ex[r])
+                     for r in _row_slices(N, geo.num_tris, ro.device)])
+    return occ if need is None else occ & need
 
 
 @dataclass

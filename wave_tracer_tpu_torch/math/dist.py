@@ -14,6 +14,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from wave_tracer_tpu_torch.util.device import card
+
 
 def _like(v, ref):
     """v as a tensor of ref's dtype and device."""
@@ -78,7 +80,10 @@ class PiecewiseLinear1D:
         return (cum(hi) - cum(lo)).clamp_min(0.0)
 
 
-def build_piecewise_linear(x, f, device="cpu") -> PiecewiseLinear1D:
+def build_piecewise_linear(x, f, device="cuda") -> PiecewiseLinear1D:
+    """The piecewise-linear density f over the knots x, on `device` (the
+    card unless the CPU is asked for)."""
+    device = card(device)
     x = np.asarray(x, np.float64)
     f = np.maximum(np.asarray(f, np.float64), 0.0)
     assert x.ndim == 1 and x.shape == f.shape and len(x) >= 2
@@ -113,7 +118,10 @@ class Discrete1D:
         return self.w[i] / self.total.clamp_min(1e-30)
 
 
-def build_discrete(pos, w, device="cpu") -> Discrete1D:
+def build_discrete(pos, w, device="cuda") -> Discrete1D:
+    """The atoms (pos, w) on `device` (the card unless the CPU is asked
+    for)."""
+    device = card(device)
     pos = np.asarray(pos, np.float64).reshape(-1)
     w = np.maximum(np.asarray(w, np.float64).reshape(-1), 0.0)
     cdf = np.cumsum(w)

@@ -35,6 +35,7 @@ from wave_tracer_tpu_torch.parallel import launch as launch_mod
 from wave_tracer_tpu_torch.render.renderer import film_channels, render_mode
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
+from wave_tracer_tpu_torch.util.device import card
 
 
 def _zero_like_film(film):
@@ -140,10 +141,7 @@ def render_distributed(built, sensor_index: int = 0, spp: int | None = None,
     rank, nproc = launch_mod.world()
     if device is None:
         device = launch_mod.local_device()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port renders on the card "
-                           "unless device='cpu' is asked for")
+    device = card(device)
     if built.device != device:
         built = built.on(device)
     scene = built.scene

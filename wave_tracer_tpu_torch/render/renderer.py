@@ -31,11 +31,24 @@ without one each path runs as one chunk. `last_film` and `last_spp_done`
 keep the raw film and the samples done, and `init_film` with `spp_start`
 continue a render from them (render/checkpoint.py): every path's streams
 are keyed by (pixel, sample), so the remaining samples are the same.
+
+The JAX package's two switches of its compacted render: WT_COMPACT_MODE
+picks its single-dispatch `while` driver or its host-stepped one, which
+it holds to the same film. The port has one driver, a host loop that
+polls the pool's live lanes each step (the counterpart of `stepped`), so
+both values select it and no result depends on the value.
+WT_COMPACT_LANES (read at each render) takes the default's place, as in
+the JAX renderer: min(pool_lanes or COMPACT_LANES_MAX, WT_COMPACT_LANES),
+so it can raise the pool above the default as well as lower it; a value
+below 1 raises. Unset, the default stays the port's own (POOL_LANES_*),
+not the JAX package's 8k or 16k lanes of its drivers. Both apply to the
+compacted render only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import torch
@@ -50,6 +63,7 @@ from wave_tracer_tpu_torch.sensor import film as film_mod
 from wave_tracer_tpu_torch.sensor.perspective import PerspectiveSensor
 from wave_tracer_tpu_torch.sensor.virtual_plane import VirtualPlaneSensor
 from wave_tracer_tpu_torch.util import stats as stats_mod
+from wave_tracer_tpu_torch.util.device import card
 
 # default lane-pool sizes. On the card a pool step costs a few thousand
 # small torch launches whatever its width (most of them the int64 Sobol
@@ -63,6 +77,9 @@ from wave_tracer_tpu_torch.util import stats as stats_mod
 # the kernels would trace the idle lanes too.
 POOL_LANES_CUDA = 1 << 18
 POOL_LANES_CPU = 1 << 13
+# the ceiling on WT_COMPACT_LANES without pool_lanes: the JAX renderer's
+# default batch_lanes, which bounds the variable there
+COMPACT_LANES_MAX = 1 << 17
 # default lanes per bdpt batch. A lane holds two stored subpaths of up to
 # max_depth vertices, each with its Fraunhofer aperture slots (about 15 KB
 # at depth 8); every draw is keyed by (pixel, sample), so the batch width
@@ -98,6 +115,21 @@ def render_mode(scene, sensor, n_edges):
     if cfg.type == "plt_bdpt" and not trace_only:
         return "bdpt", fsd_on, eps
     return ("wave" if fsd_on else "ray"), fsd_on, eps
+
+
+def pool_width(pool_lanes, device):
+    """The compacted render's pool width: pool_lanes or POOL_LANES_* for
+    the device, or, under WT_COMPACT_LANES, min(pool_lanes or
+    COMPACT_LANES_MAX, WT_COMPACT_LANES) as the JAX renderer computes it
+    (the variable replaces the default). A value below 1 raises."""
+    cap = os.environ.get("WT_COMPACT_LANES")
+    if not cap:
+        return pool_lanes or (POOL_LANES_CUDA if device.type == "cuda"
+                              else POOL_LANES_CPU)
+    if int(cap) < 1:
+        raise ValueError(f"WT_COMPACT_LANES={cap}: the pool needs at least "
+                         "one lane")
+    return min(pool_lanes or COMPACT_LANES_MAX, int(cap))
 
 
 _COUNTER_NAMES = {
@@ -140,10 +172,7 @@ class Renderer:
     def render_sensor(self, sensor_index: int = 0, spp: int | None = None,
                       progress=None, init_film=None, spp_start: int = 0):
         built = self.built
-        device = torch.device(self.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the port renders on the "
-                               "card unless device='cpu' is asked for")
+        device = card(self.device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if built.device != device:
@@ -166,8 +195,7 @@ class Renderer:
         npix = sensor.width * sensor.height
         # chunk by spp only for interrupt granularity
         spp_chunk = max(1, -(-spp // 8)) if self.interrupt else spp
-        default = POOL_LANES_CUDA if device.type == "cuda" \
-            else POOL_LANES_CPU
+        width = pool_width(self.pool_lanes, device)
         base_key = rng.make_base_key(self.seed)
         stats = None
         lanes = paths = 0
@@ -175,7 +203,7 @@ class Renderer:
         t0 = time.perf_counter()
         for s0 in range(spp_start, spp, spp_chunk):
             s1 = min(s0 + spp_chunk, spp)
-            n = min((s1 - s0) * npix, self.pool_lanes or default)
+            n = min((s1 - s0) * npix, width)
             film, st = render_pool(
                 data, film, base_key, (s0 * npix, s1 * npix), n,
                 sensor=sensor, max_depth=cfg.max_depth, eps=eps,

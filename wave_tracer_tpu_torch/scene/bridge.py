@@ -9,9 +9,11 @@ package, flattened with np.asarray on its leaves, loads the same way.
 Both bakes write "edge_clusters.*", the clustered edge sweep's index,
 and "tri_clusters.*", the triangle clusters of the clustered cone and
 ball queries; both are required as the edge table is. One key is
-optional: "geo.node_pack", the packed BVH a scene above MXU_MAX_TRIS
-triangles is traced with (a JAX bake's tree is loaded, so the port walks
-the JAX tree; the port's own bake writes one only above that count). Keys
+optional: "geo.node_pack", the packed BVH that the BVH route walks (a
+JAX bake's tree is loaded at every size, so the port walks the JAX tree;
+the port's own bake writes one only where `accel/trace.py::route` names
+the BVH: above MXU_MAX_TRIS triangles, or above BRUTE_THRESHOLD under
+WT_TRACE_BACKEND=bvh|brute|cpu). Keys
 the port does not read (Pallas feature layouts, the node arrays besides
 node_pack) are ignored: the kernel rows are rebuilt here from
 p0/e1/e2/mxu_center.

@@ -9,9 +9,13 @@ clusters the triangles for the clustered cone and ball queries, and
 bakes the emitter and spectral-sampling tables into a dict keyed like the
 JAX SceneData (scene/bridge.py), which `scene_data_from_numpy` uploads.
 Up to MXU_MAX_TRIS triangles the soup keeps its order (the all-pairs
-kernels need no BVH); above it, a BVH is built (accel/bvh.py) and every
+kernels need no BVH); above it, and above BRUTE_THRESHOLD under
+WT_TRACE_BACKEND=bvh|brute|cpu (where the ray queries take the BVH,
+`accel/trace.py::route`), a BVH is built (accel/bvh.py) and every
 triangle table, the edge table's and the emitters' triangle ids included,
-is baked in its leaf order, as the JAX package bakes every scene.
+is baked in its leaf order, as the JAX package bakes every scene. Such a
+bake up to MXU_MAX_TRIS triangles still gets K1/K2's tables, so it also
+renders under the default route.
 """
 
 from __future__ import annotations
@@ -144,7 +148,7 @@ def bake_scene_arrays(scene: Scene):
     mat_id, shape_id, emitter_id = (np.concatenate(x) for x in (
         mat_id, shape_id, emitter_id))
     bvh = None
-    if trace_mod.takes_bvh(soup.num_tris):
+    if trace_mod.route(soup.num_tris) == "bvh":
         # every table below names triangles in the BVH's leaf order
         bvh = bvh_mod.build_bvh(soup.positions)
         perm = bvh.tri_order

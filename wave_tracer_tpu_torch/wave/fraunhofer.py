@@ -28,6 +28,8 @@ import math
 import numpy as np
 import torch
 
+from wave_tracer_tpu_torch.util.device import card
+
 INV_TWO_PI = 1.0 / (2.0 * math.pi)
 
 # Published lobe-power constants: ∫ χe·|α1|² and ∫ χe·|α2|²
@@ -166,8 +168,10 @@ def edge_powers(e, a_b, iab_2):
     return ee2 ** 2 * (PA1 * a_b.abs() ** 2 + PA2 * iab_2.abs() ** 2)
 
 
-def empty_fr_aperture(N, B, device="cpu"):
-    """All-invalid aperture with B slots."""
+def empty_fr_aperture(N, B, device="cuda"):
+    """All-invalid aperture with B slots on `device` (the card unless the
+    CPU is asked for)."""
+    device = card(device)
     z = dict(dtype=torch.float32, device=device)
     c = dict(dtype=torch.complex64, device=device)
     return FraunhoferAperture(

@@ -17,6 +17,7 @@ import torch
 
 from wave_tracer_tpu_torch.accel.edges import EdgeTable
 from wave_tracer_tpu_torch.math import vec
+from wave_tracer_tpu_torch.util.device import card
 from wave_tracer_tpu_torch.wave import utd
 from wave_tracer_tpu_torch.wave.utd import floor_mod
 
@@ -106,7 +107,10 @@ def aperture_face_tris(edges: EdgeTable, ap: FsdAperture):
             torch.where(ap.valid, edges.tri2[i], -1))
 
 
-def empty_aperture(N: int, K: int, device="cpu") -> FsdAperture:
+def empty_aperture(N: int, K: int, device="cuda") -> FsdAperture:
+    """All-invalid aperture with K slots on `device` (the card unless the
+    CPU is asked for)."""
+    device = card(device)
     z3 = torch.zeros((N, K, 3), dtype=torch.float32, device=device)
     z = torch.zeros((N, K), dtype=torch.float32, device=device)
     return FsdAperture(
