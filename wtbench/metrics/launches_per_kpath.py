@@ -1,0 +1,8 @@
+"""launches_per_kpath: CUDA kernel launches in the traced window (the
+device trace) per 1,000 paths completed in it."""
+
+from wtbench.readers import launches_per_k
+
+
+def read(ctx):
+    return launches_per_k(ctx)
