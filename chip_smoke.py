@@ -3623,26 +3623,26 @@ def plain_launched(counts):
     return each_launched(counts) and counts["cone_minz_winners"] == 0
 
 
-def zero(*counts):
-    for c in counts:
-        for k in c:
-            c[k] = 0
+# the registry's launch counters (launches/<kernel>) under the names this
+# script's JSON has always given them
+LAUNCH_NAMES = {"closest": "k1", "anyhit": "k2", "cone_minz": "k3",
+                "cone_minz_winners": "k3_winners", "bvh_closest": "k4",
+                "bvh_any": "k5"}
 
 
 def launch_counts():
-    """Every kernel's launch count: K1/K2, K3 (and its winner build apart),
-    K4/K5."""
-    from wave_tracer_tpu_torch.accel import (bvh_kernels, cone_kernels,
-                                             ray_kernels)
-    return dict(ray_kernels.LAUNCHES, **cone_kernels.LAUNCHES,
-                **bvh_kernels.LAUNCHES)
+    """Every kernel's launch count (util/stats.py's registry): K1/K2, K3
+    (and its winner build apart), K4/K5."""
+    from wave_tracer_tpu_torch.util.stats import registry
+    return {name: registry.counter(f"launches/{k}").value
+            for name, k in LAUNCH_NAMES.items()}
 
 
 def zero_counts():
     """Every kernel's launch count set to 0."""
-    from wave_tracer_tpu_torch.accel import (bvh_kernels, cone_kernels,
-                                             ray_kernels)
-    zero(ray_kernels.LAUNCHES, cone_kernels.LAUNCHES, bvh_kernels.LAUNCHES)
+    from wave_tracer_tpu_torch.util.stats import registry
+    for k in LAUNCH_NAMES.values():
+        registry.counter(f"launches/{k}").reset()
 
 
 def main():
@@ -3745,11 +3745,12 @@ def main():
 
     # ---- phase 6: classical scale case
     render_scene(big, spp=1, device="cuda")            # warm-up
-    before = dict(rk.LAUNCHES)
+    before = launch_counts()
     img6, st6 = render_scene(big, device="cuda")
     torch.cuda.synchronize()
-    check(all(rk.LAUNCHES[k] > before[k] for k in before),
-          f"phase 6 launched {rk.LAUNCHES} after {before}")
+    after = launch_counts()
+    check(all(after[k] > before[k] for k in ("closest", "anyhit")),
+          f"phase 6 launched {after} after {before}")
     check_render(img6, st6, (256, 256, 3), "phase 6")
     check(st6["pool_lanes"] == lanes6, f"phase 6 pool {st6['pool_lanes']}")
     print(f"phase 6: classical box + icosphere ({big.data.geo.num_tris} "

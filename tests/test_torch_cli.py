@@ -224,30 +224,37 @@ def test_checkpoints_load_across_packages(tmp_path):
         tckpt.load_checkpoint(str(tmp_path / "v2.npz"))
 
 
-def test_stats_registry(tmp_path):
+def test_stats_registry():
     r = tstats.Registry()
-    r.counter("rays").add(10)
+    rays = r.counter("rays")
+    rays.add(10)
     r.counter("rays").add(5)
+    assert r.counter("rays") is rays
     r.histogram("depth").add(4)
     r.histogram("depth").add_count(30, 2)
-    r.event_counter("casts").add("hit", 3)
-    with r.timing("trace"):
-        pass
-    rs = r.running("x")
-    for x in [1.0, 2.0, 3.0, 4.0]:
-        rs.add(x)
+    with tstats.Span(r, "outer"):
+        with tstats.Span(r, "inner"):
+            pass
     rep = r.report()
     assert rep["rays"] == 15 and sum(rep["depth"]) == 3
-    assert rep["depth"][-1] == 2 and rep["casts"]["hit"] == 3
-    assert rep["trace"]["count"] == 1
-    np.testing.assert_allclose(rep["x"]["std"], np.std([1, 2, 3, 4], ddof=1))
-    r.write_json(str(tmp_path / "s.json"))
-    assert json.load(open(tmp_path / "s.json"))["rays"] == 15
-    lines = []
-    r.print_table(lines.append)
-    assert any(line.startswith("rays") for line in lines)
+    assert rep["depth"][3] == 1 and rep["depth"][-1] == 2
+    outer, inner = rep["outer"], rep["inner"]
+    assert outer["count"] == inner["count"] == 1
+    assert 0 <= inner["stream_s"] <= outer["stream_s"]
+    assert outer["host_s"] == outer["stream_s"]          # no CUDA here
+    assert outer["self_stream_s"] == pytest.approx(
+        outer["stream_s"] - inner["stream_s"])
+    assert [(s.name, s.parent and s.parent.name) for s in r.spans] \
+        == [("outer", None), ("inner", "outer")]
+    json.loads(json.dumps(rep))
+    # off unless a profiler records: one shared no-op context
+    assert tstats.span("a") is tstats.span("b")
+    # reset zeroes every collector, and the handles held stay live
     r.reset()
-    assert r.report() == {}
+    rays.add(2)
+    rep = r.report()
+    assert rep["rays"] == 2 and not any(rep["depth"])
+    assert rep["outer"]["count"] == 0 and r.spans == []
 
 
 def _tev_bytes(mod, img):
@@ -402,6 +409,10 @@ def test_cli_render_matches_jax_cli(tmp_path):
     (st,) = json.load(open(out / "perf_stats.json"))
     assert st["mode"] == "ray-compact" and st["paths"] == 128
     assert not st["interrupted"]
+    # the process's registry after the render (util/stats.py)
+    reg = st["registry"]
+    assert reg["pool/steps"] >= 1 and reg["integrator/rays_cast"] > 0
+    assert "launches/k1" in reg
     img = _rgb(str(out / "camera.exr"))
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     # the EXR is the developed render (float32, lossless)

@@ -23,6 +23,7 @@ from wave_tracer_tpu.accel import trace as jtrace
 from wave_tracer_tpu.integrator import traversal as jtraversal
 from wave_tracer_tpu_torch.accel import cone_kernels
 from wave_tracer_tpu_torch.accel import trace as ttrace
+from wave_tracer_tpu_torch.util.stats import registry
 from wave_tracer_tpu_torch.wave.envelope import EnvState
 
 cap_torch_threads()
@@ -113,10 +114,11 @@ def test_cone_kernel_wrapper_devices():
     ones = torch.ones(N)
     args = (geo.cone_tris, *lane, ones, ones * 0.1, ones * 0.1, ones * 10,
             torch.full((N,), -1, dtype=torch.int32), torch.zeros((N, 16)))
-    before = cone_kernels.LAUNCHES["cone_minz"]
+    k3 = registry.counter("launches/k3")
+    before = k3.value
     zc, cnt = cone_kernels.cone_minz(*args, table=geo.cone_table)
     assert zc.shape == (N, 16) and cnt.dtype == torch.int32
-    assert cone_kernels.LAUNCHES["cone_minz"] == before
+    assert k3.value == before
     with pytest.raises(NotImplementedError):
         cone_kernels.cone_minz(*[a.to("meta") for a in args],
                                table=[x.to("meta") for x in geo.cone_table])

@@ -20,8 +20,21 @@ from wave_tracer_tpu_torch.render import render_scene
 from wave_tracer_tpu_torch.scene import build_scene
 from wave_tracer_tpu_torch.scene.procedural import make_box_scene
 from test_torch_cull import tie_rays, tie_soup
+from wave_tracer_tpu_torch.util.stats import registry
 
 cap_torch_threads()
+
+KERNELS = ("k1", "k2", "k3", "k3_winners", "k4", "k5")
+
+
+def launches():
+    """Every kernel's launch count: the registry's launches/* counters."""
+    return {k: registry.counter(f"launches/{k}").value for k in KERNELS}
+
+
+def zero_launches():
+    for k in KERNELS:
+        registry.counter(f"launches/{k}").reset()
 
 
 @pytest.fixture
@@ -60,7 +73,7 @@ def test_kernels_match_twins(cuda):
         tmin = torch.full((N,), tmin_v, device=cuda)
         tmax = torch.full((N,), tmax_v, device=cuda)
         args = (feat, center, ro, rd, tmin, tmax, ex)
-        before = dict(rk.LAUNCHES)
+        before = launches()
         tk, ik = rk.closest_hit(*args, table=table)
         tr, ir = rk._closest_ref(*args)
         assert (ik == ir).float().mean().item() >= 0.999
@@ -70,8 +83,8 @@ def test_kernels_match_twins(cuda):
         occ = rk.any_hit(*args, table=table)
         ref = rk._anyhit_ref(*args)
         assert (occ == ref).float().mean().item() >= 0.999
-        assert rk.LAUNCHES["closest"] == before["closest"] + 1
-        assert rk.LAUNCHES["anyhit"] == before["anyhit"] + 1
+        assert launches()["k1"] == before["k1"] + 1
+        assert launches()["k2"] == before["k2"] + 1
         # need masks: needed rows as before, the rest False
         for need in (torch.from_numpy(r.random(N) < 0.1).to(cuda),
                      torch.zeros(N, dtype=torch.bool, device=cuda)):
@@ -135,11 +148,11 @@ def _cone_matches_plain(args, table):
     """K3 against _minz_ref: bit-equal minima and counts (the culls skip
     only pairs the body rejects), one launch counted; the counting build
     returns the same, with consistent counters."""
-    before = dict(ck.LAUNCHES)
+    before = launches()
     zc, cnt = ck.cone_minz(*args, table=table)
     zr, cr = ck._minz_ref(*args)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["cone_minz"] == before["cone_minz"] + 1
+    assert launches()["k3"] == before["k3"] + 1
     assert torch.isfinite(zr).any().item()
     assert torch.equal(zc, zr) and torch.equal(cnt, cr)
     stats = torch.zeros((4,), dtype=torch.int64, device=zc.device)
@@ -152,9 +165,8 @@ def _cone_matches_plain(args, table):
     # triangle as the twin picks it (least z, then least id)
     zw, cw, win = ck.cone_minz(*args, table=table, winners=True)
     _, _, win_r = ck._minz_ref(*args, winners=True)
-    assert ck.LAUNCHES["cone_minz"] == before["cone_minz"] + 3
-    assert ck.LAUNCHES["cone_minz_winners"] \
-        == before["cone_minz_winners"] + 1
+    assert launches()["k3"] == before["k3"] + 3
+    assert launches()["k3_winners"] == before["k3_winners"] + 1
     assert torch.equal(zw, zc) and torch.equal(cw, cnt)
     assert torch.equal(win, win_r)
     assert torch.equal(win >= 0, torch.isfinite(zc))
@@ -235,6 +247,48 @@ def test_wave_render_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_spans_on_card(cuda):
+    """Under torch.profiler the wave pool's spans time the stream by CUDA
+    events: each name counted as the profiler counts it, every span's
+    stream time within its parent's (siblings' summed), self time at or
+    above 0; off, the same render records no span and the same
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    scene = make_box_scene(res=16, spp=2)
+    scene.integrator.fsd = True
+    scene.integrator.max_depth = 5
+    built = build_scene(scene, device=cuda)
+    render_scene(built, device="cuda")                  # warm-up
+    registry.reset()
+    _, st_off = render_scene(built, device="cuda")
+    off = launches()
+    assert registry.spans == [] and off["k3"] > 0
+    registry.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, st = render_scene(built, device="cuda")
+    assert launches() == off and st["pool_steps"] == st_off["pool_steps"]
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.key.startswith("wt.") and e.device_type.name == "CPU"}
+    rep = registry.report()
+    assert {k for k, v in rep.items()
+            if k.startswith("wt.") and v["count"]} == set(counts)
+    assert len(counts) == 12 and counts["wt.frame"] == 1
+    for name, n in counts.items():
+        assert rep[name]["count"] == n, name
+        assert rep[name]["stream_s"] > 0
+        assert rep[name]["self_stream_s"] >= -1e-5 * n, name
+    kids = {}
+    for s in registry.spans:
+        if s.parent is not None:
+            kids.setdefault(id(s.parent), [s.parent, []])[1].append(s)
+    for parent, children in kids.values():
+        assert sum(c.stream_s for c in children) \
+            <= parent.stream_s + 1e-6 * len(children), parent.name
+    assert rep["wt.frame"]["stream_s"] <= rep["wt.frame"]["host_s"] + 1e-3
+
+
+@pytest.mark.gpu
 def test_closest_hit_need_and_carry_on_card(cuda):
     """K1 with a need mask and a carried hit per row: needed rows hold the
     words of tracing every row, the others their carried (t, tri) bit for
@@ -253,9 +307,9 @@ def test_closest_hit_need_and_carry_on_card(cuda):
     assert (i_all == ir).float().mean().item() >= 0.999
     for share in (0.3, 0.0, 1.0):
         need = torch.from_numpy(r.random(N) < share).to(cuda)
-        before = rk.LAUNCHES["closest"]
+        before = launches()["k1"]
         t, i = rk.closest_hit(*args, need, carry, table=table)
-        assert rk.LAUNCHES["closest"] == before + 1
+        assert launches()["k1"] == before + 1
         bits = t.view(torch.int32)
         assert torch.equal(bits[need], t_all.view(torch.int32)[need])
         assert torch.equal(i[need], i_all[need])
@@ -711,9 +765,9 @@ def test_mask_and_cli_render_on_card(cuda, tmp_path):
     path.write_text(box_scene_xml(32, 4, 5, True))
     built = build_scene(load_scene_xml(str(path)), device=cuda)
     sensor = built.scene.sensors[0]
-    before = rk.LAUNCHES["closest"]
+    before = launches()["k1"]
     m_card = render_mask(built, sensor)
-    assert rk.LAUNCHES["closest"] > before
+    assert launches()["k1"] > before
     np.testing.assert_array_equal(m_card, render_mask(built.on("cpu"),
                                                       sensor))
     img = {}
@@ -739,14 +793,14 @@ def _card_rank(rank, world, init, out):
         scene = make_box_scene(res=32, spp=2)
         scene.integrator.fsd = True
         scene.integrator.max_depth = 4
-        before = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        before = launches()
         img, st = render_distributed(build_scene(scene, device="cuda"),
                                      lanes_per_device=512)
         assert st["processes"] == world and st["mode"] == "wave-dist"
-        after = dict(rk.LAUNCHES, **ck.LAUNCHES)
+        after = launches()
         assert all(after[k] > before[k]
-                   for k in ("closest", "anyhit", "cone_minz")), (before, after)
-        assert after["cone_minz_winners"] == before["cone_minz_winners"]
+                   for k in ("k1", "k2", "k3")), (before, after)
+        assert after["k3_winners"] == before["k3_winners"]
         np.save(f"{out}/img_{rank}.npy", img)
     finally:
         launch.shutdown()
@@ -919,7 +973,6 @@ def test_brute_route_on_card(cuda, monkeypatch, rows):
     within 1e-6 (a fused multiply-add may round a cross product of the
     carried rows' solve once where the CPU rounds twice). `rows`: the
     card's row slices cut to 97 rows (43 slices) as well."""
-    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
     from wave_tracer_tpu_torch.accel import trace as trace_mod
     monkeypatch.setenv("WT_TRACE_BACKEND", "brute")
     if rows is not None:
@@ -936,9 +989,7 @@ def test_brute_route_on_card(cuda, monkeypatch, rows):
     need = torch.from_numpy(r.random(N) < 0.5)
     carry = (torch.full((N,), 0.5), torch.full((N,), 3, dtype=torch.int32))
     cpu = [x.to(cuda) for x in (ro, rd, tmin, tmax, need, *carry)]
-    for counts in (rk.LAUNCHES, ck.LAUNCHES, bk.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -947,7 +998,7 @@ def test_brute_route_on_card(cuda, monkeypatch, rows):
         occ = trace_mod.occluded(geo, *cpu[:4], need=cpu[4])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert all(v == 0 for c in (rk.LAUNCHES, bk.LAUNCHES) for v in c.values())
+    assert all(launches()[k] == 0 for k in ("k1", "k2", "k4", "k5"))
     hgeo = build_scene(make_box_scene(res=8, spp=1), device="cpu").data.geo
     want = trace_mod.trace(hgeo, ro, rd, tmin, tmax, need=need, carry=carry)
     assert torch.equal(got[0].cpu(), want[0])
@@ -965,17 +1016,15 @@ def test_bvh_route_render_on_card(cuda, monkeypatch):
     """The wave box with bench.py's sphere at 1,280 triangles on the BVH
     route (MXU_MAX_TRIS lowered), card against CPU at the wave bars; the
     card's render launches K4, K5 and K3 and neither K1 nor K2."""
-    from wave_tracer_tpu_torch.accel import bvh_kernels as bk
     built = _bvh_box(monkeypatch, cuda, tessellation=24)
     built.scene.integrator.fsd = True
     built.scene.integrator.max_depth = 4
-    for counts in (rk.LAUNCHES, ck.LAUNCHES, bk.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_launches()
     img_c, st_c = render_scene(built, device="cuda")
-    assert bk.LAUNCHES["bvh_closest"] > 0 and bk.LAUNCHES["bvh_any"] > 0
-    assert ck.LAUNCHES["cone_minz"] > 0
-    assert rk.LAUNCHES["closest"] == 0 and rk.LAUNCHES["anyhit"] == 0
+    n = launches()
+    assert n["k4"] > 0 and n["k5"] > 0
+    assert n["k3"] > 0
+    assert n["k1"] == 0 and n["k2"] == 0
     img_h, st_h = render_scene(built, device="cpu")
     assert st_c["mode"] == st_h["mode"] == "wave-compact"
     np.testing.assert_allclose(img_c.mean((0, 1)), img_h.mean((0, 1)),

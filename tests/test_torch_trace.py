@@ -23,6 +23,7 @@ from wave_tracer_tpu.scene import build_scene as jbuild
 from wave_tracer_tpu_torch.accel import ray_kernels
 from wave_tracer_tpu_torch.accel import trace as ttrace
 from wave_tracer_tpu_torch.scene.bridge import scene_data_from_numpy
+from wave_tracer_tpu_torch.util.stats import registry
 
 cap_torch_threads()
 
@@ -170,10 +171,11 @@ def test_wrappers_run_twins_only_on_cpu():
     than CPU or CUDA raises — nothing falls back."""
     _, tgeo = _soup(T=64)
     ro, rd = [torch.from_numpy(x) for x in _rays(N=32)]
-    before = dict(ray_kernels.LAUNCHES)
+    k1, k2 = (registry.counter(f"launches/{k}") for k in ("k1", "k2"))
+    before = (k1.value, k2.value)
     ttrace.trace(tgeo, ro, rd, torch.full((32,), 1e-4),
                  torch.full((32,), 1e30))
-    assert ray_kernels.LAUNCHES == before
+    assert (k1.value, k2.value) == before
     meta = [x.to("meta") for x in (tgeo.tri_feat, tgeo.mxu_center, ro, rd)]
     ex = torch.full((32, 3), -1, dtype=torch.int32, device="meta")
     t = torch.zeros(32, device="meta")

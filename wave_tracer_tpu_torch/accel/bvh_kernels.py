@@ -29,7 +29,8 @@ False).
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (csrc/bvh_kernels.cu, built with nvcc for sm_90a at first use and loaded
-with ctypes) and adds one to LAUNCHES; on a CPU tensor it runs the twin.
+with ctypes) and adds one to util/stats.py's `launches/k4` or
+`launches/k5`; on a CPU tensor it runs the twin.
 Any other device raises; nothing falls back from a failed build or launch.
 """
 
@@ -45,12 +46,14 @@ from wave_tracer_tpu_torch.accel.ray_kernels import (check_primal,
                                                      outside_transforms)
 from wave_tracer_tpu_torch.ops.intersect import (BIG, ray_aabb, ray_tri,
                                                  safe_inverse)
+from wave_tracer_tpu_torch.util.stats import registry
 
 STACK = MAX_DEPTH + 2      # per-ray stack of node ids (the .cu's STACK)
 NODE_F = 16                # floats per node_pack row
 TRI_F = 12                 # floats per tri_geom row
 
-LAUNCHES = {"bvh_closest": 0, "bvh_any": 0}
+_K4_LAUNCHES = registry.counter("launches/k4")
+_K5_LAUNCHES = registry.counter("launches/k5")
 
 _lib = None
 
@@ -255,7 +258,7 @@ def _launch_closest(nodes, tris, ro, rd, tmin, tmax, ex, need=None,
                              out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bvh kernel launch failed: cudaError {err}")
-    LAUNCHES["bvh_closest"] += 1
+    _K4_LAUNCHES.add()
     return out_t, out_i
 
 
@@ -275,7 +278,7 @@ def _launch_any(nodes, tris, ro, rd, tmin, tmax, ex, need=None):
                          occ.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bvh kernel launch failed: cudaError {err}")
-    LAUNCHES["bvh_any"] += 1
+    _K5_LAUNCHES.add()
     return occ
 
 

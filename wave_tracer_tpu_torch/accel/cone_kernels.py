@@ -16,8 +16,8 @@ for small triangles far from the origin.)
 
 On a CUDA tensor `cone_minz` launches the hand-written kernel
 (csrc/cone_kernels.cu, built with nvcc for sm_90a at first use and loaded
-with ctypes) and adds one to LAUNCHES["cone_minz"] (and, for the build
-with winners, to LAUNCHES["cone_minz_winners"] as well); on a CPU tensor it
+with ctypes) and adds one to util/stats.py's `launches/k3` (and, for the
+build with winners, to `launches/k3_winners` as well); on a CPU tensor it
 runs the plain torch version `_minz_ref` (the port of `_launch_ref`: a
 loop over triangle tiles of 512, every pair through the full entry math).
 Any other device raises. With `winners=True` both also return each
@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from wave_tracer_tpu_torch.accel import nvcc_build, ray_kernels
+from wave_tracer_tpu_torch.util.stats import registry
 
 BIG = 1e30
 _EPS = 1e-12
@@ -53,8 +54,9 @@ TILE = 256                  # triangles per bounding-sphere tile (kernel)
 # (their cones cull different tiles), so many short blocks balance better
 CHUNK_BLOCKS = 48
 
-# every launch of K3; those of its winner build also under "cone_minz_winners"
-LAUNCHES = {"cone_minz": 0, "cone_minz_winners": 0}
+# every launch of K3; those of its winner build also under k3_winners
+_K3_LAUNCHES = registry.counter("launches/k3")
+_K3_WINNER_LAUNCHES = registry.counter("launches/k3_winners")
 
 _lib = None
 
@@ -197,10 +199,10 @@ def _launch(tri, table, ro, rd, xh, e, x0, ta, zmax, exclude, bnd, zmin,
                            stream)
     if err != 0:
         raise RuntimeError(f"cone kernel launch failed: cudaError {err}")
-    LAUNCHES["cone_minz"] += 1
+    _K3_LAUNCHES.add()
     if not winners:
         return zc, cnt
-    LAUNCHES["cone_minz_winners"] += 1      # the same launch, its winner build
+    _K3_WINNER_LAUNCHES.add()           # the same launch, its winner build
     # z ≥ zmin > 0, so a key's high word is the bits of a finite float
     none = keys == -1
     zc = torch.where(none, float("inf"),

@@ -31,7 +31,8 @@ which the tests hold against the pair tests.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (csrc/ray_kernels.cu, built with nvcc for sm_90a at first use and loaded
-with ctypes) and adds one to LAUNCHES; on a CPU tensor it runs the plain
+with ctypes) and adds one to util/stats.py's `launches/k1` or
+`launches/k2`; on a CPU tensor it runs the plain
 torch twin (`_closest_ref` / `_anyhit_ref`, the port of `_launch_ref`: a
 loop over triangle tiles of 512 with a running min or max, fp32 matmuls,
 never materializing (N, 4T); it computes every row and keeps the carried
@@ -51,6 +52,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from wave_tracer_tpu_torch.accel import nvcc_build
+from wave_tracer_tpu_torch.util.stats import registry
 
 BIG = 3.4e38               # f32(3.4e38): "no hit" distance
 _BIG_F32 = float(np.float32(BIG))
@@ -65,7 +67,8 @@ BLOCKS_PER_SM = 4          # K2's persistent grid
 K1_BLOCKS_PER_SM = 3       # K1's persistent grid (its __launch_bounds__)
 K1_MAX_TILES = 512         # tiles K1 sorts in shared memory (T <= 2^17)
 
-LAUNCHES = {"closest": 0, "anyhit": 0}
+_K1_LAUNCHES = registry.counter("launches/k1")
+_K2_LAUNCHES = registry.counter("launches/k2")
 
 
 _functorch = torch._C._functorch
@@ -326,7 +329,7 @@ def _launch_closest(tri_feat, table, center, ro, rd, tmin, tmax, ex,
                              K1_BLOCKS_PER_SM * sms, stream)
     if err != 0:
         raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
-    LAUNCHES["closest"] += 1
+    _K1_LAUNCHES.add()
     return best
 
 
@@ -351,7 +354,7 @@ def _launch_anyhit(tri_feat, table, center, ro, rd, tmin, tmax, ex, need):
                          occ.data_ptr(), BLOCKS_PER_SM * sms, stream)
     if err != 0:
         raise RuntimeError(f"ray kernel launch failed: cudaError {err}")
-    LAUNCHES["anyhit"] += 1
+    _K2_LAUNCHES.add()
     return occ
 
 

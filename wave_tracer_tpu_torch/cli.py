@@ -16,6 +16,10 @@ The first Ctrl-C finishes the chunk in flight, writes the completed work
 and a resumable `<id>.ckpt.npz` (continue with `--resume`); a second one
 aborts. `--ui [PORT]` serves the live web page of util/ui.py (pause,
 resume, terminate, capture; Ctrl-C ends a paused render too).
+`--write-stats` writes `perf_stats.json`: a list of each sensor's render
+stats, each with the registry of util/stats.py after that render
+(`registry`: the process's counters, and its spans when a profiler
+records).
 
 `--distributed` renders with one process per device (parallel/): the same
 command runs for every rank, with `--coordinator host:port
@@ -39,6 +43,7 @@ import time
 import numpy as np
 
 from wave_tracer_tpu_torch import __version__
+from wave_tracer_tpu_torch.util.stats import registry
 
 PROG = "wave_tracer_tpu_torch"
 
@@ -234,7 +239,7 @@ def _render(args, device, main_rank, log):
                 if stats.get("interrupted"):
                     log(f"interrupted at {stats['spp_done']}/{spp} spp; "
                         f"checkpoint: {ckpt_path} (resume with --resume)")
-            stats_all.append(stats)
+            stats_all.append(dict(stats, registry=registry.report()))
             if not main_rank:
                 continue
 
@@ -310,7 +315,10 @@ def main(argv=None):
                     help="torch device to render on (default cuda; cpu "
                          "must be asked for)")
     rp.add_argument("--write-stats", action="store_true",
-                    help="write perf_stats.json into the output directory")
+                    help="write perf_stats.json into the output "
+                         "directory: each sensor's render stats, with the "
+                         "process's counters and spans (util/stats.py) "
+                         "after its render under 'registry'")
     rp.add_argument("--mask", action="store_true",
                     help="also write sensor-visibility alpha masks")
     rp.add_argument("--tev", help="tev viewer host:port for live preview")

@@ -28,6 +28,7 @@ from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.math import vec
 from wave_tracer_tpu_torch.polarization import mueller, stokes
 from wave_tracer_tpu_torch.sampling import rng
+from wave_tracer_tpu_torch.util.stats import span
 
 BIG = 1e30
 
@@ -208,7 +209,8 @@ def classical_bounce(data, st, dkeys, k, depth, *, eps, mis, rr_depth,
     """One classical bounce over the lane state dict (ro, rd, M, xf, L,
     active, exclude, prev_pdf, prev_specular, stats, and optionally the
     carried hit hit_t, hit_tri, hit_current). `depth` is an int or a
-    per-lane tensor. Returns the new state dict."""
+    per-lane tensor. Returns the new state dict. Its stages run, in turn,
+    under the spans wt.bounce.trace, .nee and .scatter (util/stats.py)."""
     geo = data.geo
     tables = data.tables
     et = data.emitters
@@ -216,95 +218,100 @@ def classical_bounce(data, st, dkeys, k, depth, *, eps, mis, rr_depth,
     dev = st["L"].device
     eps_v = torch.full((N,), eps, dtype=torch.float32, device=dev)
 
-    t, tri, u, v = trace_mod.trace(
-        geo, st["ro"], st["rd"], eps_v,
-        torch.full((N,), BIG, dtype=torch.float32, device=dev),
-        st["exclude"], **carried_hit(st))
-    hit = trace_mod.hit_attributes(geo, st["ro"], st["rd"], t, tri, u, v)
-    lane = st["active"] & hit.valid
+    with span("wt.bounce.trace"):
+        t, tri, u, v = trace_mod.trace(
+            geo, st["ro"], st["rd"], eps_v,
+            torch.full((N,), BIG, dtype=torch.float32, device=dev),
+            st["exclude"], **carried_hit(st))
+        hit = trace_mod.hit_attributes(geo, st["ro"], st["rd"], t, tri, u, v)
+        lane = st["active"] & hit.valid
 
-    sf = frame_mod.build_shading_frame(hit.ns, hit.dpdu)
-    sf = bsdf_dev.apply_normalmap(tables, hit.mat_id, hit.uv, k, sf)
-    wi = -st["rd"]
-    wi_l = sf.to_local(wi)
-    one = torch.ones_like(k)
-    zero4 = torch.zeros_like(st["L"])
+    with span("wt.bounce.nee"):
+        sf = frame_mod.build_shading_frame(hit.ns, hit.dpdu)
+        sf = bsdf_dev.apply_normalmap(tables, hit.mat_id, hit.uv, k, sf)
+        wi = -st["rd"]
+        wi_l = sf.to_local(wi)
+        one = torch.ones_like(k)
+        zero4 = torch.zeros_like(st["L"])
 
-    # --- emission (hit an area emitter from the front)
-    cos_out = vec.dot(wi, hit.geo_n)
-    Le = etab.emission_radiance(et, tables.spectra, hit.emitter_id, k,
-                                cos_out)
-    d2 = hit.t.clamp_min(1e-9) ** 2
-    pdf_nee_same = etab.pdf_direct_solid_angle(
-        et, hit.emitter_id, d2, cos_out) * _emitter_pmf(et, hit.emitter_id)
-    w_mis_e = one if not mis else torch.where(
-        st["prev_specular"], one,
-        _power_heuristic(st["prev_pdf"], pdf_nee_same))
-    dL_e = torch.where((lane & (Le > 0))[:, None],
-                       w_mis_e[:, None] * _contribution(st["M"], Le), zero4)
-    L = st["L"] + dL_e
+        # --- emission (hit an area emitter from the front)
+        cos_out = vec.dot(wi, hit.geo_n)
+        Le = etab.emission_radiance(et, tables.spectra, hit.emitter_id, k,
+                                    cos_out)
+        d2 = hit.t.clamp_min(1e-9) ** 2
+        pdf_nee_same = etab.pdf_direct_solid_angle(
+            et, hit.emitter_id, d2, cos_out) * _emitter_pmf(et, hit.emitter_id)
+        w_mis_e = one if not mis else torch.where(
+            st["prev_specular"], one,
+            _power_heuristic(st["prev_pdf"], pdf_nee_same))
+        dL_e = torch.where((lane & (Le > 0))[:, None],
+                           w_mis_e[:, None] * _contribution(st["M"], Le),
+                           zero4)
+        L = st["L"] + dL_e
 
-    # --- NEE
-    u_pick = rng.uniform(dkeys, rng.D_EMITTER_PICK)
-    e_n, pmf_n = _sample_emitter_by_power(et, u_pick)
-    u_nee = rng.uniform(dkeys, rng.D_NEE, 3)
-    nee = etab.sample_direct(et, geo, tables.spectra, e_n, hit.p, k, u_nee)
-    wo_nee_l = sf.to_local(nee["wo"])
-    f_nee, pdf_b_nee = bsdf_dev.eval_f(tables, hit.mat_id, wi_l, wo_nee_l,
-                                       hit.uv, k)
-    occ = trace_mod.occluded(geo, hit.p, nee["wo"], eps_v,
-                             nee["dist"] - 2.0 * eps, hit.tri, nee["tri"])
-    pdf_nee = pmf_n * nee["pdf_sa"]
-    w_mis_n = one if not mis else torch.where(
-        nee["delta_dir"], one, _power_heuristic(pdf_nee, pdf_b_nee))
-    M_nee, _ = compose_scatter(st["M"], st["xf"], -st["rd"], f_nee,
-                               -nee["wo"])
-    c_nee = _contribution(M_nee, nee["Li"]) \
-        / pdf_nee.clamp_min(1e-30)[:, None]
-    ok_nee = lane & nee["valid"] & ~occ & (pdf_nee > 0) \
-        & (f_nee[:, 0, 0] > 0)
-    L = L + torch.where(ok_nee[:, None], w_mis_n[:, None] * c_nee, zero4)
+        # --- NEE
+        u_pick = rng.uniform(dkeys, rng.D_EMITTER_PICK)
+        e_n, pmf_n = _sample_emitter_by_power(et, u_pick)
+        u_nee = rng.uniform(dkeys, rng.D_NEE, 3)
+        nee = etab.sample_direct(et, geo, tables.spectra, e_n, hit.p, k, u_nee)
+        wo_nee_l = sf.to_local(nee["wo"])
+        f_nee, pdf_b_nee = bsdf_dev.eval_f(tables, hit.mat_id, wi_l, wo_nee_l,
+                                           hit.uv, k)
+        occ = trace_mod.occluded(geo, hit.p, nee["wo"], eps_v,
+                                 nee["dist"] - 2.0 * eps, hit.tri, nee["tri"])
+        pdf_nee = pmf_n * nee["pdf_sa"]
+        w_mis_n = one if not mis else torch.where(
+            nee["delta_dir"], one, _power_heuristic(pdf_nee, pdf_b_nee))
+        M_nee, _ = compose_scatter(st["M"], st["xf"], -st["rd"], f_nee,
+                                   -nee["wo"])
+        c_nee = _contribution(M_nee, nee["Li"]) \
+            / pdf_nee.clamp_min(1e-30)[:, None]
+        ok_nee = lane & nee["valid"] & ~occ & (pdf_nee > 0) \
+            & (f_nee[:, 0, 0] > 0)
+        L = L + torch.where(ok_nee[:, None], w_mis_n[:, None] * c_nee, zero4)
 
-    # --- BSDF sampling / continuation
-    u_b = bsdf_uniforms(tables, dkeys, rng.uniform(dkeys, rng.D_BSDF_DIR, 2))
-    bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k, u_b)
-    wo_w = sf.to_world(bs.wo)
-    M_next, xf_next = compose_scatter(st["M"], st["xf"], -st["rd"], bs.Mw,
-                                      -wo_w)
+    with span("wt.bounce.scatter"):
+        # --- BSDF sampling / continuation
+        u_b = bsdf_uniforms(tables, dkeys,
+                            rng.uniform(dkeys, rng.D_BSDF_DIR, 2))
+        bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k, u_b)
+        wo_w = sf.to_world(bs.wo)
+        M_next, xf_next = compose_scatter(st["M"], st["xf"], -st["rd"], bs.Mw,
+                                          -wo_w)
 
-    # --- russian roulette (floor .5)
-    u_rr = rng.uniform(dkeys, rng.D_RR)
-    beta = M_next[:, 0, 0].abs()
-    q = beta.clamp(rr_floor, 1.0)
-    do_rr = torch.as_tensor(depth, device=dev) >= rr_depth
-    survive = torch.where(do_rr, u_rr < q, torch.ones_like(lane))
-    M_next = M_next / torch.where(do_rr, q, one)[:, None, None]
+        # --- russian roulette (floor .5)
+        u_rr = rng.uniform(dkeys, rng.D_RR)
+        beta = M_next[:, 0, 0].abs()
+        q = beta.clamp(rr_floor, 1.0)
+        do_rr = torch.as_tensor(depth, device=dev) >= rr_depth
+        survive = torch.where(do_rr, u_rr < q, torch.ones_like(lane))
+        M_next = M_next / torch.where(do_rr, q, one)[:, None, None]
 
-    active = lane & bs.valid & survive & (beta > 1e-9)
-    stats = st["stats"]
-    if with_stats:
-        f32 = torch.float32
-        nlane = lane.sum(dtype=f32)
-        add = torch.zeros((N_STATS,), dtype=f32, device=dev)
-        add[STAT_RAYS] = st["active"].sum(dtype=f32)
-        add[STAT_SHADOW] = nlane
-        add[STAT_SURFACE] = nlane
-        add[STAT_RR_KILL] = (lane & bs.valid & ~survive).sum(dtype=f32)
-        add[STAT_DEPTH_SUM] = active.sum(dtype=f32)
-        add[STAT_TRI_TESTS] = 2.0 * N * trace_mod.ray_tests_per_lane(geo)
-        stats = stats + add
-    act3 = active[:, None]
-    return dict(
-        ro=torch.where(act3, hit.p, st["ro"]),
-        rd=torch.where(act3, wo_w, st["rd"]),
-        M=torch.where(active[:, None, None], M_next, st["M"]),
-        xf=torch.where(act3, xf_next, st["xf"]),
-        L=L,
-        active=active,
-        exclude=torch.where(active, hit.tri, st["exclude"]),
-        prev_pdf=torch.where(active, bs.pdf, st["prev_pdf"]),
-        prev_specular=torch.where(active, bs.specular,
-                                  st["prev_specular"]),
-        stats=stats,
-        **next_carried_hit(st, t, tri, active),
-    )
+        active = lane & bs.valid & survive & (beta > 1e-9)
+        stats = st["stats"]
+        if with_stats:
+            f32 = torch.float32
+            nlane = lane.sum(dtype=f32)
+            add = torch.zeros((N_STATS,), dtype=f32, device=dev)
+            add[STAT_RAYS] = st["active"].sum(dtype=f32)
+            add[STAT_SHADOW] = nlane
+            add[STAT_SURFACE] = nlane
+            add[STAT_RR_KILL] = (lane & bs.valid & ~survive).sum(dtype=f32)
+            add[STAT_DEPTH_SUM] = active.sum(dtype=f32)
+            add[STAT_TRI_TESTS] = 2.0 * N * trace_mod.ray_tests_per_lane(geo)
+            stats = stats + add
+        act3 = active[:, None]
+        return dict(
+            ro=torch.where(act3, hit.p, st["ro"]),
+            rd=torch.where(act3, wo_w, st["rd"]),
+            M=torch.where(active[:, None, None], M_next, st["M"]),
+            xf=torch.where(act3, xf_next, st["xf"]),
+            L=L,
+            active=active,
+            exclude=torch.where(active, hit.tri, st["exclude"]),
+            prev_pdf=torch.where(active, bs.pdf, st["prev_pdf"]),
+            prev_specular=torch.where(active, bs.specular,
+                                      st["prev_specular"]),
+            stats=stats,
+            **next_carried_hit(st, t, tri, active),
+        )

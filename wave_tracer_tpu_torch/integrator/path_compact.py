@@ -5,7 +5,12 @@ is kept saturated: a lane that dies splats its radiance into the film and
 restarts as the next (pixel, sample) id of the launch's id range. The
 pool loop is a host `while` over device tensors — splat the dead lanes,
 refill them, bounce the pool (classical, or the wave bounce of
-integrator/plt_path.py), then poll `alive`.
+integrator/plt_path.py), then poll `alive`. Each step is the span
+`wt.pool.step` over `wt.pool.splat`, `wt.pool.refill` and
+`wt.pool.bounce`, and the poll `wt.pool.poll` (util/stats.py); the host
+counters `pool/steps`, `pool/lane_slots` (the pool's width, once a step)
+and `pool/drain_steps` (steps begun after the last id was handed out)
+give the pool's occupancy with the bounces' `integrator/rays_cast`.
 
 RNG streams are keyed by (pixel, sample, depth, use), never by the lane
 slot, so the pool size does not change which paths are traced: images
@@ -31,6 +36,7 @@ from wave_tracer_tpu_torch.integrator.path import (N_STATS, camera_lanes,
 from wave_tracer_tpu_torch.integrator.plt_path import beam_state, wave_bounce
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
+from wave_tracer_tpu_torch.util.stats import registry, span
 
 # aperture slots (edges) per lane of the wave bounce, as the JAX pool's
 FSD_SLOTS = 8
@@ -102,47 +108,50 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
     def body(data, base_key, id_end, c):
         """One pool step. Splats and refills update the state in place."""
         ps, meta = c["ps"], c["meta"]
-        dead = ~ps["active"]
         # 1. splat finished lanes
-        film_mod.splat(c["film"], meta["splat_pos"], to_values(ps, meta),
-                       dead & c["pending"])
-        pending = c["pending"] & ~dead
+        with span("wt.pool.splat"):
+            dead = ~ps["active"]
+            film_mod.splat(c["film"], meta["splat_pos"], to_values(ps, meta),
+                           dead & c["pending"])
+            pending = c["pending"] & ~dead
         # 2. refill dead lanes with the next ids
         next_id = c["next_id"]
-        if next_id < id_end:
-            ranks = torch.cumsum(dead, dim=0) - 1
-            new_id = next_id + ranks
-            take = dead & (new_id < id_end)
-            slots = take.nonzero().squeeze(1)
-            if slots.numel():
-                f_ps, f_meta = fresh(data, base_key, new_id[slots])
-                for key_, val in f_ps.items():
-                    _put(ps[key_], slots, val)
-                for key_, val in f_meta.items():
-                    meta[key_][slots] = val
-                pending = pending | take
-                next_id += slots.numel()
+        with span("wt.pool.refill"):
+            if next_id < id_end:
+                ranks = torch.cumsum(dead, dim=0) - 1
+                new_id = next_id + ranks
+                take = dead & (new_id < id_end)
+                slots = take.nonzero().squeeze(1)
+                if slots.numel():
+                    f_ps, f_meta = fresh(data, base_key, new_id[slots])
+                    for key_, val in f_ps.items():
+                        _put(ps[key_], slots, val)
+                    for key_, val in f_meta.items():
+                        meta[key_][slots] = val
+                    pending = pending | take
+                    next_id += slots.numel()
         # 3. one bounce for the whole pool
-        dkeys = rng.depth_key_v(
-            {k: meta[k] for k in ("idx", "strm", "key") if k in meta},
-            meta["depth"])
-        if wave:
-            ps = wave_bounce(data, data.edges, ps, dkeys, meta["k"],
-                             meta["depth"], eps=eps, mis=mis, fsd=True,
-                             K=FSD_SLOTS,
-                             rr_depth=rr_depth, rr_floor=rr_floor,
-                             with_stats=True)
-        else:
-            ps = classical_bounce(data, ps, dkeys, meta["k"],
-                                  meta["depth"], eps=eps, mis=mis,
-                                  rr_depth=rr_depth, rr_floor=rr_floor,
-                                  with_stats=True)
-        meta["depth"] = torch.where(ps["active"], meta["depth"] + 1,
-                                    meta["depth"])
-        # depth cap = the batched renderer's max_depth. The lanes it ends
-        # hold the new ray the bounce wrote, which is not traced yet: the
-        # bounce cleared their hit_current
-        ps["active"] = ps["active"] & (meta["depth"] < max_depth)
+        with span("wt.pool.bounce"):
+            dkeys = rng.depth_key_v(
+                {k: meta[k] for k in ("idx", "strm", "key") if k in meta},
+                meta["depth"])
+            if wave:
+                ps = wave_bounce(data, data.edges, ps, dkeys, meta["k"],
+                                 meta["depth"], eps=eps, mis=mis, fsd=True,
+                                 K=FSD_SLOTS,
+                                 rr_depth=rr_depth, rr_floor=rr_floor,
+                                 with_stats=True)
+            else:
+                ps = classical_bounce(data, ps, dkeys, meta["k"],
+                                      meta["depth"], eps=eps, mis=mis,
+                                      rr_depth=rr_depth, rr_floor=rr_floor,
+                                      with_stats=True)
+            meta["depth"] = torch.where(ps["active"], meta["depth"] + 1,
+                                        meta["depth"])
+            # depth cap = the batched renderer's max_depth. The lanes it
+            # ends hold the new ray the bounce wrote, which is not traced
+            # yet: the bounce cleared their hit_current
+            ps["active"] = ps["active"] & (meta["depth"] < max_depth)
         return dict(ps=ps, meta=meta, film=c["film"], pending=pending,
                     next_id=next_id)
 
@@ -169,9 +178,20 @@ def render_pool(data, film, base_key, id_bounds, lanes, *, sensor,
     id_start, id_end = int(id_bounds[0]), int(id_bounds[1])
     c = init_state(data, film, base_key, id_start, lanes,
                    film.value.device)
+    steps = registry.counter("pool/steps")
+    lane_slots = registry.counter("pool/lane_slots")
+    drain_steps = registry.counter("pool/drain_steps")
     while True:
-        c = body(data, base_key, id_end, c)
+        if c["next_id"] >= id_end:
+            drain_steps.add()
+        with span("wt.pool.step"):
+            c = body(data, base_key, id_end, c)
+        steps.add()
+        lane_slots.add(lanes)
         # host poll of the device-side liveness
-        if c["next_id"] >= id_end and not bool(c["ps"]["active"].any()):
+        with span("wt.pool.poll"):
+            done = c["next_id"] >= id_end \
+                and not bool(c["ps"]["active"].any())
+        if done:
             break
     return final_splat(c), c["ps"]["stats"]

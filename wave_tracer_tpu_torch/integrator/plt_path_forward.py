@@ -39,6 +39,7 @@ from wave_tracer_tpu_torch.math import frame as frame_mod
 from wave_tracer_tpu_torch.math import vec
 from wave_tracer_tpu_torch.polarization import mueller, stokes
 from wave_tracer_tpu_torch.sampling import rng
+from wave_tracer_tpu_torch.util.stats import span
 from wave_tracer_tpu_torch.wave import beam as beam_geo
 from wave_tracer_tpu_torch.wave import envelope as env_mod
 from wave_tracer_tpu_torch.wave import fraunhofer as fr
@@ -171,6 +172,9 @@ def trace_forward(data, lane_ids, base_key, sample_ids, *, sensor,
     interaction, whose coherent interference is in the sampled scatter
     directions, so crossings splat the plain beam weight (no any-hit
     call) and no FSD-NEE connection is made.
+
+    Each depth step runs under the span wt.forward.step, its edge sweep
+    under wt.forward.edges (util/stats.py).
     """
     geo = data.geo
     tables = data.tables
@@ -238,236 +242,242 @@ def trace_forward(data, lane_ids, base_key, sample_ids, *, sensor,
     none = full(-1, torch.int32)
 
     for depth in range(D):
-        dkeys = rng.depth_key(keys, depth)
-        ro, rd, env = st["ro"], st["rd"], st["env"]
-        lane = st["active"]
+        with span("wt.forward.step"):
+            dkeys = rng.depth_key(keys, depth)
+            ro, rd, env = st["ro"], st["rd"], st["env"]
+            lane = st["active"]
 
-        # lanes that ended keep a miss: nothing below reads their hit
-        t, tri, u, v = trace_mod.trace(geo, ro, rd, full(eps), full(BIG),
-                                       st["exclude"], need=lane)
-        hit = trace_mod.hit_attributes(geo, ro, rd, t, tri, u, v)
-        seg_end = torch.where(hit.valid, hit.t, BIG)
+            # lanes that ended keep a miss: nothing below reads their hit
+            t, tri, u, v = trace_mod.trace(geo, ro, rd, full(eps), full(BIG),
+                                           st["exclude"], need=lane)
+            hit = trace_mod.hit_attributes(geo, ro, rd, t, tri, u, v)
+            seg_end = torch.where(hit.valid, hit.t, BIG)
 
-        # ---- edge sweep (conservative major-axis radius)
-        zmax = torch.where(hit.valid, hit.t * 1.02 + env.x0,
-                           8.0 * scene_radius)
-        if fsd and edge_table.count > 0:
-            eidx, ez, ecnt = edges_mod.edges_in_cone(
-                edge_table, data.edge_clusters, ro, rd, env, zmax, K)
-        else:
-            eidx = full(-1, torch.int32, (K,))
-            ez = full(torch.inf, shape=(K,))
-            ecnt = full(0, torch.int32)
-        have_edges = ecnt > 0
-        z_first = torch.where(have_edges, ez.min(1).values, BIG)
-        fp_hit = env.major(torch.where(hit.valid, hit.t, 0.0))
-        delta_hit = (Z_SCALE * fp_hit).clamp_min(4.0 * eps)
-        midflight = have_edges & (z_first < torch.where(
-            hit.valid, hit.t - delta_hit, BIG))
-        surface = lane & hit.valid & ~midflight
-        z_int = torch.where(surface, hit.t, z_first)
-        has_interaction = lane & (surface | midflight)
-        wp = ro + z_int[:, None] * rd
-        fp_int = env.major(z_int)
+            # ---- edge sweep (conservative major-axis radius)
+            zmax = torch.where(hit.valid, hit.t * 1.02 + env.x0,
+                               8.0 * scene_radius)
+            with span("wt.forward.edges"):
+                if fsd and edge_table.count > 0:
+                    eidx, ez, ecnt = edges_mod.edges_in_cone(
+                        edge_table, data.edge_clusters, ro, rd, env, zmax,
+                        K)
+                else:
+                    eidx = full(-1, torch.int32, (K,))
+                    ez = full(torch.inf, shape=(K,))
+                    ecnt = full(0, torch.int32)
+            have_edges = ecnt > 0
+            z_first = torch.where(have_edges, ez.min(1).values, BIG)
+            fp_hit = env.major(torch.where(hit.valid, hit.t, 0.0))
+            delta_hit = (Z_SCALE * fp_hit).clamp_min(4.0 * eps)
+            midflight = have_edges & (z_first < torch.where(
+                hit.valid, hit.t - delta_hit, BIG))
+            surface = lane & hit.valid & ~midflight
+            z_int = torch.where(surface, hit.t, z_first)
+            has_interaction = lane & (surface | midflight)
+            wp = ro + z_int[:, None] * rd
+            fp_int = env.major(z_int)
 
-        # ---- sensing geometry: does this segment cross the plane?
-        tpl, pxy, inside, cos_in = sensor.intersect(ro, rd)
-        crosses = lane & inside & (tpl > eps) \
-            & (tpl < torch.minimum(seg_end, z_int + delta_hit)) \
-            & (cos_in > 0)
-        newly = crosses & ~st["hit_plane"]
-        plane_p = ro + tpl[:, None] * rd
+            # ---- sensing geometry: does this segment cross the plane?
+            tpl, pxy, inside, cos_in = sensor.intersect(ro, rd)
+            crosses = lane & inside & (tpl > eps) \
+                & (tpl < torch.minimum(seg_end, z_int + delta_hit)) \
+                & (cos_in > 0)
+            newly = crosses & ~st["hit_plane"]
+            plane_p = ro + tpl[:, None] * rd
 
-        # ---- aperture of this interaction (read by FSD-NEE below)
-        if wave_utd:
-            ap_now = fsd_mod.build_aperture(edge_table, eidx, wp, -rd,
-                                            Z_SCALE * fp_int)
-        else:
-            ap_now = fsd_mod.empty_aperture(N, K, device=dev)
-        ap_nee_ok = ap_now.any_valid()
+            # ---- aperture of this interaction (read by FSD-NEE below)
+            if wave_utd:
+                ap_now = fsd_mod.build_aperture(edge_table, eidx, wp, -rd,
+                                                Z_SCALE * fp_int)
+            else:
+                ap_now = fsd_mod.empty_aperture(N, K, device=dev)
+            ap_nee_ok = ap_now.any_valid()
 
-        # ---- FSD-NEE target: a sampled sensor point
-        sp_pt, sp_pxy, _, _ = sensor.sample_point(
-            rng.uniform(dkeys, rng.D_SENSOR, 2))
-        nee_dir = sp_pt - wp
-        nee_dist = vec.safe_length(nee_dir)
-        nee_dirn = nee_dir / nee_dist.clamp_min(1e-20)[:, None]
-        nee_cos = -(nee_dirn * plane_n).sum(-1)
+            # ---- FSD-NEE target: a sampled sensor point
+            sp_pt, sp_pxy, _, _ = sensor.sample_point(
+                rng.uniform(dkeys, rng.D_SENSOR, 2))
+            nee_dir = sp_pt - wp
+            nee_dist = vec.safe_length(nee_dir)
+            nee_dirn = nee_dir / nee_dist.clamp_min(1e-20)[:, None]
+            nee_cos = -(nee_dirn * plane_n).sum(-1)
 
-        # ---- all coherent-sum shadow segments in ONE any-hit call: (a)
-        # the crossing modulation, (b) the continuing-beam modulation,
-        # (c) FSD-NEE through the new aperture
-        fsd_valid = st["fsd_valid"]
-        if wave_utd:
-            prev = st["prev_vert"]
-            dst_seg = torch.where(has_interaction[:, None], wp,
-                                  ro + (4.0 * scene_radius) * rd)
-            ev_cross = fsd_mod.fsd_eval(st["fsd_ap"], k, prev, plane_p)
-            ev_cont = fsd_mod.fsd_eval(st["fsd_ap"], k, prev, dst_seg)
-            ev_nee = fsd_mod.fsd_eval(ap_now, k, ro, sp_pt)
-            nee_read = has_interaction & ap_nee_ok & (nee_cos > 0)
-            blocks = [
-                _fsd_legs(edge_table, st["fsd_ap"], ev_cross, prev, plane_p,
-                          hit.tri, none),
-                _fsd_legs(edge_table, st["fsd_ap"], ev_cont, prev, dst_seg,
-                          hit.tri, none),
-                _fsd_legs(edge_table, ap_now, ev_nee, ro, sp_pt, none,
-                          st["exclude"])]
-            a_all, b_all, ex1, ex2, ex3 = (torch.cat(x) for x in zip(*blocks))
-            seg = b_all - a_all
-            seg_d = vec.safe_length(seg)
-            occ = trace_mod.occluded(
-                geo, a_all, seg / seg_d.clamp_min(1e-20)[:, None],
-                torch.full_like(seg_d, eps), seg_d - 2.0 * eps,
-                ex1, ex2, ex3,
-                need=torch.cat([_leg_need(ev_cross, newly & fsd_valid),
-                                _leg_need(ev_cont, fsd_valid),
-                                _leg_need(ev_nee, nee_read)]))
-            Mseg = N * (2 * K + 1)
-            f_cross = _coherent_f(ev_cross, occ[:Mseg], k, prev, plane_p,
-                                  fsd_valid)
-            f_cont = _coherent_f(ev_cont, occ[Mseg:2 * Mseg], k, prev,
-                                 dst_seg, fsd_valid)
-            f_nee = _coherent_f(ev_nee, occ[2 * Mseg:], k, ro, sp_pt,
-                                ap_nee_ok)
-            ap_w_max = torch.where(ap_now.valid, ap_now.w, 0.0).max(1).values
-        else:
-            f_cross = f_cont = full(1.0)
-            f_nee = ap_w_max = full(0.0)
+            # ---- all coherent-sum shadow segments in ONE any-hit call: (a)
+            # the crossing modulation, (b) the continuing-beam modulation,
+            # (c) FSD-NEE through the new aperture
+            fsd_valid = st["fsd_valid"]
+            if wave_utd:
+                prev = st["prev_vert"]
+                dst_seg = torch.where(has_interaction[:, None], wp,
+                                      ro + (4.0 * scene_radius) * rd)
+                ev_cross = fsd_mod.fsd_eval(st["fsd_ap"], k, prev, plane_p)
+                ev_cont = fsd_mod.fsd_eval(st["fsd_ap"], k, prev, dst_seg)
+                ev_nee = fsd_mod.fsd_eval(ap_now, k, ro, sp_pt)
+                nee_read = has_interaction & ap_nee_ok & (nee_cos > 0)
+                blocks = [
+                    _fsd_legs(edge_table, st["fsd_ap"], ev_cross, prev,
+                              plane_p, hit.tri, none),
+                    _fsd_legs(edge_table, st["fsd_ap"], ev_cont, prev, dst_seg,
+                              hit.tri, none),
+                    _fsd_legs(edge_table, ap_now, ev_nee, ro, sp_pt, none,
+                              st["exclude"])]
+                a_all, b_all, ex1, ex2, ex3 = (torch.cat(x)
+                                               for x in zip(*blocks))
+                seg = b_all - a_all
+                seg_d = vec.safe_length(seg)
+                occ = trace_mod.occluded(
+                    geo, a_all, seg / seg_d.clamp_min(1e-20)[:, None],
+                    torch.full_like(seg_d, eps), seg_d - 2.0 * eps,
+                    ex1, ex2, ex3,
+                    need=torch.cat([_leg_need(ev_cross, newly & fsd_valid),
+                                    _leg_need(ev_cont, fsd_valid),
+                                    _leg_need(ev_nee, nee_read)]))
+                Mseg = N * (2 * K + 1)
+                f_cross = _coherent_f(ev_cross, occ[:Mseg], k, prev, plane_p,
+                                      fsd_valid)
+                f_cont = _coherent_f(ev_cont, occ[Mseg:2 * Mseg], k, prev,
+                                     dst_seg, fsd_valid)
+                f_nee = _coherent_f(ev_nee, occ[2 * Mseg:], k, ro, sp_pt,
+                                    ap_nee_ok)
+                ap_w_max = torch.where(ap_now.valid, ap_now.w,
+                                       0.0).max(1).values
+            else:
+                f_cross = f_cont = full(1.0)
+                f_nee = ap_w_max = full(0.0)
 
-        def deferred(Scur, f):
-            """Two-beam deferred superposition."""
-            return torch.where(
-                fsd_valid[:, None],
-                torch.where(st["sampled_fsd"][:, None], Scur * f[:, None],
-                            Scur + st["S_prev"] * f[:, None]), Scur)
+            def deferred(Scur, f):
+                """Two-beam deferred superposition."""
+                return torch.where(
+                    fsd_valid[:, None],
+                    torch.where(st["sampled_fsd"][:, None], Scur * f[:, None],
+                                Scur + st["S_prev"] * f[:, None]), Scur)
 
-        # ---- crossing splat (first crossing per lane), in the plane's
-        # transverse frame for Q/U consistency
-        px_perp = vec.normalize(
-            plane_xa - (plane_xa * rd).sum(-1)[:, None] * rd, eps=1e-12)
-        S_cross = stokes.reorient(deferred(st["S"], f_cross), st["xf"],
-                                  px_perp, rd)
-        # anisotropy-aware: isotropic-equivalent radius sqrt(major·minor)
-        sig_el = (env.area_radius(tpl) / 3.0) / elem_m
-        acc = torch.where(newly[:, None], S_cross * W_sens, st["acc"])
-        pos = torch.where(newly[:, None], pxy, st["pos"])
-        sig = torch.where(newly, sig_el, st["sig"])
-        hit_plane = st["hit_plane"] | crosses
+            # ---- crossing splat (first crossing per lane), in the plane's
+            # transverse frame for Q/U consistency
+            px_perp = vec.normalize(
+                plane_xa - (plane_xa * rd).sum(-1)[:, None] * rd, eps=1e-12)
+            S_cross = stokes.reorient(deferred(st["S"], f_cross), st["xf"],
+                                      px_perp, rd)
+            # anisotropy-aware: isotropic-equivalent radius sqrt(major·minor)
+            sig_el = (env.area_radius(tpl) / 3.0) / elem_m
+            acc = torch.where(newly[:, None], S_cross * W_sens, st["acc"])
+            pos = torch.where(newly[:, None], pxy, st["pos"])
+            sig = torch.where(newly, sig_el, st["sig"])
+            hit_plane = st["hit_plane"] | crosses
 
-        # ---- FSD-NEE splat: connection weight W·f·A/dist², visibility
-        # inside the coherent sum, faded by the aperture's strongest
-        # boundary window
-        S_int = deferred(st["S"], f_cont)
-        nee_w = f_nee * W_sens * plane_area * ap_w_max.clamp_max(1.0) \
-            / (nee_dist * nee_dist).clamp_min(1e-12)
-        nx_perp = vec.normalize(
-            plane_xa - (plane_xa * nee_dirn).sum(-1)[:, None] * nee_dirn,
-            eps=1e-12)
-        S_nee = stokes.reorient(S_int, st["xf"], nx_perp, nee_dirn) \
-            * nee_w[:, None]
-        ok_nee = has_interaction & ap_nee_ok & (nee_cos > 0) \
-            & (f_nee > 0) & torch.isfinite(nee_w)
-        if not wave_utd:
-            ok_nee = torch.zeros_like(ok_nee)
-        nee_pos[:, depth] = sp_pxy
-        nee_val[:, depth] = torch.where(ok_nee[:, None], S_nee, 0.0)
-        nee_ok[:, depth] = ok_nee
+            # ---- FSD-NEE splat: connection weight W·f·A/dist², visibility
+            # inside the coherent sum, faded by the aperture's strongest
+            # boundary window
+            S_int = deferred(st["S"], f_cont)
+            nee_w = f_nee * W_sens * plane_area * ap_w_max.clamp_max(1.0) \
+                / (nee_dist * nee_dist).clamp_min(1e-12)
+            nx_perp = vec.normalize(
+                plane_xa - (plane_xa * nee_dirn).sum(-1)[:, None] * nee_dirn,
+                eps=1e-12)
+            S_nee = stokes.reorient(S_int, st["xf"], nx_perp, nee_dirn) \
+                * nee_w[:, None]
+            ok_nee = has_interaction & ap_nee_ok & (nee_cos > 0) \
+                & (f_nee > 0) & torch.isfinite(nee_w)
+            if not wave_utd:
+                ok_nee = torch.zeros_like(ok_nee)
+            nee_pos[:, depth] = sp_pxy
+            nee_val[:, depth] = torch.where(ok_nee[:, None], S_nee, 0.0)
+            nee_ok[:, depth] = ok_nee
 
-        # ---- surface interaction (frame-aware Mueller on the Stokes)
-        sf = frame_mod.build_shading_frame(hit.ns, hit.dpdu)
-        sf = bsdf_dev.apply_normalmap(tables, hit.mat_id, hit.uv, k, sf)
-        wi_l = sf.to_local(-rd)
-        u_b = torch.cat([rng.uniform(dkeys, rng.D_BSDF_LOBE, 2),
-                         rng.uniform(dkeys, rng.D_BSDF_DIR, 2)], dim=-1)
-        bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k, u_b)
-        wo_surface = sf.to_world(bs.wo)
-        S_surf, xf_surf = forward_scatter(S_int, st["xf"], rd, wo_surface,
-                                          bs.Mw)
-        env_surf, _ = env_mod.surface_scatter(env, rd, z_int, hit.geo_n,
-                                              wo_surface, bs.specular, k)
+            # ---- surface interaction (frame-aware Mueller on the Stokes)
+            sf = frame_mod.build_shading_frame(hit.ns, hit.dpdu)
+            sf = bsdf_dev.apply_normalmap(tables, hit.mat_id, hit.uv, k, sf)
+            wi_l = sf.to_local(-rd)
+            u_b = torch.cat([rng.uniform(dkeys, rng.D_BSDF_LOBE, 2),
+                             rng.uniform(dkeys, rng.D_BSDF_DIR, 2)], dim=-1)
+            bs = bsdf_dev.sample(tables, hit.mat_id, wi_l, hit.uv, k, u_b)
+            wo_surface = sf.to_world(bs.wo)
+            S_surf, xf_surf = forward_scatter(S_int, st["xf"], rd, wo_surface,
+                                              bs.Mw)
+            env_surf, _ = env_mod.surface_scatter(env, rd, z_int, hit.geo_n,
+                                                  wo_surface, bs.specular, k)
 
-        # ---- FSD interaction
-        if wave_utd:
-            u_fsd = torch.cat([rng.uniform(dkeys, rng.D_FSD, 2),
-                               rng.uniform(dkeys, rng.D_PHASE, 2)], dim=-1)
-            fsmp = fsd_mod.fsd_sample(ap_now, k, ro, wp, u_fsd)
-            wo_fsd, p_fsd = fsmp["wo"], fsmp["p"]
-            w_fsd = torch.where(fsmp["is_direct"],
-                                (ap_now.count() + 1).to(f32),
-                                1.0 / fsmp["pdf"].clamp_min(1e-20))
-            fsd_lane = midflight & fsmp["valid"]
-        elif fsd:
-            # Fraunhofer: the direction follows the coherent ASF, and the
-            # continuation carries only the unobstructed wavefront
-            # fraction (1 − blocked), deterministically; a lane whose
-            # central ray hits a region triangle redirects through the
-            # same ASF at full weight with probability (1 − blocked),
-            # else takes the surface event (the flux-consistent
-            # partition of the JAX module)
-            wo_fsd, ok_fr, blocked, u_branch = _fraunhofer(
-                data, dkeys, k, ro, rd, env, eidx, z_int, fp_int,
-                st["dist_src"], tpl, inside, eps)
-            p_fsd = wp
-            redirect_surf = surface & have_edges & ok_fr \
-                & (u_branch >= blocked)
-            w_fsd = torch.where(redirect_surf, 1.0, 1.0 - blocked)
-            fsd_lane = (midflight & ok_fr) | redirect_surf
-        else:
-            wo_fsd, p_fsd = rd, wp
-            w_fsd = full(1.0)
-            fsd_lane = full(False, torch.bool)
+            # ---- FSD interaction
+            if wave_utd:
+                u_fsd = torch.cat([rng.uniform(dkeys, rng.D_FSD, 2),
+                                   rng.uniform(dkeys, rng.D_PHASE, 2)], dim=-1)
+                fsmp = fsd_mod.fsd_sample(ap_now, k, ro, wp, u_fsd)
+                wo_fsd, p_fsd = fsmp["wo"], fsmp["p"]
+                w_fsd = torch.where(fsmp["is_direct"],
+                                    (ap_now.count() + 1).to(f32),
+                                    1.0 / fsmp["pdf"].clamp_min(1e-20))
+                fsd_lane = midflight & fsmp["valid"]
+            elif fsd:
+                # Fraunhofer: the direction follows the coherent ASF, and the
+                # continuation carries only the unobstructed wavefront
+                # fraction (1 − blocked), deterministically; a lane whose
+                # central ray hits a region triangle redirects through the
+                # same ASF at full weight with probability (1 − blocked),
+                # else takes the surface event (the flux-consistent
+                # partition of the JAX module)
+                wo_fsd, ok_fr, blocked, u_branch = _fraunhofer(
+                    data, dkeys, k, ro, rd, env, eidx, z_int, fp_int,
+                    st["dist_src"], tpl, inside, eps)
+                p_fsd = wp
+                redirect_surf = surface & have_edges & ok_fr \
+                    & (u_branch >= blocked)
+                w_fsd = torch.where(redirect_surf, 1.0, 1.0 - blocked)
+                fsd_lane = (midflight & ok_fr) | redirect_surf
+            else:
+                wo_fsd, p_fsd = rd, wp
+                w_fsd = full(1.0)
+                fsd_lane = full(False, torch.bool)
 
-        null_lane = midflight & ~fsd_lane
-        # surface lanes redirected through the aperture leave the surface
-        # partition entirely
-        surface_eff = surface & ~fsd_lane
-        surf3, fsd3 = surface_eff[:, None], fsd_lane[:, None]
-        ro_new = torch.where(surf3, hit.p, torch.where(fsd3, p_fsd, wp))
-        rd_new = torch.where(surf3, wo_surface,
-                             torch.where(fsd3, wo_fsd, rd))
-        S_new = torch.where(surf3, S_surf, S_int * torch.where(
-            fsd_lane, w_fsd, 1.0)[:, None])
-        xf_new = torch.where(surf3, xf_surf, torch.where(
-            fsd3, _perp_axis(rd_new), st["xf"]))
-        exclude_new = torch.where(surface, hit.tri, st["exclude"])
-        env_fsd = sourcing.restart_envelope(rd_new, fp_int, k)
-        env_null = env_mod.EnvState(x=env.x, x0=fp_int, ta=env.ta, e=env.e)
-        env_new = env_mod.select(surface_eff, env_surf,
-                                 env_mod.select(fsd_lane, env_fsd, env_null))
+            null_lane = midflight & ~fsd_lane
+            # surface lanes redirected through the aperture leave the surface
+            # partition entirely
+            surface_eff = surface & ~fsd_lane
+            surf3, fsd3 = surface_eff[:, None], fsd_lane[:, None]
+            ro_new = torch.where(surf3, hit.p, torch.where(fsd3, p_fsd, wp))
+            rd_new = torch.where(surf3, wo_surface,
+                                 torch.where(fsd3, wo_fsd, rd))
+            S_new = torch.where(surf3, S_surf, S_int * torch.where(
+                fsd_lane, w_fsd, 1.0)[:, None])
+            xf_new = torch.where(surf3, xf_surf, torch.where(
+                fsd3, _perp_axis(rd_new), st["xf"]))
+            exclude_new = torch.where(surface, hit.tri, st["exclude"])
+            env_fsd = sourcing.restart_envelope(rd_new, fp_int, k)
+            env_null = env_mod.EnvState(x=env.x, x0=fp_int, ta=env.ta, e=env.e)
+            env_new = env_mod.select(
+                surface_eff, env_surf,
+                env_mod.select(fsd_lane, env_fsd, env_null))
 
-        # ---- russian roulette (not on null continuation)
-        u_rr = rng.uniform(dkeys, rng.D_RR)
-        q = (S_new[:, 0].abs() / st["S"][:, 0].abs().clamp_min(1e-30)
-             ).clamp(rr_floor, 1.0)
-        do_rr = ~null_lane if depth >= rr_depth else torch.zeros_like(lane)
-        survive = torch.where(do_rr, u_rr < q, True)
-        S_new = S_new / torch.where(do_rr, q, 1.0)[:, None]
+            # ---- russian roulette (not on null continuation)
+            u_rr = rng.uniform(dkeys, rng.D_RR)
+            q = (S_new[:, 0].abs() / st["S"][:, 0].abs().clamp_min(1e-30)
+                 ).clamp(rr_floor, 1.0)
+            do_rr = ~null_lane if depth >= rr_depth else torch.zeros_like(lane)
+            survive = torch.where(do_rr, u_rr < q, True)
+            S_new = S_new / torch.where(do_rr, q, 1.0)[:, None]
 
-        cont = (surface_eff & bs.valid) | fsd_lane | null_lane
-        active = lane & cont & survive & (S_new[:, 0].abs() > 1e-25) \
-            & torch.isfinite(S_new[:, 0])
+            cont = (surface_eff & bs.valid) | fsd_lane | null_lane
+            active = lane & cont & survive & (S_new[:, 0].abs() > 1e-25) \
+                & torch.isfinite(S_new[:, 0])
 
-        def sel(new, old):
-            return _where_lanes(active, new, old)
+            def sel(new, old):
+                return _where_lanes(active, new, old)
 
-        st = dict(
-            ro=sel(ro_new, ro), rd=sel(rd_new, rd), S=sel(S_new, st["S"]),
-            xf=sel(xf_new, st["xf"]), acc=acc, pos=pos, sig=sig,
-            hit_plane=hit_plane, active=active,
-            exclude=sel(exclude_new, st["exclude"]),
-            env=env_mod.select(active, env_new, env),
-            fsd_ap=fsd_mod.FsdAperture(**{
-                name: sel(new, old) for (name, new), (_, old)
-                in zip(ap_now.items(), st["fsd_ap"].items())}),
-            fsd_valid=active & (fsd & has_interaction & ap_nee_ok),
-            sampled_fsd=sel(fsd_lane, st["sampled_fsd"]),
-            dist_src=sel(torch.where(null_lane, st["dist_src"] + z_int, 0.0),
-                         st["dist_src"]),
-            # the deferred coherent sum runs from the segment origin
-            prev_vert=sel(ro, st["prev_vert"]),
-            S_prev=sel(S_int, st["S_prev"]),
-        )
+            st = dict(
+                ro=sel(ro_new, ro), rd=sel(rd_new, rd), S=sel(S_new, st["S"]),
+                xf=sel(xf_new, st["xf"]), acc=acc, pos=pos, sig=sig,
+                hit_plane=hit_plane, active=active,
+                exclude=sel(exclude_new, st["exclude"]),
+                env=env_mod.select(active, env_new, env),
+                fsd_ap=fsd_mod.FsdAperture(**{
+                    name: sel(new, old) for (name, new), (_, old)
+                    in zip(ap_now.items(), st["fsd_ap"].items())}),
+                fsd_valid=active & (fsd & has_interaction & ap_nee_ok),
+                sampled_fsd=sel(fsd_lane, st["sampled_fsd"]),
+                dist_src=sel(torch.where(null_lane, st["dist_src"] + z_int,
+                                         0.0), st["dist_src"]),
+                # the deferred coherent sum runs from the segment origin
+                prev_vert=sel(ro, st["prev_vert"]),
+                S_prev=sel(S_int, st["S_prev"]),
+            )
 
     sens = sensor.response.sensitivities(k, tables.spectra, None)
 

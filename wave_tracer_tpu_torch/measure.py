@@ -20,7 +20,13 @@ bdpt box cell's, the two coverage cells' and the two materials-box cells':
 `make_materials_box_scene(256)` through the wave path at 8 spp and
 through polarimetric plt_bdpt at 4 spp, depth 8), with each cell's CUDA
 kernel launches per pool step (per K1 launch: the pool traces once a
-step) or per bdpt batch. `launches` prints those counts alone for the
+step) or per bdpt batch, and for each span of the program
+(util/stats.py: `wt.frame`, the pool's `wt.pool.*`, the bounce's
+`wt.bounce.*`, the forward depth step's `wt.forward.*`) its count, the
+device time of the kernels launched inside it (`key_averages`: the torch
+ops' kernels; the port's own K1-K5, launched through ctypes, are not put
+down to a span there), its host seconds and its stream seconds (total
+and self) from the registry. `launches` prints those counts alone for the
 wave box, the classical box (16 spp), the bdpt box cell and the two
 coverage cells (per forward batch there), from one profiled render each
 after a warm-up, for an A/B of two trees. `cells` renders the wave box
@@ -183,15 +189,17 @@ def _profiled_render(built):
     """One render of `built` under torch.profiler after a warm-up →
     (wall s, event averages, CUDA kernel averages, render stats, (CUDA
     kernel launches, launches per pool step, forward depth step or bdpt
-    batch: over K1's launches, or over the batches, unit)))."""
+    batch: over K1's launches, or over the batches, unit))). The registry
+    (util/stats.py) holds this render's spans and counters alone."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    from wave_tracer_tpu_torch.accel import ray_kernels as rk
     from wave_tracer_tpu_torch.render import render_scene
+    from wave_tracer_tpu_torch.util.stats import registry
     render_scene(built, spp=1, device="cuda")          # warm-up
     torch.cuda.synchronize()
-    k1 = rk.LAUNCHES["closest"]
+    registry.reset()
+    k1 = registry.counter("launches/k1")
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -199,12 +207,14 @@ def _profiled_render(built):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    # a span's device-side range (a user annotation) is not a kernel
+    kernels = [e for e in events if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
     launches = sum(e.count for e in kernels)
     if st["mode"] == "bdpt":
         per, unit = launches / -(-st["paths"] // st["pool_lanes"]), "batch"
     else:       # K1 traces once a pool step, or once a forward depth step
-        per = launches / max(rk.LAUNCHES["closest"] - k1, 1)
+        per = launches / max(k1.value, 1)
         unit = "depth step" if st["mode"].startswith("forward") \
             else "pool step"
     return wall, events, kernels, st, (launches, per, unit)
@@ -212,6 +222,7 @@ def _profiled_render(built):
 
 def profile():
     from wave_tracer_tpu_torch.scene import build_scene
+    from wave_tracer_tpu_torch.util.stats import registry
     card = card_line()
     for tag, scene in [("wave box 256x256 8 spp depth 8",
                         wave_scene(256, 8, 8)),
@@ -232,12 +243,23 @@ def profile():
         for e in top:
             print(f"  {_self_dev_us(e) / 1e3:10.1f} ms "
                   f"{e.count:8d}x  {e.key[:90]}", flush=True)
-        ops = sorted((e for e in events if e.device_type.name == "CPU"),
+        ops = sorted((e for e in events if e.device_type.name == "CPU"
+                      and not e.key.startswith("wt.")),
                      key=lambda e: -_dev_us(e))[:12]
         for e in ops:
             print(f"  op {_dev_us(e) / 1e3:10.1f} ms device, "
                   f"{e.cpu_time_total / 1e3:10.1f} ms cpu {e.count:8d}x  "
                   f"{e.key[:60]}", flush=True)
+        spans = registry.report()
+        for e in events:
+            sp = spans.get(e.key)
+            if e.key.startswith("wt.") and e.device_type.name == "CPU" \
+                    and sp is not None:
+                print(f"  span {e.key:18s} {e.count:6d}x  kernels "
+                      f"{_dev_us(e) / 1e3:10.1f} ms device, host "
+                      f"{sp['host_s'] * 1e3:10.1f} ms, stream "
+                      f"{sp['stream_s'] * 1e3:10.1f} ms (self "
+                      f"{sp['self_stream_s'] * 1e3:10.1f} ms)", flush=True)
 
 
 def launches():

@@ -43,6 +43,12 @@ so it can raise the pool above the default as well as lower it; a value
 below 1 raises. Unset, the default stays the port's own (POOL_LANES_*),
 not the JAX package's 8k or 16k lanes of its drivers. Both apply to the
 compacted render only.
+
+Each `render_sensor` call is the span `wt.frame` (util/stats.py). The
+stats of a pool render add `pool_steps`, `pool_lane_slots` (the pool's
+width summed over its steps) and `pool_occupancy`, rays_cast over
+pool_lane_slots: the share of the pool's lane slots that held a live lane
+at a bounce.
 """
 
 from __future__ import annotations
@@ -171,59 +177,71 @@ class Renderer:
 
     def render_sensor(self, sensor_index: int = 0, spp: int | None = None,
                       progress=None, init_film=None, spp_start: int = 0):
-        built = self.built
-        device = card(self.device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        if built.device != device:
-            built = built.on(device)
-        scene = built.scene
-        sensor = scene.sensors[sensor_index]
-        mode, fsd_on, eps = render_mode(scene, sensor, built.data.edges.count)
-        cfg = scene.integrator
-        spp = spp or sensor.samples
-        data = dataclasses.replace(
-            built.data, spectral=built.spectral_per_sensor[sensor_index])
-        film = _start_film(sensor, init_film, device)
-        if mode == "forward":
-            return self._render_forward(data, sensor, spp, film, cfg, eps,
-                                        fsd_on, device, progress, spp_start)
-        if mode == "bdpt" or not self.compact:
-            return self._render_batched(data, sensor, spp, film, cfg, eps,
-                                        fsd_on, device, mode, progress,
-                                        spp_start)
-        npix = sensor.width * sensor.height
-        # chunk by spp only for interrupt granularity
-        spp_chunk = max(1, -(-spp // 8)) if self.interrupt else spp
-        width = pool_width(self.pool_lanes, device)
-        base_key = rng.make_base_key(self.seed)
-        stats = None
-        lanes = paths = 0
-        spp_done = spp_start
-        t0 = time.perf_counter()
-        for s0 in range(spp_start, spp, spp_chunk):
-            s1 = min(s0 + spp_chunk, spp)
-            n = min((s1 - s0) * npix, width)
-            film, st = render_pool(
-                data, film, base_key, (s0 * npix, s1 * npix), n,
-                sensor=sensor, max_depth=cfg.max_depth, eps=eps,
-                mis=cfg.mis, wave=fsd_on)
-            # one chunk (no interrupt) adds no launch to the pool's own
-            stats = st if stats is None else stats + st
-            lanes = max(lanes, n)
-            paths += (s1 - s0) * npix
-            spp_done = s1
-            if progress:
-                progress(s1, spp)
-            if self._poll_interrupt(film, spp_done, 0.0):
-                break
-        self.last_film, self.last_spp_done = film, spp_done
-        img = film_mod.develop(film).cpu().numpy()   # waits for the device
-        dt = time.perf_counter() - t0
-        if stats is None:                    # resumed with nothing left
-            stats = torch.zeros((path_mod.N_STATS,), device=device)
-        return img, _stats(dt, paths, "wave-compact" if fsd_on
-                           else "ray-compact", spp_done, spp, lanes, stats)
+        with stats_mod.span("wt.frame"):
+            built = self.built
+            device = card(self.device)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            if built.device != device:
+                built = built.on(device)
+            scene = built.scene
+            sensor = scene.sensors[sensor_index]
+            mode, fsd_on, eps = render_mode(scene, sensor,
+                                            built.data.edges.count)
+            cfg = scene.integrator
+            spp = spp or sensor.samples
+            data = dataclasses.replace(
+                built.data, spectral=built.spectral_per_sensor[sensor_index])
+            film = _start_film(sensor, init_film, device)
+            if mode == "forward":
+                return self._render_forward(data, sensor, spp, film, cfg,
+                                            eps, fsd_on, device, progress,
+                                            spp_start)
+            if mode == "bdpt" or not self.compact:
+                return self._render_batched(data, sensor, spp, film, cfg, eps,
+                                            fsd_on, device, mode, progress,
+                                            spp_start)
+            npix = sensor.width * sensor.height
+            # chunk by spp only for interrupt granularity
+            spp_chunk = max(1, -(-spp // 8)) if self.interrupt else spp
+            width = pool_width(self.pool_lanes, device)
+            base_key = rng.make_base_key(self.seed)
+            stats = None
+            lanes = paths = 0
+            steps = stats_mod.registry.counter("pool/steps")
+            lane_slots = stats_mod.registry.counter("pool/lane_slots")
+            steps0, slots0 = steps.value, lane_slots.value
+            spp_done = spp_start
+            t0 = time.perf_counter()
+            for s0 in range(spp_start, spp, spp_chunk):
+                s1 = min(s0 + spp_chunk, spp)
+                n = min((s1 - s0) * npix, width)
+                film, st = render_pool(
+                    data, film, base_key, (s0 * npix, s1 * npix), n,
+                    sensor=sensor, max_depth=cfg.max_depth, eps=eps,
+                    mis=cfg.mis, wave=fsd_on)
+                # one chunk (no interrupt) adds no launch to the pool's own
+                stats = st if stats is None else stats + st
+                lanes = max(lanes, n)
+                paths += (s1 - s0) * npix
+                spp_done = s1
+                if progress:
+                    progress(s1, spp)
+                if self._poll_interrupt(film, spp_done, 0.0):
+                    break
+            self.last_film, self.last_spp_done = film, spp_done
+            # waits for the device
+            img = film_mod.develop(film).cpu().numpy()
+            dt = time.perf_counter() - t0
+            if stats is None:                    # resumed with nothing left
+                stats = torch.zeros((path_mod.N_STATS,), device=device)
+            out = _stats(dt, paths, "wave-compact" if fsd_on
+                         else "ray-compact", spp_done, spp, lanes, stats)
+            slots = lane_slots.value - slots0
+            out.update(pool_steps=steps.value - steps0, pool_lane_slots=slots,
+                       pool_occupancy=out["device_counters"]["rays_cast"]
+                       / max(slots, 1))
+            return img, out
 
     def _poll_interrupt(self, film, spp_done, direct_norm):
         """True when the render should stop. direct_norm normalizes the

@@ -1,18 +1,46 @@
-"""Statistics collectors: counters, histograms, timings, running stats.
+"""Statistics collectors and spans: the port's one registry.
 
 Port of wave_tracer_tpu/util/stats.py: a process-global host registry of
-named collectors. The renderer records its device counters (rays, shadow
-rays, interactions, traversal classes, the tris-per-cone histogram) here
-after each backward render; `report()` gives them as a dict, and
-`print_table` / `write_json` write them out.
+named collectors, extended by spans.
+
+Counters and histograms are always on and are host numbers. The renderer
+folds its device counters (rays, shadow rays, interactions, traversal
+classes, the tris-per-cone histogram) into `integrator/*` and
+`ads/tris_per_cone` after each backward render; the lane pool counts
+`pool/steps`, `pool/lane_slots` and `pool/drain_steps`; each kernel
+wrapper counts its launches under `launches/k1` ... `launches/k5` (and
+`launches/k3_winners`) through a handle it holds from import on.
+
+`span(name)` marks a stage of the program. A span is on exactly while a
+torch.profiler profile records (`torch.autograd.profiler.
+_is_profiler_enabled`); off, it is a shared no-op context and costs one
+flag read. On, it opens `record_function(name)`, so the profiler's trace
+holds it on the clock of the device activity, and records a pair of CUDA
+events on the current stream (from a reused pool, without a wait). Its
+stream time runs from the later of the stream finishing the work queued
+before the span and the host entering it, to the later of the span's last
+operation finishing and the host leaving it: the spans of one step
+partition the step's stream time, and an idle stretch of the card falls
+in the span the host was in. Without CUDA, stream time is host time. The
+events are read once they have completed (at the exit of an outermost
+span, without waiting) or by `report()`, which waits for them.
+
+`report()` gives a dict: each counter's number, each histogram's bins,
+and for each span name {count, host_s, stream_s, self_stream_s} (self:
+minus the stream time of its child spans). `spans` keeps every span
+recorded since the last `reset()`: name, parent, frame (the index of the
+outermost span it ran under: a render's `wt.frame`), host start and end
+(`perf_counter_ns`) and stream seconds.
 """
 
 from __future__ import annotations
 
-import json
+import contextlib
 import math
 import time
-from collections import defaultdict
+
+import torch
+import torch.autograd.profiler as _profiler
 
 
 class Counter:
@@ -25,19 +53,8 @@ class Counter:
     def report(self):
         return self.value
 
-
-class EventCounter:
-    """N-bin event counter (e.g. ray casts: hit/miss/escaped)."""
-
-    def __init__(self, bins):
-        self.bins = list(bins)
-        self.counts = defaultdict(int)
-
-    def add(self, bin_name, n=1):
-        self.counts[bin_name] += n
-
-    def report(self):
-        return dict(self.counts)
+    def reset(self):
+        self.value = 0
 
 
 class Histogram:
@@ -64,43 +81,63 @@ class Histogram:
     def report(self):
         return list(self.counts)
 
+    def reset(self):
+        self.counts = [0] * self.n_bins
 
-class Timing:
+
+class SpanTotals:
+    """Count, host seconds, stream seconds and self stream seconds of the
+    spans of one name."""
+
     def __init__(self):
-        self.total = 0.0
+        self.reset()
+
+    def report(self):
+        return dict(count=self.count, host_s=self.host_s,
+                    stream_s=self.stream_s, self_stream_s=self.self_s)
+
+    def reset(self):
         self.count = 0
-        self._t0 = None
+        self.host_s = self.stream_s = self.self_s = 0.0
+
+
+class Span:
+    """One recorded span; a context manager while it is open."""
+
+    __slots__ = ("reg", "name", "parent", "frame", "host0", "host1",
+                 "stream_s", "_rf", "_ev0", "_ev1")
+
+    def __init__(self, reg, name):
+        self.reg, self.name = reg, name
+        self.host1 = self.stream_s = self._ev0 = self._ev1 = None
 
     def __enter__(self):
-        self._t0 = time.time()
+        reg = self.reg
+        self.parent = reg._open[-1] if reg._open else None
+        if self.parent is None:
+            reg._roots += 1
+        self.frame = reg._roots - 1
+        self._rf = _profiler.record_function(self.name)
+        self._rf.__enter__()
+        self.host0 = time.perf_counter_ns()
+        if torch.cuda.is_initialized():
+            self._ev0 = reg._event()
+        reg._open.append(self)
+        reg.spans.append(self)
         return self
 
-    def __exit__(self, *a):
-        self.total += time.time() - self._t0
-        self.count += 1
-
-    def report(self):
-        return dict(total_s=self.total, count=self.count,
-                    mean_s=self.total / max(self.count, 1))
-
-
-class RunningStat:
-    """Weighted mean/variance accumulator."""
-
-    def __init__(self):
-        self.n = 0
-        self.mean = 0.0
-        self.m2 = 0.0
-
-    def add(self, x, w=1):
-        self.n += w
-        d = x - self.mean
-        self.mean += d * w / self.n
-        self.m2 += w * d * (x - self.mean)
-
-    def report(self):
-        var = self.m2 / max(self.n - 1, 1)
-        return dict(n=self.n, mean=self.mean, std=math.sqrt(max(var, 0.0)))
+    def __exit__(self, *exc):
+        reg = self.reg
+        if self._ev0 is not None:
+            self._ev1 = reg._event()
+        self.host1 = time.perf_counter_ns()
+        self._rf.__exit__(*exc)
+        self._rf = None
+        reg._open.pop()
+        reg._pending.append(self)
+        if self.parent is None:
+            reg._fold(wait=False)
+        return False
 
 
 class Registry:
@@ -108,37 +145,77 @@ class Registry:
 
     def __init__(self):
         self._collectors = {}
+        self.spans = []
+        self._open = []          # the spans open now, innermost last
+        self._pending = []       # closed spans whose stream time is unread
+        self._free = []          # CUDA events to reuse
+        self._roots = 0
+
+    def _get(self, name, kind):
+        c = self._collectors.get(name)
+        if c is None:
+            c = self._collectors[name] = kind()
+        return c
 
     def counter(self, name) -> Counter:
-        return self._collectors.setdefault(name, Counter())
+        return self._get(name, Counter)
 
-    def event_counter(self, name, bins=()) -> EventCounter:
-        return self._collectors.setdefault(name, EventCounter(bins))
+    def histogram(self, name) -> Histogram:
+        return self._get(name, Histogram)
 
-    def histogram(self, name, **kw) -> Histogram:
-        return self._collectors.setdefault(name, Histogram(**kw))
+    def _event(self):
+        """A timing CUDA event from the pool, recorded on the current
+        stream."""
+        ev = self._free.pop() if self._free else \
+            torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
 
-    def timing(self, name) -> Timing:
-        return self._collectors.setdefault(name, Timing())
-
-    def running(self, name) -> RunningStat:
-        return self._collectors.setdefault(name, RunningStat())
+    def _fold(self, wait):
+        """Add the closed spans to their names' totals, those whose end
+        event has completed (every one with `wait`)."""
+        keep = []
+        for s in self._pending:
+            if s._ev1 is None:
+                s.stream_s = (s.host1 - s.host0) * 1e-9
+            elif wait or s._ev1.query():
+                s._ev1.synchronize()
+                s.stream_s = s._ev0.elapsed_time(s._ev1) * 1e-3
+                self._free += (s._ev0, s._ev1)
+                s._ev0 = s._ev1 = None
+            else:
+                keep.append(s)
+                continue
+            t = self._get(s.name, SpanTotals)
+            t.count += 1
+            t.host_s += (s.host1 - s.host0) * 1e-9
+            t.stream_s += s.stream_s
+            t.self_s += s.stream_s
+            if s.parent is not None:
+                self._get(s.parent.name, SpanTotals).self_s -= s.stream_s
+        self._pending = keep
 
     def report(self) -> dict:
+        self._fold(wait=True)
         return {k: c.report() for k, c in sorted(self._collectors.items())}
 
-    def print_table(self, out=print):
-        out(f"{'statistic':40s} value")
-        out("-" * 60)
-        for k, v in self.report().items():
-            out(f"{k:40s} {v}")
-
-    def write_json(self, path):
-        with open(path, "w") as f:
-            json.dump(self.report(), f, indent=2, default=str)
-
     def reset(self):
-        self._collectors.clear()
+        """Zero every collector (the handles callers hold stay live) and
+        drop the recorded spans."""
+        self._fold(wait=True)
+        for c in self._collectors.values():
+            c.reset()
+        self.spans.clear()
 
 
 registry = Registry()
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A span of the program's stage `name` in the registry; a shared
+    no-op context unless a torch.profiler profile records."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return Span(registry, name)
