@@ -1056,8 +1056,8 @@ def summarize_calls(rk, calls, T, phase):
         out[kind] = dict(launches=len(rows), ms_per_launch=sum(ms) / len(ms),
                          ms_max=max(ms), needed_share=n_need / max(n_rows, 1),
                          needed_rows=n_need, rows=n_rows)
-        if kind == "cone_minz":
-            nbytes = len(rows) * cone_bytes(POOL, T)
+        if kind == "cone_minz":         # the rows each launch was given
+            nbytes = sum(cone_bytes(c[1], T) for c in rows)
         else:
             nbytes = len(rows) * T * rk.NF * 4 + n_need * (
                 52 if kind == "closest" else 45)

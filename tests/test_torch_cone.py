@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from test_mxu_cone import _Geo, _lanes, _random_scene
 from test_torch_threads import cap_torch_threads
@@ -101,6 +102,68 @@ def test_fewer_boundaries_and_no_triangles():
     zc0, cnt0 = ttrace.cone_boundary_minz(_torch_geo(e, e, e), *args,
                                           bounds, zmax)
     assert torch.isinf(zc0).all() and (cnt0 == 0).all()
+
+
+def _need_mask(kind, N):
+    if kind == "random":
+        return torch.from_numpy(np.random.default_rng(5).random(N) < 0.4)
+    need = torch.full((N,), kind == "all")
+    if kind == "one":
+        need[N // 3] = True
+    return need
+
+
+@pytest.mark.parametrize("derivative", [False, True])
+@pytest.mark.parametrize("mask", ["random", "all", "none", "one"])
+def test_cone_boundary_minz_need(mask, derivative):
+    """Rows on `need` get, bit for bit, what the call without a mask gives
+    them, and with a derivative in play (forward mode w.r.t. the lanes'
+    origins, through the winner build) the same tangents; rows off it get
+    the no-encounter answer, inf minima, a count of 0 and no derivative.
+    The rows counters add the call's rows on and off `need`."""
+    T, N = 700, 200
+    p0, e1, e2 = _random_scene(T)
+    geo = _torch_geo(p0, e1, e2)
+    ro, rd, env = _lanes(N)
+    ro, rd, env = _t(ro), _t(rd), _torch_env(env)
+    bounds = _t(jtraversal.segment_boundaries(jnp.full((N,), 0.05)))
+    zmax = torch.full((N,), 30.0)
+    exclude = (torch.arange(N, dtype=torch.int32) * 7) % T
+    need = _need_mask(mask, N)
+    d_ro = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(N, 3)).astype(np.float32))
+    swept = registry.counter("k3/rows_swept")
+    skipped = registry.counter("k3/rows_skipped")
+
+    def sweep(rows):
+        """(minima, their tangents or None, counts, rows swept, skipped)."""
+        before = swept.value, skipped.value
+        with fwAD.dual_level():
+            o = fwAD.make_dual(ro, d_ro) if derivative else ro
+            zc, cnt = ttrace.cone_boundary_minz(geo, o, rd, env, bounds, zmax,
+                                                exclude_tri=exclude,
+                                                need=rows)
+            z, dz = fwAD.unpack_dual(zc)
+        return (z, dz, cnt, swept.value - before[0],
+                skipped.value - before[1])
+
+    z_all, dz_all, cnt_all, n_all, _ = sweep(None)
+    z, dz, cnt, n_swept, n_skipped = sweep(need)
+    M = int(need.sum())
+    assert (n_all, n_swept, n_skipped) == (N, M, N - M)
+    assert torch.equal(z[need].view(torch.int32),
+                       z_all[need].view(torch.int32))
+    assert torch.equal(cnt[need], cnt_all[need])
+    assert torch.isinf(z[~need]).all() and (cnt[~need] == 0).all()
+    assert torch.isfinite(z_all).any(1).float().mean() > 0.3
+    if not derivative:
+        assert dz_all is None and dz is None
+        return
+    fin = torch.isfinite(z_all)
+    assert (dz_all[fin] != 0).float().mean() > 0.5
+    if M:
+        assert torch.equal(dz[need], dz_all[need])
+    assert dz is None or (dz[~need] == 0).all()
 
 
 def test_cone_kernel_wrapper_devices():

@@ -340,6 +340,73 @@ def test_closest_hit_ties_on_card(cuda, smaller_left):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("derivative", [False, True])
+def test_cone_need_on_card(cuda, derivative):
+    """cone_boundary_minz with a `need` mask on the card: one K3 launch
+    over the gathered rows, whose minima and counts (with a derivative in
+    play, through the winner build: and tangents) equal, bit for bit, the
+    unmasked launch's, and the CPU's (the tangents within rounding); rows
+    off the mask get inf minima and a count of 0."""
+    import torch.autograd.forward_ad as fwAD
+
+    from wave_tracer_tpu_torch.accel import trace as trace_mod
+    from wave_tracer_tpu_torch.wave.envelope import EnvState
+    r = np.random.default_rng(11)
+    T, N = 3000, 4100
+    p0 = r.uniform(-4, 4, (T, 3)).astype(np.float32)
+    e = r.uniform(-1, 1, (2, T, 3)).astype(np.float32)
+    ro = r.uniform(-5, 5, (N, 3)).astype(np.float32)
+    rd = r.normal(size=(N, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    xh = np.cross(rd, r.normal(size=(N, 3))).astype(np.float32)
+    xh /= np.linalg.norm(xh, axis=-1, keepdims=True)
+    lane = [r.uniform(lo, hi, N).astype(np.float32)
+            for lo, hi in ((0.01, 0.3), (0.01, 0.2), (0.6, 1.0))]
+    ex = r.integers(-1, T, N).astype(np.int32)
+    need = r.random(N) < 0.3
+    d_ro = r.normal(size=(N, 3)).astype(np.float32)
+
+    def sweep(dev, mask):
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        geo = trace_mod.GeoArrays(
+            p0=t(p0), e1=t(e[0]), e2=t(e[1]),
+            tri_geom=torch.zeros((T, 12), device=dev),
+            tri_attr=torch.zeros((T, 32), device=dev),
+            mxu_center=torch.zeros(3, device=dev))
+        env = EnvState(x=t(xh), x0=t(lane[0]), ta=t(lane[1]), e=t(lane[2]))
+        lam = torch.full((N,), 0.05, device=dev)
+        with fwAD.dual_level():
+            o = fwAD.make_dual(t(ro), t(d_ro)) if derivative else t(ro)
+            zc, cnt = trace_mod.cone_boundary_minz(
+                geo, o, t(rd), env, segment_boundaries(lam),
+                torch.full((N,), 30.0, device=dev), exclude_tri=t(ex),
+                need=None if mask is None else t(mask))
+            z, dz = fwAD.unpack_dual(zc)
+        return [x if x is None else x.cpu() for x in (z, dz, cnt)]
+
+    before = launches()
+    z, dz, cnt = sweep(cuda, need)
+    assert launches()["k3"] == before["k3"] + 1
+    assert launches()["k3_winners"] == before["k3_winners"] + derivative
+    z_all, dz_all, cnt_all = sweep(cuda, None)
+    z_cpu, dz_cpu, cnt_cpu = sweep("cpu", need)
+    m = torch.from_numpy(need)
+    assert torch.isfinite(z_all[m]).any()
+    assert torch.equal(z[m], z_all[m]) and torch.equal(cnt[m], cnt_all[m])
+    assert torch.equal(z, z_cpu) and torch.equal(cnt, cnt_cpu)
+    assert torch.isinf(z[~m]).all() and (cnt[~m] == 0).all()
+    if derivative:
+        torch.testing.assert_close(dz[m], dz_all[m], rtol=0, atol=0,
+                                   equal_nan=True)
+        assert (dz[~m] == 0).all()
+        assert (dz != 0).any()
+        # the winners' z is recomputed by torch ops, which may round
+        # otherwise on the card
+        torch.testing.assert_close(dz, dz_cpu, rtol=1e-4, atol=1e-6,
+                                   equal_nan=True)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("fsd", [False, True])
 def test_carried_hits_on_card(cuda, fsd):
     """A render whose pool carries hits (lanes refill and hit the depth

@@ -31,13 +31,14 @@ from test_torch_threads import cap_torch_threads
 from wave_tracer_tpu.render import render_scene as jrender
 from wave_tracer_tpu.scene import build_scene as jbuild
 from wave_tracer_tpu_torch.accel import ray_kernels
-from wave_tracer_tpu_torch.integrator import path_compact
+from wave_tracer_tpu_torch.integrator import path_compact, plt_path
 from wave_tracer_tpu_torch.render import renderer as renderer_mod
 from wave_tracer_tpu_torch.render import render_scene
 from wave_tracer_tpu_torch.scene.build import BuiltScene, build_scene
 from wave_tracer_tpu_torch.scene.bridge import SPECTRAL_KEYS
 from wave_tracer_tpu_torch.scene.procedural import \
     make_box_scene as tmake_box_scene
+from wave_tracer_tpu_torch.util import stats as stats_mod
 
 cap_torch_threads()
 
@@ -161,3 +162,50 @@ def test_wave_carried_hits_change_nothing(renders, monkeypatch):
     assert shares and all(x is None for x in shares)
     np.testing.assert_array_equal(img, img0)
     assert st["device_counters"] == st0["device_counters"]
+
+
+@pytest.mark.parametrize("lanes", [LANES // 4, 100])
+def test_wave_pool_sweeps_only_the_rows_it_reads(renders, monkeypatch,
+                                                 lanes):
+    """K3 sweeps only the rows whose answer is read: the live lanes, and
+    the dead ones whose ray no bounce has classified yet (lanes the depth
+    cap ended while the pool drains); a dead lane counts the interaction
+    it was classified under. The image and every counter equal, bit for
+    bit, those of a render that sweeps every row and classifies every
+    lane anew at each bounce (the bounce without the carried class).
+    k3/rows_swept is integrator/rays_cast plus those dead unclassified
+    rows, and with k3/rows_skipped makes pool/lane_slots."""
+    built = renders["own_built"]
+    reg = stats_mod.registry
+    names = ("k3/rows_swept", "k3/rows_skipped", "pool/lane_slots")
+    unclassified = []
+    real_swept = plt_path.swept_lanes
+
+    def spy(st, with_stats):
+        rows = real_swept(st, with_stats)
+        unclassified.append(int((rows & ~st["active"]).sum()))
+        return rows
+
+    monkeypatch.setattr(plt_path, "swept_lanes", spy)
+    before = [reg.counter(n).value for n in names]
+    img, st = render_scene(built, device="cpu", pool_lanes=lanes)
+    swept, skipped, slots = (reg.counter(n).value - b
+                             for n, b in zip(names, before))
+    monkeypatch.setattr(plt_path, "swept_lanes", real_swept)
+    real_bounce = path_compact.wave_bounce
+
+    def every_row(data, edges, st, *args, **kw):
+        st = dict(st)
+        carried = st.pop("interaction")
+        return dict(real_bounce(data, edges, st, *args, **kw),
+                    interaction=carried)
+
+    monkeypatch.setattr(path_compact, "wave_bounce", every_row)
+    before = reg.counter("k3/rows_skipped").value
+    img0, st0 = render_scene(built, device="cpu", pool_lanes=lanes)
+    assert reg.counter("k3/rows_skipped").value == before
+    np.testing.assert_array_equal(img, img0)
+    assert st["device_counters"] == st0["device_counters"]
+    assert swept == st["device_counters"]["rays_cast"] + sum(unclassified)
+    assert sum(unclassified) > 0 and skipped > 0
+    assert swept + skipped == slots == lanes * len(unclassified)

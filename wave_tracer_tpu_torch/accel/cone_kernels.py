@@ -57,6 +57,10 @@ CHUNK_BLOCKS = 48
 # every launch of K3; those of its winner build also under k3_winners
 _K3_LAUNCHES = registry.counter("launches/k3")
 _K3_WINNER_LAUNCHES = registry.counter("launches/k3_winners")
+# the rows of accel/trace.py::cone_boundary_minz's calls, on either route:
+# those swept (on its `need`) and those given the no-encounter answer
+K3_ROWS_SWEPT = registry.counter("k3/rows_swept")
+K3_ROWS_SKIPPED = registry.counter("k3/rows_skipped")
 
 _lib = None
 

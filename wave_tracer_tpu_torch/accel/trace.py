@@ -242,12 +242,17 @@ def occluded(geo: GeoArrays, ro, rd, tmin, tmax, exclude_tri=None,
 
 
 def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
-                       zmin: float = 1e-7, exclude_tri=None):
+                       zmin: float = 1e-7, exclude_tri=None, need=None):
     """Earliest exact cone–triangle entry ≥ each schedule boundary.
 
     bounds (N, B) with B ≤ 16; env the lanes' EnvState. Returns (zc (N, B)
     per-boundary minima, inf where no encounter lies ahead; cnt (N,) i32
-    exact encounter count). The kernel reads `primal` copies, so the
+    exact encounter count). `need` (N,) bool names the rows whose answer
+    is read (None: all): K3 sweeps only those, gathered into one launch
+    (one host read of their number), and every other row takes the answer
+    of a cone that meets nothing, inf minima and a count of 0. The
+    counters `k3/rows_swept` and `k3/rows_skipped` add the rows of each
+    call on and off `need`. The kernel reads `primal` copies, so the
     minima are a detached pick. Where the lanes, the bounds or the
     triangles (geo.p0/e1/e2) carry a derivative, K3 also returns each
     minimum's triangle and the minimum takes the derivative of that
@@ -264,6 +269,35 @@ def cone_boundary_minz(geo: GeoArrays, ro, rd, env, bounds, zmax,
                 torch.zeros((N,), dtype=torch.int32, device=dev))
     if exclude_tri is None:
         exclude_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    rows = None if need is None \
+        else ray_kernels.primal(need).nonzero().squeeze(1)
+    M = N if rows is None else rows.numel()
+    cone_kernels.K3_ROWS_SWEPT.add(M)
+    cone_kernels.K3_ROWS_SKIPPED.add(N - M)
+    if M == 0:
+        return (torch.full((N, B), float("inf"), device=dev),
+                torch.zeros((N,), dtype=torch.int32, device=dev))
+    if M < N:
+        ro, rd, zmax, bounds, exclude_tri = (
+            x[rows] for x in (ro, rd, zmax, bounds, exclude_tri))
+        env = EnvState(x=env.x[rows], x0=env.x0[rows], ta=env.ta[rows],
+                       e=env.e[rows])
+    else:
+        rows = None
+    zc, cnt = _cone_minz_rows(geo, ro, rd, env, bounds, zmax, zmin,
+                              exclude_tri)
+    if rows is None:
+        return zc, cnt
+    # out of place, so that a derivative of zc passes in both AD modes
+    return (zc.new_full((N, B), float("inf")).index_put((rows,), zc),
+            cnt.new_zeros((N,)).index_put((rows,), cnt))
+
+
+def _cone_minz_rows(geo: GeoArrays, ro, rd, env, bounds, zmax, zmin,
+                    exclude_tri):
+    """`cone_boundary_minz` of every row given: one K3 call, and the
+    winners' derivative where one is in play."""
+    N, B = bounds.shape
     primal = ray_kernels.primal
     grad = ray_kernels.carries_derivative(
         ro, rd, env.x, env.e, env.x0, env.ta, zmax, bounds, geo.p0, geo.e1,

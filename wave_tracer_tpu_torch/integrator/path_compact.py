@@ -21,7 +21,10 @@ ray is still the one that hit belongs to (hit_current): a refill and a
 bounce that writes a new ray clear it, the trace sets it. The bounce
 traces only the lanes without a current hit; the others (dead lanes,
 which keep their ray) take the carried one, which is what tracing them
-again would give.
+again would give. In the same way a wave lane carries the interaction its
+ray was last classified under (`interaction`), which the bounce's surface,
+FSD and null counters take for a dead lane: K3 then sweeps only the live
+lanes and those whose ray no bounce has classified yet.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ import torch
 from wave_tracer_tpu_torch.integrator.path import (N_STATS, camera_lanes,
                                                    classical_bounce,
                                                    sensor_values)
-from wave_tracer_tpu_torch.integrator.plt_path import beam_state, wave_bounce
+from wave_tracer_tpu_torch.integrator.plt_path import (UNCLASSIFIED,
+                                                       beam_state,
+                                                       wave_bounce)
 from wave_tracer_tpu_torch.sampling import rng
 from wave_tracer_tpu_torch.sensor import film as film_mod
 from wave_tracer_tpu_torch.util.stats import registry, span
@@ -73,7 +78,9 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
         sens = sensor.response.sensitivities(k, data.tables.spectra, None)
         if wave:
             ps.update(beam_state(ps["ro"], ps["rd"], ps["M"],
-                                 pixel_tan_alpha, FSD_SLOTS))
+                                 pixel_tan_alpha, FSD_SLOTS),
+                      interaction=torch.full((n,), UNCLASSIFIED,
+                                             dtype=torch.int8, device=dev))
         if carry_hits:
             ps.update(hit_t=torch.zeros((n,), dtype=torch.float32,
                                         device=dev),
@@ -150,8 +157,13 @@ def _pool_parts(sensor, max_depth, eps, mis, rr_depth, rr_floor, wave,
                                         meta["depth"])
             # depth cap = the batched renderer's max_depth. The lanes it
             # ends hold the new ray the bounce wrote, which is not traced
-            # yet: the bounce cleared their hit_current
-            ps["active"] = ps["active"] & (meta["depth"] < max_depth)
+            # or classified yet: the bounce cleared their hit_current
+            below = meta["depth"] < max_depth
+            if wave:
+                ps["interaction"] = torch.where(ps["active"] & ~below,
+                                                UNCLASSIFIED,
+                                                ps["interaction"])
+            ps["active"] = ps["active"] & below
         return dict(ps=ps, meta=meta, film=c["film"], pending=pending,
                     next_id=next_id)
 

@@ -52,6 +52,12 @@ from wave_tracer_tpu_torch.wave import sourcing
 BIG = 1e30
 # z-extent of the interaction region relative to the footprint major axis
 Z_SCALE = 2.0
+# the interaction a lane's ray took when a bounce last classified it (the
+# pool carries it as "interaction", int8): a dead lane keeps its ray, and
+# the surface, FSD and null counters count it again at every bounce, as
+# the JAX package's do; UNCLASSIFIED where no bounce has classified the
+# lane's ray yet (a slot not filled yet, a lane the depth cap ended)
+UNCLASSIFIED, NO_INTERACTION, SURFACE, FSD, NULL = -1, 0, 1, 2, 3
 
 
 def _where_lanes(cond, new, old):
@@ -70,6 +76,16 @@ def beam_state(ro, rd, M0, pixel_tan_alpha, K):
                 fsd_valid=torch.zeros((n,), dtype=torch.bool, device=dev),
                 sampled_fsd=torch.zeros((n,), dtype=torch.bool, device=dev),
                 prev_vert=ro.clone(), M_prev=M0.clone())
+
+
+def swept_lanes(st, with_stats):
+    """The rows of the bounce's cone sweep whose answer is read: the live
+    lanes, and with the counters on the dead lanes whose interaction they
+    count anew (every dead lane when the state carries no class, as in
+    `trace_paths_wave`). None: every row."""
+    if "interaction" in st:
+        return st["active"] | (st["interaction"] == UNCLASSIFIED)
+    return None if with_stats else st["active"]
 
 
 def trace_paths_wave(data, pixel_xy, jitter, base_key, sample_ids, *, sensor,
@@ -146,6 +162,7 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
                                        st["exclude"], **carried_hit(st))
         hit = trace_mod.hit_attributes(geo, ro, rd, t, tri, u, v)
         lane = st["active"]
+        swept = swept_lanes(st, with_stats)
 
         env = st["env"]
         zmax = torch.where(hit.valid, hit.t * 1.02 + env.x0,
@@ -177,8 +194,11 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
             tr = traversal_mod.schedule(hit.t, hit.valid, tz, env, lam, zmax)
         else:
             bounds = traversal_mod.segment_boundaries(lam)
+            # rows off the sweep get the no-encounter answer: their
+            # schedule, surface, FSD and null are read by nothing
             zc, tcnt = trace_mod.cone_boundary_minz(
-                geo, ro, rd, env, bounds, zmax, exclude_tri=st["exclude"])
+                geo, ro, rd, env, bounds, zmax, exclude_tri=st["exclude"],
+                need=swept)
             tr = traversal_mod.schedule_from_minz(hit.t, hit.valid, zc, env,
                                                   lam, zmax)
             cone_tests_per_lane = float(geo.num_tris)
@@ -356,6 +376,16 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
 
         cont = (surface & bs.valid) | fsd_lane | null_lane
         active = lane & cont & survive & (beta > 1e-12)
+        # the classes the counters take: a lane off the sweep keeps the
+        # one it was counted under
+        counted, carried = (surface, fsd_lane, null_lane), {}
+        if "interaction" in st:
+            interaction = torch.where(swept, torch.where(
+                surface, SURFACE, torch.where(fsd_lane, FSD, torch.where(
+                    null_lane, NULL, NO_INTERACTION))).to(torch.int8),
+                st["interaction"])
+            counted = tuple(interaction == c for c in (SURFACE, FSD, NULL))
+            carried = dict(interaction=interaction)
 
         stats = st["stats"]
         if with_stats:
@@ -363,10 +393,11 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
                 return m.sum(dtype=f32)
             nlane = cnt(lane)
             shadow_legs = float(2 * K + 1)
+            n_surface, n_fsd, n_null = (cnt(m) for m in counted)
             add = torch.stack([                              # STAT_* order
                 nlane,                                       # rays
-                cnt(surface) + shadow_legs * nlane,          # shadow rays
-                cnt(surface), cnt(fsd_lane), cnt(null_lane),
+                n_surface + shadow_legs * nlane,             # shadow rays
+                n_surface, n_fsd, n_null,
                 cnt(lane & cont & ~survive),                 # rr kills
                 cnt(active),                                 # depth sum
                 cnt(lane & have_edges),
@@ -398,4 +429,5 @@ def wave_bounce(data, edge_table, st, dkeys, k, depth, *, eps, mis, fsd,
             M_prev=_where_lanes(active, M_cur, st["M_prev"]),
             stats=stats,
             **next_carried_hit(st, t, tri, active),
+            **carried,
         )

@@ -9,7 +9,9 @@ classes, the tris-per-cone histogram) into `integrator/*` and
 `ads/tris_per_cone` after each backward render; the lane pool counts
 `pool/steps`, `pool/lane_slots` and `pool/drain_steps`; each kernel
 wrapper counts its launches under `launches/k1` ... `launches/k5` (and
-`launches/k3_winners`) through a handle it holds from import on.
+`launches/k3_winners`) through a handle it holds from import on, and the
+cone sweep (`accel/trace.py::cone_boundary_minz`) the rows it gives K3
+and those off its `need` (`k3/rows_swept`, `k3/rows_skipped`).
 
 `span(name)` marks a stage of the program. A span is on exactly while a
 torch.profiler profile records (`torch.autograd.profiler.
